@@ -1,0 +1,41 @@
+"""jrlqp_tpu_torch -- the batched Goldfarb-Idnani QP solver in PyTorch + CUDA.
+
+A port of :mod:`jrlqp_tpu` (JAX/Pallas) to PyTorch with hand-written CUDA
+kernels for NVIDIA Hopper (``sm_90a``). Module names follow the JAX package
+so each counterpart is easy to find. The package imports ``torch`` only; the
+kernels are compiled from ``csrc/`` at first use on a CUDA tensor
+(:mod:`jrlqp_tpu_torch.ops.cuda._build`), and CPU tensors run each kernel's
+plain PyTorch version.
+
+Main path: :func:`jrlqp_tpu_torch.solver.fast.solve_refined_kernel`, the
+counterpart of ``jrlqp_tpu.solver.fast.solve_refined_pallas(...,
+fused_init=True)``.
+"""
+import torch as _torch
+
+# The GI dual step breaks under reduced-precision f32 products, and the f64
+# refinement's f32 corrections lose accuracy with TF32: pin full f32 for
+# matmuls and convolutions (counterpart of jrlqp_tpu/__init__.py:19-26).
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from .problems import QPProblem, problem_from_numpy, result_to_numpy  # noqa: E402
+from .solver.fast import solve_refined_kernel  # noqa: E402
+from .solver.state import GIResult  # noqa: E402
+from .types import ActivationStatus, SolverOptions, TerminationStatus  # noqa: E402
+from .validation import inconsistent_mask  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "QPProblem",
+    "problem_from_numpy",
+    "result_to_numpy",
+    "solve_refined_kernel",
+    "GIResult",
+    "ActivationStatus",
+    "TerminationStatus",
+    "SolverOptions",
+    "inconsistent_mask",
+]

@@ -1,0 +1,529 @@
+// Fused Goldfarb-Idnani whole-solve kernel (K1), f32, one thread block per
+// problem.
+//
+// Replaces the Pallas kernel jrlqp_tpu/ops/pallas/gi_kernel.py::
+// _kernel_packed_fused (:674) with its loop _packed_iterate (:364),
+// launched by _run_fused (:1281). It computes the same thing per problem:
+//   prologue  Cholesky of the identity-padded G (block_llt.cuh, K2), L^-1,
+//             H0 = L^-T L^-1, x0 = -H0 a, the non-SPD flag, tr0 = trace(H0),
+//             then the ascending equality/fixed replay and OVERCONSTRAINED
+//             when #eq > n;
+//   loop      most-violated selection (skipped after a removal), [z|r] =
+//             n+ K with K = [H | N*^T], step lengths, one rank-one update
+//             of K per iteration (add or remove), hole-based active slots.
+// The index layout is the Pallas kernel's: padded sizes np = round_up(n+1,
+// 8) and mp = round_up(m, 8), constraints in [0, mp), bounds in [mp, mp+np).
+// Padded constraint rows and variables are never candidates, so the order
+// of the real ones (constraints first, then bounds) and every
+// lowest-index tie break are those of the reference.
+//
+// What bounds it here: each problem is a latency-bound chain of ~60-100
+// dependent iterations at n = 50, m = 100, each doing ~n * 2n FMAs between
+// block-wide barriers; the device's FLOP rate and bandwidth are far from
+// the limit. The design keeps the whole state (G, C^T, K and the row
+// vectors, ~66 KB at the headline) in shared memory for the entire solve,
+// so nothing leaves the SM between iterations; spreads each matvec and the
+// rank-one update over 128 threads (one column or element per thread);
+// does every reduction (argmin with lowest-index ties, the four dot
+// products) as one warp-shuffle pass plus one barrier; and keeps the
+// per-problem scalars in registers, computed identically by every thread,
+// so branches are uniform and need no broadcast. A problem stops on its own
+// when its term leaves RUNNING, which gives each lane the result a frozen
+// lane of the TPU's packs gets. Several problems share an SM (3 blocks at
+// the headline), which hides part of the barrier latency.
+#include <cuda_runtime.h>
+
+#include "block_llt.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr float BIG = 1e30f;
+constexpr int kNone = 0x7fffffff;
+
+// ActivationStatus / TerminationStatus (jrlqp_tpu_torch/types.py)
+constexpr int LOWER = 1, UPPER = 2, EQUALITY = 3, LOWER_BOUND = 4,
+              UPPER_BOUND = 5, FIXED = 6;
+constexpr int RUNNING = -1, SUCCESS = 0, NON_POS_HESSIAN = 2, INFEASIBLE = 3,
+              MAX_ITER_REACHED = 4, LINEAR_DEPENDENCY_DETECTED = 5,
+              OVERCONSTRAINED_PROBLEM = 6;
+
+// One block-wide reduction: (min, argmin) with ties to the lowest index,
+// a min over a second index, and four sums.
+struct Red {
+  float v;
+  int i, i2;
+  float s0, s1, s2, s3;
+};
+
+__device__ __forceinline__ Red red_identity() {
+  Red r;
+  r.v = __int_as_float(0x7f800000);  // +inf
+  r.i = kNone;
+  r.i2 = kNone;
+  r.s0 = r.s1 = r.s2 = r.s3 = 0.0f;
+  return r;
+}
+
+__device__ __forceinline__ void red_min(Red& a, float v, int i) {
+  if (v < a.v || (v == a.v && i < a.i)) {
+    a.v = v;
+    a.i = i;
+  }
+}
+
+__device__ __forceinline__ void red_combine(Red& a, const Red& b) {
+  red_min(a, b.v, b.i);
+  a.i2 = min(a.i2, b.i2);
+  a.s0 += b.s0;
+  a.s1 += b.s1;
+  a.s2 += b.s2;
+  a.s3 += b.s3;
+}
+
+// Every thread returns the same value. `scratch` holds 2 * kWarps entries
+// used alternately, so back-to-back reductions need one barrier each.
+__device__ __forceinline__ Red block_reduce(Red r, Red* scratch, int& parity) {
+  const unsigned full = 0xffffffffu;
+  for (int o = 16; o > 0; o >>= 1) {
+    Red b;
+    b.v = __shfl_xor_sync(full, r.v, o);
+    b.i = __shfl_xor_sync(full, r.i, o);
+    b.i2 = __shfl_xor_sync(full, r.i2, o);
+    b.s0 = __shfl_xor_sync(full, r.s0, o);
+    b.s1 = __shfl_xor_sync(full, r.s1, o);
+    b.s2 = __shfl_xor_sync(full, r.s2, o);
+    b.s3 = __shfl_xor_sync(full, r.s3, o);
+    red_combine(r, b);
+  }
+  Red* buf = scratch + parity * kWarps;
+  parity ^= 1;
+  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = r;
+  __syncthreads();
+  Red out = buf[0];
+  for (int w = 1; w < kWarps; ++w) red_combine(out, buf[w]);
+  return out;
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+// a - b * c with the product rounded first (no FMA contraction), as the
+// plain version's separate multiply and subtract do.
+__device__ __forceinline__ float sub_mul(float a, float b, float c) {
+  return __fsub_rn(a, __fmul_rn(b, c));
+}
+
+struct Smem {
+  Red* red;
+  float *G, *C, *K, *x, *u, *npl, *nl, *v, *w, *xlo, *xup, *zr, *lo, *up;
+  int *statk, *aorder, *status, *sts;
+};
+
+__host__ __device__ inline size_t smem_layout(int np, int mp, char* base,
+                                              Smem* s) {
+  const int np2 = 2 * np, mtp = mp + np;
+  const size_t cwords = (size_t)np * (mp > np ? mp : np);
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base + off;
+    off += (bytes + 15) / 16 * 16;
+    return p;
+  };
+  Red* red = (Red*)take(2 * kWarps * sizeof(Red));
+  float* G = (float*)take((size_t)np * (np + 1) * 4);
+  float* C = (float*)take(cwords * 4);
+  float* K = (float*)take((size_t)np * np2 * 4);
+  float* x = (float*)take(np * 4);
+  float* u = (float*)take(np * 4);
+  float* npl = (float*)take(np * 4);
+  float* nl = (float*)take(np * 4);
+  float* v = (float*)take(np * 4);
+  float* w = (float*)take(np * 4);
+  float* xlo = (float*)take(np * 4);
+  float* xup = (float*)take(np * 4);
+  float* zr = (float*)take(np2 * 4);
+  float* lo = (float*)take(mp * 4);
+  float* up = (float*)take(mp * 4);
+  int* statk = (int*)take(np * 4);
+  int* aorder = (int*)take(np * 4);
+  int* status = (int*)take(mtp * 4);
+  int* sts = (int*)take(mtp * 4);
+  if (s) *s = Smem{red, G, C, K, x, u, npl, nl, v, w, xlo, xup, zr, lo, up,
+                   statk, aorder, status, sts};
+  return off;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
+                const float* __restrict__ l_in, const float* __restrict__ u_in,
+                const float* __restrict__ xl_in,
+                const float* __restrict__ xu_in,
+                const float* __restrict__ a_in, float* __restrict__ x_out,
+                float* __restrict__ u_out, int* __restrict__ status_out,
+                int* __restrict__ aorder_out, int* __restrict__ scal_out,
+                float* __restrict__ K_out, float* __restrict__ hscale_out,
+                int n, int m, int np, int mp, int max_iter) {
+  extern __shared__ __align__(16) char smem_raw[];
+  Smem S;
+  smem_layout(np, mp, smem_raw, &S);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int np2 = 2 * np, mtp = mp + np, ldg = np + 1;
+  const long b = blockIdx.x;
+  const float* Gb = G_in + b * np * np;
+  const float* Cb = Ct_in + b * np * mp;
+  float* G = S.G;
+  float* C = S.C;
+  float* K = S.K;
+  int parity = 0;
+
+  // ---------------- prologue: H0 = G^-1, x0, tr0, non-SPD flag ----------
+  for (int e = tid; e < np * np; e += nt) G[(e / np) * ldg + e % np] = Gb[e];
+  for (int i = tid; i < mp; i += nt) {
+    S.lo[i] = l_in[b * mp + i];
+    S.up[i] = u_in[b * mp + i];
+  }
+  for (int k = tid; k < np; k += nt) {
+    S.xlo[k] = xl_in[b * np + k];
+    S.xup[k] = xu_in[b * np + k];
+  }
+  jrlqp::chol_block(G, np, ldg);            // G := L (lower)
+  float* Li = C;                            // C^T's room is scratch here
+  jrlqp::tri_inv_block(G, ldg, Li, np, np);
+  const bool posdef = jrlqp::posdef_from_diag(G, ldg, np);
+  for (int e = tid; e < np * np2; e += nt) {
+    const int i = e / np2, j = e % np2;
+    float h = 0.0f;
+    if (j < np) {
+      if (posdef) {
+        for (int k = max(i, j); k < np; ++k)
+          h = __fadd_rn(h, __fmul_rn(Li[k * np + i], Li[k * np + j]));
+      } else {
+        h = (i == j) ? 1.0f : 0.0f;
+      }
+    }
+    K[e] = h;
+  }
+  __syncthreads();
+  float tr = 0.0f;
+  for (int k = 0; k < np; ++k) tr += K[k * np2 + k];
+  const float tr0 = fmaxf(tr, 1e-30f);
+  const float dep_thr = __fmul_rn(2e-7f, tr0);
+  for (int i = tid; i < np; i += nt) {
+    float acc = 0.0f;
+    for (int j = 0; j < np; ++j) acc += K[i * np2 + j] * a_in[b * np + j];
+    S.x[i] = posdef ? -acc : 0.0f;
+    S.u[i] = 0.0f;
+    S.npl[i] = 0.0f;
+    S.statk[i] = 0;
+    S.aorder[i] = -1;
+  }
+  for (int i = tid; i < mtp; i += nt) S.status[i] = 0;
+  // G and C^T back from device memory (the factor and L^-1 are done)
+  for (int e = tid; e < np * np; e += nt) G[(e / np) * ldg + e % np] = Gb[e];
+  for (int e = tid; e < np * mp; e += nt) C[e] = Cb[e];
+  __syncthreads();
+
+  // ---------------- equality / fixed replay, ascending -----------------
+  auto is_eq = [&](int idx) {
+    return idx < mp ? (idx < m && S.lo[idx] == S.up[idx])
+                    : (idx - mp < n && S.xlo[idx - mp] == S.xup[idx - mp]);
+  };
+  int term = posdef ? RUNNING : NON_POS_HESSIAN;
+  int q = 0;
+  {
+    Red r = red_identity();
+    for (int idx = tid; idx < mtp; idx += nt)
+      if (is_eq(idx)) r.s0 += 1.0f;
+    r = block_reduce(r, S.red, parity);
+    const bool over = r.s0 > (float)n;
+    int prev = -1;
+    while (term == RUNNING) {
+      Red f = red_identity();
+      for (int idx = tid; idx < mtp; idx += nt)
+        if (idx > prev && is_eq(idx)) f.i2 = min(f.i2, idx);
+      f = block_reduce(f, S.red, parity);
+      const int idx = f.i2;
+      if (idx == kNone) break;
+      const bool is_bnd = idx >= mp;
+      const int st = is_bnd ? FIXED : EQUALITY;
+      const int cidx = clampi(idx, 0, mp - 1);
+      for (int k = tid; k < np; k += nt)
+        S.npl[k] = is_bnd ? (k == idx - mp ? 1.0f : 0.0f) : C[k * mp + cidx];
+      __syncthreads();
+      for (int j = tid; j < np2; j += nt) {
+        float acc = 0.0f;
+        for (int k = 0; k < np; ++k) acc += S.npl[k] * K[k * np2 + j];
+        S.zr[j] = (j >= np && j - np >= q) ? 0.0f : acc;  // r_head
+      }
+      __syncthreads();
+      Red s = red_identity();
+      for (int k = tid; k < np; k += nt) {
+        const float z = S.zr[k], p = S.npl[k];
+        s.s0 += p * z;
+        s.s1 += p * p;
+        s.s2 += p * S.x[k];
+        s.s3 += z * z;
+      }
+      s = block_reduce(s, S.red, parity);
+      const float nz = s.s0, nn = s.s1, nx = s.s2, zz = s.s3;
+      const float bsel = is_bnd ? S.xlo[idx - mp] : S.lo[cidx];
+      const float nz_safe = nz != 0.0f ? nz : 1.0f;
+      const float t =
+          zz > 0.0f ? __fdiv_rn(__fsub_rn(bsel, nx), nz_safe) : 0.0f;
+      const bool dependent = nz <= __fmul_rn(dep_thr, nn);
+      const float dsafe = dependent ? 1.0f : nz;
+      for (int k = tid; k < np; k += nt) {
+        float uk = sub_mul(S.u[k], t, S.zr[np + k]);
+        if (k == q) uk = __fadd_rn(uk, t);
+        S.u[k] = uk;
+        S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
+      }
+      for (int e = tid; e < np * np2; e += nt) {
+        const int i = e / np2, j = e % np2;
+        K[e] = (j == np + q) ? __fdiv_rn(S.zr[i], dsafe)
+                             : sub_mul(K[e], S.zr[i],
+                                       __fdiv_rn(S.zr[j], dsafe));
+      }
+      __syncthreads();
+      if (tid == 0) {
+        S.status[idx] = st;
+        if (q < np) {
+          S.aorder[q] = idx;
+          S.statk[q] = st;
+        }
+      }
+      __syncthreads();
+      if (dependent) term = LINEAR_DEPENDENCY_DETECTED;
+      ++q;
+      prev = idx;
+    }
+    if (over && term == RUNNING) term = OVERCONSTRAINED_PROBLEM;
+  }
+
+  // ---------------- the GI loop ----------------------------------------
+  int it = 0, skip1 = 0, sc_idx = -1, sc_st = 0, sc_slot = q;
+  const float inv_n = (float)(1.0 / (double)n);
+  const float zs = __fmul_rn(__fmul_rn(1e-6f, tr0), inv_n);
+  while (term == RUNNING && it < max_iter) {
+    bool success = false;
+    if (skip1 == 0) {
+      // step 1: most-violated inactive constraint or bound
+      Red r = red_identity();
+      for (int idx = tid; idx < mtp; idx += nt) {
+        float val;
+        int st;
+        if (idx < mp) {
+          float cx = 0.0f;
+          for (int k = 0; k < np; ++k) cx += C[k * mp + idx] * S.x[k];
+          const float sl = __fsub_rn(cx, S.lo[idx]);
+          const float su = __fsub_rn(S.up[idx], cx);
+          val = (S.status[idx] != 0 || idx >= m) ? BIG : fminf(sl, su);
+          st = sl <= su ? LOWER : UPPER;
+        } else {
+          const int j = idx - mp;
+          const float sl = __fsub_rn(S.x[j], S.xlo[j]);
+          const float su = __fsub_rn(S.xup[j], S.x[j]);
+          val = (S.status[idx] != 0 || j >= n) ? BIG : fminf(sl, su);
+          st = sl <= su ? LOWER_BOUND : UPPER_BOUND;
+        }
+        S.sts[idx] = st;
+        red_min(r, val, idx);
+      }
+      // the candidate's slot: the first free one, pinned while it lives
+      for (int k = tid; k < np; k += nt)
+        if (S.statk[k] == 0) r.i2 = min(r.i2, k);
+      r = block_reduce(r, S.red, parity);
+      success = r.v >= 0.0f;
+      sc_idx = r.i;
+      sc_st = S.sts[r.i];
+      sc_slot = r.i2 == kNone ? 0 : r.i2;
+      const float sgn =
+          (sc_st == UPPER || sc_st == UPPER_BOUND) ? -1.0f : 1.0f;
+      const bool bnd = sc_st >= LOWER_BOUND;
+      const int cidx = clampi(sc_idx, 0, mp - 1);
+      for (int k = tid; k < np; k += nt)
+        S.npl[k] = sgn * (bnd ? (k == sc_idx - mp ? 1.0f : 0.0f)
+                              : C[k * mp + cidx]);
+      __syncthreads();
+    }
+    const float sign = (sc_st == UPPER || sc_st == UPPER_BOUND) ? -1.0f : 1.0f;
+    const bool is_bnd = sc_st >= LOWER_BOUND;
+
+    // directions [z | r] = n+ K; r kept on active slots only (r_head)
+    for (int j = tid; j < np2; j += nt) {
+      float acc = 0.0f;
+      for (int k = 0; k < np; ++k) acc += S.npl[k] * K[k * np2 + j];
+      S.zr[j] = (j >= np && S.statk[j - np] == 0) ? 0.0f : acc;
+    }
+    __syncthreads();
+
+    // step lengths: t1 over eligible slots, and the four dot products
+    Red s = red_identity();
+    for (int k = tid; k < np; k += nt) {
+      const float r = S.zr[np + k];
+      const int sk = S.statk[k];
+      const bool elig =
+          sk != 0 && sk != EQUALITY && sk != FIXED && r > 0.0f;
+      red_min(s, elig ? __fdiv_rn(S.u[k], r) : BIG, k);
+      const float z = S.zr[k], p = S.npl[k];
+      s.s0 += z * z;
+      s.s1 += p * z;
+      s.s2 += p * S.x[k];
+      s.s3 += p * p;
+    }
+    s = block_reduce(s, S.red, parity);
+    const float t1 = fminf(s.v, BIG);
+    const int lpos = clampi(s.i, 0, np - 1);
+    const float znorm2 = s.s0, nz = s.s1, nx = s.s2, nn = s.s3;
+    float bsel;
+    if (is_bnd) {
+      const int bidx = clampi(sc_idx - mp, 0, np - 1);
+      bsel = sc_st == UPPER_BOUND ? S.xup[bidx] : S.xlo[bidx];
+    } else {
+      const int cidx = clampi(sc_idx, 0, mp - 1);
+      bsel = sc_st == UPPER ? S.up[cidx] : S.lo[cidx];
+    }
+    const float nz_safe = nz != 0.0f ? nz : 1.0f;
+    const float t2 = znorm2 > __fmul_rn(__fmul_rn(zs, zs), nn)
+                         ? __fdiv_rn(__fsub_rn(sign * bsel, nx), nz_safe)
+                         : BIG;
+    const float t = fminf(t1, t2);
+    const bool infeasible = (t >= BIG) && !success;
+    const bool dual_step = (t2 >= BIG) && !infeasible;
+    const bool full_step = !infeasible && !dual_step && (t2 <= t1);
+    if (success || infeasible) {
+      term = success ? SUCCESS : INFEASIBLE;
+      break;
+    }
+
+    if (full_step) {
+      // add: K -= z [z | r_head]^T / delta; slot column := z / delta
+      const bool dependent = nz <= __fmul_rn(dep_thr, nn);
+      const float dsafe = dependent ? 1.0f : nz;
+      for (int k = tid; k < np; k += nt) {
+        float uk = sub_mul(S.u[k], t, S.zr[np + k]);
+        if (k == sc_slot) uk = __fadd_rn(uk, t);
+        S.u[k] = uk;
+        S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
+      }
+      for (int e = tid; e < np * np2; e += nt) {
+        const int i = e / np2, j = e % np2;
+        K[e] = (j == np + sc_slot)
+                   ? __fdiv_rn(S.zr[i], dsafe)
+                   : sub_mul(K[e], S.zr[i], __fdiv_rn(S.zr[j], dsafe));
+      }
+      __syncthreads();
+      if (tid == 0) {
+        S.status[sc_idx] = sc_st;
+        S.aorder[sc_slot] = sc_idx;
+        S.statk[sc_slot] = sc_st;
+      }
+      ++q;
+      if (dependent) term = LINEAR_DEPENDENCY_DETECTED;
+      skip1 = 0;
+    } else {
+      // remove slot lpos: v = G n_l*, w = N* v,
+      // K -= n_l* [-n_l* | w_masked]^T / w_l; slot column := 0
+      const float cand_val = __fadd_rn(
+          sub_mul(S.u[sc_slot], t, S.zr[np + sc_slot]), t);
+      for (int i = tid; i < np; i += nt) S.nl[i] = K[i * np2 + np + lpos];
+      __syncthreads();
+      for (int i = tid; i < np; i += nt) {
+        float acc = 0.0f;
+        for (int j = 0; j < np; ++j) acc += G[i * ldg + j] * S.nl[j];
+        S.v[i] = acc;
+      }
+      __syncthreads();
+      for (int k = tid; k < np; k += nt) {
+        float acc = 0.0f;
+        for (int i = 0; i < np; ++i) acc += S.v[i] * K[i * np2 + np + k];
+        S.w[k] = acc;
+      }
+      __syncthreads();
+      const float wl = S.w[lpos];
+      const float wl_safe = fabsf(wl) > 0.0f ? wl : 1.0f;
+      for (int k = tid; k < np; k += nt) {
+        float uk = sub_mul(S.u[k], t, S.zr[np + k]);
+        if (k == sc_slot) uk = __fadd_rn(uk, t);
+        S.u[k] = (k == lpos) ? cand_val : (k == sc_slot ? 0.0f : uk);
+        if (!dual_step) S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
+      }
+      for (int e = tid; e < np * np2; e += nt) {
+        const int i = e / np2, j = e % np2;
+        if (j == np + lpos) {
+          K[e] = 0.0f;
+        } else {
+          const int k = j - np;
+          const float vj =
+              j < np ? -S.nl[j]
+                     : ((S.statk[k] != 0 && k != lpos) ? S.w[k] : 0.0f);
+          K[e] = sub_mul(K[e], S.nl[i], __fdiv_rn(vj, wl_safe));
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        const int rem_idx = clampi(S.aorder[lpos], 0, mtp - 1);
+        S.status[rem_idx] = 0;
+        S.aorder[lpos] = -1;
+        S.statk[lpos] = 0;
+      }
+      --q;
+      skip1 = 1;
+      sc_slot = lpos;
+    }
+    ++it;
+    __syncthreads();
+  }
+  if (term == RUNNING) term = MAX_ITER_REACHED;
+  __syncthreads();
+
+  for (int k = tid; k < np; k += nt) {
+    x_out[b * np + k] = S.x[k];
+    u_out[b * np + k] = S.u[k];
+    aorder_out[b * np + k] = S.aorder[k];
+  }
+  for (int i = tid; i < mtp; i += nt) status_out[b * mtp + i] = S.status[i];
+  for (int e = tid; e < np * np2; e += nt) K_out[b * np * np2 + e] = K[e];
+  if (tid == 0) {
+    int* sc = scal_out + b * 8;
+    sc[0] = q;
+    sc[1] = it;
+    sc[2] = term;
+    sc[3] = skip1;
+    sc[4] = sc_idx;
+    sc[5] = sc_st;
+    sc[6] = sc_slot;
+    sc[7] = 0;
+    hscale_out[b] = tr0;
+  }
+}
+
+}  // namespace
+
+extern "C" int jrlqp_gi_fused(const void* G, const void* Ct, const void* l,
+                              const void* u, const void* xl, const void* xu,
+                              const void* a, void* x_out, void* u_out,
+                              void* status_out, void* aorder_out,
+                              void* scal_out, void* K_out, void* hscale_out,
+                              int B, int n, int m, int np, int mp,
+                              int max_iter, void* stream) {
+  const size_t smem = smem_layout(np, mp, nullptr, nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      gi_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0)
+    gi_fused_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)G, (const float*)Ct, (const float*)l, (const float*)u,
+        (const float*)xl, (const float*)xu, (const float*)a, (float*)x_out,
+        (float*)u_out, (int*)status_out, (int*)aorder_out, (int*)scal_out,
+        (float*)K_out, (float*)hscale_out, n, m, np, mp, max_iter);
+  return (int)cudaGetLastError();
+}
+
+extern "C" size_t jrlqp_gi_fused_smem_bytes(int np, int mp) {
+  return smem_layout(np, mp, nullptr, nullptr);
+}

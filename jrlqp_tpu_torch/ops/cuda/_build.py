@@ -1,0 +1,114 @@
+"""Build the CUDA kernels at first use and bind them with ctypes.
+
+``nvcc`` compiles every ``jrlqp_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
+one shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds). The library goes to ``build/jrlqp_tpu_torch/`` beside the
+package, named by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as is. Each C entry point returns
+``cudaGetLastError()`` after its launch; :func:`check` raises on a nonzero
+code.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["library", "check", "build_info"]
+
+_PKG = Path(__file__).resolve().parents[2]          # jrlqp_tpu_torch/
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "jrlqp_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of every entry point: pointers and the stream as void*,
+# sizes as int (ctypes would otherwise pass a pointer as a 32-bit int)
+_SIGNATURES = {
+    "jrlqp_chol_inv_b": [_P, _P, _P, _P, _I, _I, _P],
+    # G, Ct, l, u, xl, xu, a; x, u, status, aorder, scal, K, hscale;
+    # B, n, m, np_, mp_, max_iter; stream
+    "jrlqp_gi_fused": [_P] * 14 + [_I] * 6 + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return str(path)
+
+
+def _source_hash(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build() -> Path:
+    cu = sorted(CSRC.glob("*.cu"))
+    key = _source_hash(sorted(CSRC.glob("*.cu*")))
+    out = BUILD_DIR / f"libjrlqp_kernels_{key}.so"
+    log = out.with_suffix(".log")
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True,
+                          log=log.read_text() if log.exists() else "")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+    log.write_text(text)
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=seconds, cached=False, log=text)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on the first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            lib.jrlqp_error_string.argtypes = [_I]
+            lib.jrlqp_error_string.restype = ctypes.c_char_p
+            lib.jrlqp_gi_fused_smem_bytes.argtypes = [_I, _I]
+            lib.jrlqp_gi_fused_smem_bytes.restype = ctypes.c_size_t
+            _lib = lib
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().jrlqp_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")

@@ -1,0 +1,135 @@
+"""The port's kernels on a CUDA card, held against their plain PyTorch
+versions on the same card; also the numpy batch builders that the CPU
+tests share.
+
+This file imports neither jax nor the JAX package, so it runs on a machine
+with a card and no jax:
+
+    python -m pytest --noconftest tests/test_torch_card.py -m cuda
+
+Without a card every test here skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from jrlqp_tpu_torch import SolverOptions, problem_from_numpy
+from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
+from jrlqp_tpu_torch.solver import fast
+from jrlqp_tpu_torch.testing.kkt import kkt_residual
+
+
+def np_qp_batch(seed, batch, n, m, act_frac):
+    """Numpy counterpart of random_qp_batch: G = A A^T / n + I, bounds
+    around C x0 for an interior x0, the first act_frac*min(n, m) rows
+    tight."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((batch, n, n))
+    G = A @ A.transpose(0, 2, 1) / n + np.eye(n)
+    G = 0.5 * (G + G.transpose(0, 2, 1))
+    C = rng.standard_normal((batch, m, n))
+    x0 = rng.uniform(-1.0, 1.0, (batch, n))
+    cx = np.einsum("bij,bj->bi", C, x0)
+    off_l = rng.uniform(0.01, 1.0, (batch, m))
+    off_u = rng.uniform(0.01, 1.0, (batch, m))
+    tight = np.arange(m) < int(act_frac * min(n, m))
+    return dict(G=G, a=rng.standard_normal((batch, n)), C=C,
+                l=cx - np.where(tight, 0.0, 3.0 * off_l), u=cx + 3.0 * off_u,
+                xl=np.full((batch, n), -np.inf),
+                xu=np.full((batch, n), np.inf))
+
+
+def _eq_fixed(d):
+    d["l"][:, 0] = d["u"][:, 0]          # constraint 0 equality
+    d["l"][:, 3] = d["u"][:, 3]          # constraint 3 equality
+    d["xl"][:, 2] = d["xu"][:, 2] = 0.41  # variable 2 fixed
+
+
+def _eq_lane_mix(d):
+    d["l"][1, 2] = d["u"][1, 2]           # lane 1 only: equality
+    d["xl"][3, 0] = d["xu"][3, 0] = -0.2  # lane 3 only: fixed variable
+
+
+def _non_spd(d):
+    n = d["G"].shape[1]
+    d["G"][2] = np.diag([1.0] * (n - 1) + [-1.0])
+
+
+# the batch kinds of tests/test_pallas_kernel.py
+# name: (seed, batch, n, m, act_frac, max_iter, edit)
+CASES = {
+    "n8_m12": (0, 6, 8, 12, 0.4, 60, None),
+    "n13_m7": (1, 4, 13, 7, 0.4, 60, None),
+    "eq_fixed": (21, 6, 9, 6, 0.3, 80, _eq_fixed),
+    "eq_lane_mix": (22, 4, 8, 10, 0.4, 80, _eq_lane_mix),
+    "vertex_touch": (41, 12, 4, 16, 0.9, 120, None),
+    "non_spd": (18, 4, 8, 12, 0.3, 60, _non_spd),
+}
+
+
+def make_case(name):
+    """(numpy f64 arrays, max_iter) of a named batch."""
+    seed, batch, n, m, act_frac, max_iter, edit = CASES[name]
+    d = np_qp_batch(seed, batch, n, m, act_frac)
+    if edit is not None:
+        edit(d)
+    return d, max_iter
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(6, 8), (50, 56)])
+def test_chol_inv_b_kernel_matches_plain(cuda_device, n, s):
+    d = np_qp_batch(9, 64, n, 1, 0.0)
+    A = np.tile(np.eye(s), (64, 1, 1))
+    A[:, :n, :n] = d["G"]
+    A[1, n - 1, n - 1] = -1.0                 # one non-SPD block
+    A = torch.from_numpy(A.astype(np.float32)).to(cuda_device)
+    before = block_llt.launches
+    L, Li, pd = block_llt.chol_inv_b(A)
+    torch.cuda.synchronize()
+    assert block_llt.launches == before + 1
+    Lp = block_llt.chol_b_plain(A)
+    Lip = block_llt.tri_inv_b_plain(Lp)
+    assert torch.equal(pd, block_llt.posdef_plain(Lp)) and not bool(pd[1])
+    torch.testing.assert_close(L[pd], Lp[pd], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(Li[pd], Lip[pd], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_gi_fused_kernel_matches_plain(cuda_device, name):
+    d, max_iter = make_case(name)
+    pb = problem_from_numpy(**{k: v.astype(np.float32) for k, v in d.items()},
+                            device=cuda_device)
+    before = gi_kernel.launches
+    ours = gi_kernel.run_loop_fused(pb, max_iter)
+    torch.cuda.synchronize()
+    assert gi_kernel.launches == before + 1
+    ref = gi_kernel.gi_fused_plain(pb, max_iter)
+    for k in ("term", "it", "q", "status", "aorder"):
+        assert torch.equal(ours[k], ref[k]), k
+    for k in ("x", "u", "H", "Ns"):
+        torch.testing.assert_close(ours[k], ref[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_solve_on_card_matches_cpu(cuda_device, name):
+    d, max_iter = make_case(name)
+    opt = SolverOptions(max_iter=max_iter)
+    pb = problem_from_numpy(**d, device=cuda_device)
+    res = fast.solve_refined_kernel(pb, opt, ir_steps=1)
+    ref = fast.solve_refined_kernel(problem_from_numpy(**d), opt, ir_steps=1)
+    assert torch.equal(res.status.cpu(), ref.status)
+    assert torch.equal(res.iterations.cpu(), ref.iterations)
+    torch.testing.assert_close(res.x.cpu(), ref.x, rtol=0, atol=1e-7)
+    ok = res.status == 0
+    resid = kkt_residual(res.x, res.multipliers, pb)
+    assert bool((resid[ok] <= 1e-8).all())

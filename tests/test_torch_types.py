@@ -1,0 +1,97 @@
+"""The port's foundation: enums, options, the numpy carry-over, the device
+dispatch rule, and its independence from JAX."""
+import dataclasses
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jrlqp_tpu.types as jt
+import jrlqp_tpu_torch.types as tt
+from jrlqp_tpu_torch import problem_from_numpy, result_to_numpy
+from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "jrlqp_tpu_torch"
+
+
+@pytest.mark.parametrize("name", ["ActivationStatus", "TerminationStatus"])
+def test_enum_values_match_jax(name):
+    ours = {e.name: int(e) for e in getattr(tt, name)}
+    ref = {e.name: int(e) for e in getattr(jt, name)}
+    assert ours == ref
+
+
+def test_solver_options_fields_match_jax():
+    ours = {f.name for f in dataclasses.fields(tt.SolverOptions)}
+    ref = {f.name for f in dataclasses.fields(jt.SolverOptions)}
+    assert ours == ref
+    assert tt.SolverOptions().dtype == torch.float64
+    assert tt.SolverOptions().with_(max_iter=7).max_iter == 7
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_numpy_round_trip_is_bitwise(dtype):
+    rng = np.random.default_rng(3)
+    B, n, m = 3, 5, 4
+    arrs = dict(
+        G=rng.standard_normal((B, n, n)), a=rng.standard_normal((B, n)),
+        C=rng.standard_normal((B, m, n)), l=rng.standard_normal((B, m)),
+        u=rng.standard_normal((B, m)), xl=np.full((B, n), -np.inf),
+        xu=np.full((B, n), np.inf), objcst=rng.standard_normal(B))
+    arrs["u"][1, 2] = np.inf
+    arrs["xl"][0, 1] = -0.5
+    arrs = {k: v.astype(dtype) for k, v in arrs.items()}
+    pb = problem_from_numpy(**arrs)
+    assert pb.batch == B and pb.n == n and pb.m == m
+    back = result_to_numpy(pb)
+    for k, v in arrs.items():
+        assert back[k].dtype == v.dtype
+        assert back[k].tobytes() == v.tobytes(), k
+
+
+def test_no_jax_import_in_port_sources():
+    # neither jax nor the JAX package (whose __init__ imports jax)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jrlqp_tpu)(\.|\s|$)")
+    offenders = [
+        f"{p.relative_to(PKG)}: {line.strip()}" for p in PKG.rglob("*.py")
+        for line in p.read_text().splitlines() if pattern.match(line)
+    ]
+    assert offenders == []
+
+
+def test_importing_port_loads_no_jax():
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import jrlqp_tpu_torch.solver.fast, jrlqp_tpu_torch.testing.kkt, "
+            "jrlqp_tpu_torch.testing.batch_gen; "
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jrlqp_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code, str(PKG.parent)],
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_wrappers_raise_on_a_device_without_kernel():
+    A = torch.eye(8, device="meta").expand(2, 8, 8)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        block_llt.chol_inv_b(A)
+    pb = problem_from_numpy(
+        G=np.tile(np.eye(3, dtype=np.float32), (2, 1, 1)),
+        a=np.zeros((2, 3), np.float32), C=np.zeros((2, 1, 3), np.float32),
+        l=np.zeros((2, 1), np.float32), u=np.ones((2, 1), np.float32),
+        xl=np.zeros((2, 3), np.float32), xu=np.ones((2, 3), np.float32),
+        device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        gi_kernel.run_loop_fused(pb, 10)
+
+
+def test_wrappers_check_dtype():
+    with pytest.raises(TypeError):
+        block_llt.chol_inv_b(torch.eye(4, dtype=torch.float64)[None])
+    with pytest.raises(ValueError):
+        block_llt.chol_inv_b(torch.zeros((2, 3, 4)))
