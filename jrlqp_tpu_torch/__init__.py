@@ -9,7 +9,10 @@ plain PyTorch version.
 
 Main path: :func:`jrlqp_tpu_torch.solver.fast.solve_refined_kernel`, the
 counterpart of ``jrlqp_tpu.solver.fast.solve_refined_pallas(...,
-fused_init=True)``.
+fused_init=True)``. Control-loop warm paths: ``solve_refined_warm_kernel``
+(from activation hints, ``solve_refined_warm_pallas``) and
+``solve_refined_kernel_carry`` with ``WarmCarry`` (operator reuse along a
+trajectory, ``solve_refined_pallas_carry``).
 """
 import torch as _torch
 
@@ -21,7 +24,12 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from .problems import QPProblem, problem_from_numpy, result_to_numpy  # noqa: E402
-from .solver.fast import solve_refined_kernel  # noqa: E402
+from .solver.fast import (  # noqa: E402
+    WarmCarry,
+    solve_refined_kernel,
+    solve_refined_kernel_carry,
+    solve_refined_warm_kernel,
+)
 from .solver.state import GIResult  # noqa: E402
 from .types import ActivationStatus, SolverOptions, TerminationStatus  # noqa: E402
 from .validation import inconsistent_mask  # noqa: E402
@@ -33,6 +41,9 @@ __all__ = [
     "problem_from_numpy",
     "result_to_numpy",
     "solve_refined_kernel",
+    "solve_refined_warm_kernel",
+    "solve_refined_kernel_carry",
+    "WarmCarry",
     "GIResult",
     "ActivationStatus",
     "TerminationStatus",

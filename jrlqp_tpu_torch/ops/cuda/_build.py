@@ -1,7 +1,8 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``jrlqp_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
-one shared library with a plain C interface (no PyTorch headers, so a build
+``nvcc`` compiles every ``jrlqp_tpu_torch/csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds). The library goes to ``build/jrlqp_tpu_torch/`` beside the
 package, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as is. Each C entry point returns
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]          # jrlqp_tpu_torch/
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "jrlqp_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point: pointers and the stream as void*,
@@ -38,6 +39,12 @@ _SIGNATURES = {
     # G, Ct, l, u, xl, xu, a; x, u, status, aorder, scal, K, hscale;
     # B, n, m, np_, mp_, max_iter; stream
     "jrlqp_gi_fused": [_P] * 14 + [_I] * 6 + [_P],
+    # G, Ct, l, u, xl, xu, K0, x0, u0, status0, aorder0, statk0, scal0,
+    # hscale0; the 7 outputs as above; B, n, m, np_, mp_, max_iter; stream
+    "jrlqp_gi_loop": [_P] * 21 + [_I] * 6 + [_P],
+    # G, Ct, l, u, xl, xu, a, K0, status0, aorder0, statk0, b_act, q; the
+    # 7 outputs as above; B, n, m, np_, mp_, max_iter; stream
+    "jrlqp_gi_warm": [_P] * 20 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -75,14 +82,33 @@ def _build() -> Path:
                           log=log.read_text() if log.exists() else "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{key}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in cu]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(cu, objs)]
+    text = ""
+    failed = []
+    for src, proc in zip(cu, procs):
+        log_i = proc.communicate()[0]
+        text += log_i
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        text += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{text}")
     log.write_text(text)
     os.replace(tmp, out)
     build_info.update(path=str(out), seconds=seconds, cached=False, log=text)
@@ -101,8 +127,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.jrlqp_error_string.argtypes = [_I]
             lib.jrlqp_error_string.restype = ctypes.c_char_p
-            lib.jrlqp_gi_fused_smem_bytes.argtypes = [_I, _I]
-            lib.jrlqp_gi_fused_smem_bytes.restype = ctypes.c_size_t
+            lib.jrlqp_gi_smem_bytes.argtypes = [_I, _I]
+            lib.jrlqp_gi_smem_bytes.restype = ctypes.c_size_t
             _lib = lib
     return _lib
 

@@ -1,16 +1,25 @@
-"""Fused GI whole-solve: host preparation, the CUDA kernel K1, its plain
-PyTorch version, and the index remap.
+"""The GI kernels K1, K3 and K4: host preparation, the CUDA kernels, their
+plain PyTorch versions, and the index remap.
 
-Counterpart of the fused branch of ``jrlqp_tpu.ops.pallas.gi_kernel``:
-``run_loop_pallas(..., fused_init=True)`` (gi_kernel.py:1031-1101),
-``_run_fused`` (:1281), ``_kernel_packed_fused`` (:674) with its loop
-``_packed_iterate`` (:364), and ``_postprocess`` (:1244).
+Counterpart of ``jrlqp_tpu.ops.pallas.gi_kernel``, whose three packed
+kernels share the loop ``_packed_iterate`` (:364):
 
-Both versions take the same padded f32 inputs -- G identity-padded to
-np = round_up(n+1, 8), C^T zero-padded to (np, mp) with mp = round_up(m,
-8), infinite bounds as +/-1e31 -- and return the same raw state in the
-Pallas kernel's index layout, so they compare elementwise. The TPU's pack
-machinery is not carried over: the kernel runs one problem per thread
+- K1, the fused whole solve: ``run_loop_pallas(..., fused_init=True)``
+  (gi_kernel.py:1031-1101), ``_run_fused`` (:1281),
+  ``_kernel_packed_fused`` (:674);
+- K3, the loop from a given state: the packed branch of
+  ``run_loop_pallas`` (:1102-1209), ``_kernel_packed`` (:628);
+- K4, the loop from a carried operator: ``run_warm_loop_pallas`` (:1339),
+  ``_kernel_packed_warm`` (:836);
+
+and ``_postprocess`` (:1244).
+
+Kernel and plain version take the same padded f32 inputs -- np =
+round_up(n+1, 8) slots, C^T zero-padded to (np, mp) with mp = round_up(m,
+8), infinite bounds as +/-1e31, G identity-padded for K1 and zero-padded
+for K3 and K4 as on the TPU -- and return the same raw state in the Pallas
+kernels' index layout, so they compare elementwise. The TPU's pack
+machinery is not carried over: the kernels run one problem per thread
 block, so there is no pack to pad or to balance, and the difficulty
 presort (gi_kernel.py:1038-1052), which reorders problems across packs
 without changing any lane's result, is left out.
@@ -37,48 +46,159 @@ from ...types import (
 from . import _build
 from .block_llt import chol_b_plain, posdef_plain, tri_inv_b_plain
 
-__all__ = ["run_loop_fused", "gi_fused_plain", "prepare", "postprocess"]
+__all__ = ["run_loop_fused", "gi_fused_plain", "run_loop", "gi_loop_plain",
+           "run_warm_loop", "gi_warm_plain", "prepare", "prepare_state",
+           "prepare_warm", "postprocess"]
 
 BIG = 1e30           # f32 infinity proxy inside the loop
 INF_BOUND = 1e31     # infinite bounds in the padded f32 inputs
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 
-# launches of the CUDA kernel since the last reset (set to 0 to reset)
+# launches of each CUDA kernel since the last reset (set to 0 to reset):
+# K1 (gi_fused), K3 (gi_loop) and K4 (gi_warm)
 launches = 0
+loop_launches = 0
+warm_launches = 0
+
+_F, _I = torch.float32, torch.int32
+# input dtypes of the C entry points, in argument order
+_FUSED_IN = (_F,) * 7
+_LOOP_IN = (_F,) * 9 + (_I,) * 4 + (_F,)
+_WARM_IN = (_F,) * 8 + (_I,) * 3 + (_F, _I)
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def prepare(pb32):
-    """Padded f32 kernel inputs (G, Ct, l, u, xl, xu, a) and (n, m)."""
+def _padrow(v, c, fill):
+    out = torch.full((v.shape[0], c), fill, dtype=_F, device=v.device)
+    out[:, :v.shape[1]] = torch.nan_to_num(
+        v.to(_F), posinf=INF_BOUND, neginf=-INF_BOUND)
+    return out
+
+
+def _pad2(A, r):
+    out = torch.zeros((A.shape[0], r, r), dtype=_F, device=A.device)
+    out[:, :A.shape[1], :A.shape[2]] = A
+    return out
+
+
+def _padded(pb32):
+    """Zero-padded f32 (G, Ct, l, u, xl, xu, a) and (n, m)."""
     B, n = pb32.a.shape
     m = pb32.C.shape[1]
     np_ = _round_up(n + 1, 8)
     mp_ = _round_up(max(m, 1), 8)
-    f32, dev = torch.float32, pb32.G.device
-    G = torch.zeros((B, np_, np_), dtype=f32, device=dev)
-    G[:, :n, :n] = pb32.G
-    k = torch.arange(n, np_, device=dev)
-    G[:, k, k] = 1.0   # identity padding keeps the factor exact
-    Ct = torch.zeros((B, np_, mp_), dtype=f32, device=dev)
+    Ct = torch.zeros((B, np_, mp_), dtype=_F, device=pb32.G.device)
     Ct[:, :n, :m] = pb32.C.transpose(1, 2)
+    return ((_pad2(pb32.G, np_), Ct, _padrow(pb32.l, mp_, -INF_BOUND),
+             _padrow(pb32.u, mp_, INF_BOUND),
+             _padrow(pb32.xl, np_, -INF_BOUND),
+             _padrow(pb32.xu, np_, INF_BOUND), _padrow(pb32.a, np_, 0.0)),
+            (n, m))
 
-    def padrow(v, c, fill):
-        out = torch.full((B, c), fill, dtype=f32, device=dev)
-        out[:, :v.shape[1]] = torch.nan_to_num(
-            v.to(f32), posinf=INF_BOUND, neginf=-INF_BOUND)
-        return out
 
-    return ((G, Ct, padrow(pb32.l, mp_, -INF_BOUND),
-             padrow(pb32.u, mp_, INF_BOUND), padrow(pb32.xl, np_, -INF_BOUND),
-             padrow(pb32.xu, np_, INF_BOUND), padrow(pb32.a, np_, 0.0)),
+def _pad_status(status, n, m, mp_, np_):
+    out = torch.zeros((status.shape[0], mp_ + np_), dtype=_I,
+                      device=status.device)
+    out[:, :m] = status[:, :m]
+    out[:, mp_:mp_ + n] = status[:, m:]
+    return out
+
+
+def _pad_aorder(aorder, n, m, mp_, np_):
+    ao = torch.where(aorder >= m, aorder - m + mp_, aorder)
+    out = torch.full((aorder.shape[0], np_), -1, dtype=_I,
+                     device=aorder.device)
+    out[:, :n] = torch.where(aorder < 0, -1, ao)
+    return out
+
+
+def _operator(H, Ns, np_):
+    """K = [H | N*^T], (B, np, 2np), zero-padded."""
+    return torch.cat([_pad2(H, np_), _pad2(Ns, np_).transpose(1, 2)], dim=2)
+
+
+def prepare(pb32):
+    """K1's padded f32 inputs (G, Ct, l, u, xl, xu, a) and (n, m). G is
+    identity-padded, which keeps the in-kernel factor exact."""
+    inputs, (n, m) = _padded(pb32)
+    G = inputs[0]
+    k = torch.arange(n, G.shape[1], device=G.device)
+    G[:, k, k] = 1.0
+    return inputs, (n, m)
+
+
+def prepare_state(pb32, state0):
+    """K3's inputs from a batched ``FastState`` (the packed branch of
+    ``run_loop_pallas``, gi_kernel.py:1102-1147): the padded problem
+    without a, then K0 = [H | N*^T], x0, u0, status and aorder in the
+    padded index layout, the per-slot statuses statk, the scalars (q, it,
+    term, skip1, sc_idx, sc_status, sc_slot, 0) and hscale. The state may
+    hold slot holes (aorder == -1)."""
+    (G, Ct, lo, up, xlo, xup, _), (n, m) = _padded(pb32)
+    np_, mp_ = G.shape[1], Ct.shape[2]
+    ao = state0.aorder.long()
+    valid = ao >= 0
+    statk0 = torch.zeros((G.shape[0], np_), dtype=_I, device=G.device)
+    statk0[:, :n] = torch.where(
+        valid, state0.status.long().gather(1, torch.where(valid, ao, 0)), 0)
+    sc = state0.sc_idx.long()
+    # the pending candidate's slot: the free slot that holds a nonzero
+    # multiplier (a resumed state with skip1 = 1), else the first free one
+    k = torch.arange(n, device=G.device)
+    free = ~valid
+    key = torch.where(free & (state0.u[:, :n] != 0), k,
+                      torch.where(free, n + k, 2 * n + k))
+    sc_slot0 = key.argmin(dim=1)
+    scal0 = torch.stack(
+        [state0.q.long(), state0.it.long(), state0.term.long(),
+         state0.skip1.long(), torch.where(sc >= m, sc - m + mp_, sc),
+         state0.sc_status.long(), sc_slot0, torch.zeros_like(sc_slot0)],
+        dim=1).to(_I)
+    return ((G, Ct, lo, up, xlo, xup, _operator(state0.H, state0.Ns, np_),
+             _padrow(state0.x, np_, 0.0),
+             _padrow(state0.u[:, :n + 1], np_, 0.0),
+             _pad_status(state0.status, n, m, mp_, np_),
+             _pad_aorder(ao, n, m, mp_, np_), statk0, scal0,
+             state0.hscale.to(_F)),
+            (n, m))
+
+
+def prepare_warm(pb32, H, Ns, status, aorder, q):
+    """K4's inputs from a carry (``run_warm_loop_pallas``,
+    gi_kernel.py:1366-1434): the padded problem with a, K0 = [H | N*^T],
+    status and aorder in the padded index layout, the per-slot statuses
+    statk, the per-slot signed active bounds b_act from the NEW bounds
+    (LOWER / EQUALITY -> l, UPPER -> -u, LOWER_BOUND / FIXED -> xl,
+    UPPER_BOUND -> -xu, 0 on a free slot) and q."""
+    (G, Ct, lo, up, xlo, xup, a), (n, m) = _padded(pb32)
+    np_, mp_ = G.shape[1], Ct.shape[2]
+    ao = aorder.long()
+    valid = ao >= 0
+    idxs = torch.where(valid, ao, 0)
+    sts = torch.where(valid, status.long().gather(1, idxs), 0)
+
+    def clamp(v):
+        return torch.nan_to_num(v.to(_F), posinf=1e30,
+                                neginf=-1e30).clamp(-1e30, 1e30)
+
+    lo_all = clamp(torch.cat([pb32.l, pb32.xl], dim=1)).gather(1, idxs)
+    up_all = clamp(torch.cat([pb32.u, pb32.xu], dim=1)).gather(1, idxs)
+    upperish = (sts == UPPER) | (sts == UPPER_BOUND)
+    b_act = torch.where(valid, torch.where(upperish, -up_all, lo_all), 0.0)
+    statk0 = torch.zeros((G.shape[0], np_), dtype=_I, device=G.device)
+    statk0[:, :n] = sts
+    return ((G, Ct, lo, up, xlo, xup, a, _operator(H, Ns, np_),
+             _pad_status(status, n, m, mp_, np_),
+             _pad_aorder(ao, n, m, mp_, np_), statk0,
+             _padrow(b_act, np_, 0.0), q.to(_I)),
             (n, m))
 
 
 def postprocess(raw, n: int, m: int) -> dict:
-    """Remap the kernel's padded index layout to (m+n) space
+    """Remap the kernels' padded index layout to (m+n) space
     (``_postprocess``)."""
     x, u, status, aorder, scal, K, hscale = raw
     np_ = x.shape[1]
@@ -122,100 +242,45 @@ def _vecmat(v, A):
     return (v[:, None, :] @ A)[:, 0]
 
 
-def _gi_fused_plain_raw(G, Ct, lo, up, xlo, xup, a, n, m, max_iter):
-    """The fused kernel's computation as batched masked tensor code, line
-    for line after ``_kernel_packed_fused`` and ``_packed_iterate`` with
-    the whole batch as one pack: stopped lanes freeze through selects."""
+def _matvec(A, v):
+    return (A @ v[:, :, None])[:, :, 0]
+
+
+def _packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0, init, n, m,
+                          max_iter):
+    """The GI loop (``_packed_iterate``) as batched masked tensor code, line
+    for line, with the whole batch as one pack: stopped lanes freeze
+    through selects. ``init`` is (x, K, u, status, aorder, statk, q, it,
+    term, skip1, sc_idx, sc_status, sc_slot), the scalars (B, 1) int64;
+    the same tuple comes back. A lane that enters with skip1 = 1 starts
+    from its pending candidate's normal, rebuilt from (sc_idx, sc_status)
+    as ``fast.fast_iteration`` does (fast.py:175-183), not from zero as
+    ``_kernel_packed`` does (gi_kernel.py:648-653)."""
+    x, K, u, status, aorder, statk, q, it, term, skip1, sc_idx, sc_st, \
+        sc_slot = init
     B, np_, _ = G.shape
     mp_ = Ct.shape[2]
     mtp_ = mp_ + np_
-    # indices and codes are int64 here (torch.gather's index type) and
-    # int32 in the outputs, as the kernel writes them
-    dev, f32, i32 = G.device, torch.float32, torch.int64
-
-    def ints(v):
-        return torch.full((B, 1), v, dtype=i32, device=dev)
-
-    # ---- prologue: H0 = G^-1 through the block helpers (K2) ----
-    L = chol_b_plain(G)
-    Li = tri_inv_b_plain(L)
-    H0 = Li.transpose(1, 2) @ Li
-    eye = torch.eye(np_, dtype=f32, device=dev)
-    posdef = posdef_plain(L)[:, None]                              # (B, 1)
-    H0 = torch.where(posdef[:, :, None], H0, eye)
-    tr0 = torch.clamp_min(torch.diagonal(H0, dim1=1, dim2=2)
-                          .sum(dim=1, keepdim=True), 1e-30)        # (B, 1)
-    x0 = -(H0 @ a[:, :, None])[:, :, 0]
-    x0 = torch.where(posdef, x0, 0.0)
-    K = torch.cat([H0, torch.zeros_like(H0)], dim=2)
-
-    iot_n = torch.arange(np_, device=dev, dtype=i32)[None, :]
-    iot_m = torch.arange(mp_, device=dev, dtype=i32)[None, :]
-    iot_mt = torch.arange(mtp_, device=dev, dtype=i32)[None, :]
-    lane2 = torch.arange(2 * np_, device=dev, dtype=i32)[None, None, :]
+    # indices and codes are int64 here (torch.gather's index type)
+    dev, f32, i64 = G.device, torch.float32, torch.int64
+    iot_n = torch.arange(np_, device=dev, dtype=i64)[None, :]
+    iot_m = torch.arange(mp_, device=dev, dtype=i64)[None, :]
+    iot_mt = torch.arange(mtp_, device=dev, dtype=i64)[None, :]
+    lane2 = torch.arange(2 * np_, device=dev, dtype=i64)[None, None, :]
     real_n = iot_n < n
     real_m = iot_m < m
     dep_thr = 2e-7 * tr0
-
-    # ---- equality / fixed auto-activation, ascending index order ----
-    rem = torch.cat([(lo == up) & real_m, (xlo == xup) & real_n], dim=1)
-    over = rem.sum(dim=1, keepdim=True) > n
-    term = torch.where(posdef, ints(RUNNING), ints(NON_POS_HESSIAN))
-    x = x0
-    u = torch.zeros((B, np_), dtype=f32, device=dev)
-    status = torch.zeros((B, mtp_), dtype=i32, device=dev)
-    aorder = torch.full((B, np_), -1, dtype=i32, device=dev)
-    statk = torch.zeros((B, np_), dtype=i32, device=dev)
-    q = ints(0)
-    while True:
-        act = (term == RUNNING) & rem.any(dim=1, keepdim=True)
-        if not bool(act.any()):
-            break
-        _, idx = _rowmin(torch.where(rem, iot_mt, mtp_), iot_mt)
-        is_bnd = idx >= mp_
-        st = torch.where(is_bnd, FIXED, EQUALITY).to(i32)
-        cidx = idx.clamp(0, mp_ - 1)
-        crow = _col(Ct, cidx)
-        e = (iot_n == idx - mp_).to(f32)
-        nplus = torch.where(is_bnd, e, crow)
-        zr = _vecmat(nplus, K)
-        z, r = zr[:, :np_], zr[:, np_:]
-        b_gen = lo.gather(1, cidx)
-        b_bnd = xlo.gather(1, (idx - mp_).clamp(0, np_ - 1))
-        b = torch.where(is_bnd, b_bnd, b_gen)
-        nz = (nplus * z).sum(dim=1, keepdim=True)
-        nn = (nplus * nplus).sum(dim=1, keepdim=True)
-        nz_safe = torch.where(nz != 0, nz, 1.0)
-        nx = (nplus * x).sum(dim=1, keepdim=True)
-        zz = (z * z).sum(dim=1, keepdim=True)
-        t = torch.where(zz > 0, (b - nx) / nz_safe, 0.0)
-        t = torch.where(act, t, 0.0)
-        r_head = torch.where(iot_n < q, r, 0.0)
-        u2 = u - t * r_head
-        u2 = torch.where(iot_n == q, u2 + t, u2)
-        x2 = x + t * z
-        dependent = nz <= dep_thr * nn
-        dsafe = torch.where(dependent, 1.0, nz)
-        zn = z / dsafe
-        u_upd = torch.where(act, z, 0.0)
-        K2 = K - u_upd[:, :, None] * (torch.cat([z, r_head], dim=1)
-                                      / dsafe)[:, None, :]
-        K = torch.where(act[:, :, None] & (lane2 == (np_ + q)[:, :, None]),
-                        zn[:, :, None], K2)
-        status = torch.where(act & (iot_mt == idx), st, status)
-        aorder = torch.where(act & (iot_n == q), idx, aorder)
-        statk = torch.where(act & (iot_n == q), st, statk)
-        term = torch.where(act & dependent, LINEAR_DEPENDENCY_DETECTED, term)
-        q = torch.where(act, q + 1, q)
-        rem = rem & ~(act & (iot_mt == idx))
-        x, u = x2, u2
-    term = torch.where(over & (term == RUNNING), OVERCONSTRAINED_PROBLEM,
-                       term)
-
-    # ---- the GI loop (_packed_iterate) ----
-    nplus = torch.zeros((B, np_), dtype=f32, device=dev)
-    it, skip1, sc_idx, sc_st, sc_slot = ints(0), ints(0), ints(-1), ints(0), q
     zs = 1e-6 * tr0 * (1.0 / n)
+
+    def normal(idx, st):
+        """sign * (e | C[idx]) of candidate (idx, st), and its parts."""
+        sign = torch.where((st == UPPER) | (st == UPPER_BOUND), -1.0, 1.0)
+        is_bnd = st >= LOWER_BOUND
+        crow = _col(Ct, idx.clamp(0, mp_ - 1))
+        e = (iot_n == idx - mp_).to(f32)
+        return sign * torch.where(is_bnd, e, crow), sign, is_bnd
+
+    nplus = torch.where(skip1 != 0, normal(sc_idx, sc_st)[0], 0.0)
     while True:
         active = (term == RUNNING) & (it < max_iter)
         if not bool(active.any()):
@@ -232,7 +297,7 @@ def _gi_fused_plain_raw(G, Ct, lo, up, xlo, xup, a, n, m, max_iter):
                              torch.minimum(slb, sub))
         st_b = torch.where(slb <= sub, LOWER_BOUND, UPPER_BOUND)
         cand = torch.cat([cand_c, cand_b], dim=1)
-        sts = torch.cat([st_c, st_b], dim=1).to(i32)
+        sts = torch.cat([st_c, st_b], dim=1).to(i64)
         viol, p = _rowmin(cand, iot_mt)
         sel_st = sts.gather(1, p)
         do_select = skip1 == 0
@@ -241,13 +306,8 @@ def _gi_fused_plain_raw(G, Ct, lo, up, xlo, xup, a, n, m, max_iter):
         sc_st_n = torch.where(do_select, sel_st, sc_st)
         _, free_f = _rowmin(torch.where(valid, np_, iot_n), iot_n)
         sc_slot_n = torch.where(do_select, free_f, sc_slot)
-        upper = (sc_st_n == UPPER) | (sc_st_n == UPPER_BOUND)
-        sign = torch.where(upper, -1.0, 1.0)
-        is_bnd = sc_st_n >= LOWER_BOUND
-        crow = _col(Ct, sc_idx_n.clamp(0, mp_ - 1))
-        e = (iot_n == sc_idx_n - mp_).to(f32)
-        nplus_n = torch.where(do_select, sign * torch.where(is_bnd, e, crow),
-                              nplus)
+        nplus_sel, sign, is_bnd = normal(sc_idx_n, sc_st_n)
+        nplus_n = torch.where(do_select, nplus_sel, nplus)
 
         zr = _vecmat(nplus_n, K)
         z, r = zr[:, :np_], zr[:, np_:]
@@ -295,7 +355,7 @@ def _gi_fused_plain_raw(G, Ct, lo, up, xlo, xup, a, n, m, max_iter):
         term_add = torch.where(dependent, LINEAR_DEPENDENCY_DETECTED, term)
 
         nl = _col(K, np_ + lpos)
-        v = (G @ nl[:, :, None])[:, :, 0]
+        v = _matvec(G, nl)
         w = _vecmat(v, K)[:, np_:]
         wl = w.gather(1, lpos)
         wl_safe = torch.where(wl.abs() > 0, wl, 1.0)
@@ -341,55 +401,260 @@ def _gi_fused_plain_raw(G, Ct, lo, up, xlo, xup, a, n, m, max_iter):
         it = torch.where(adv, it + 1, it)
         term = torch.where(
             active & stop, torch.where(success, SUCCESS, INFEASIBLE),
-            torch.where(add_sel, term_add, term)).to(i32)
+            torch.where(add_sel, term_add, term))
         skip1 = torch.where(adv, torch.where(full_step, 0, 1), skip1)
         sc_idx = torch.where(active, sc_idx_n, sc_idx)
         sc_st = torch.where(active, sc_st_n, sc_st)
         sc_slot = torch.where(active, torch.where(rem_sel, lpos, sc_slot_n),
                               sc_slot)
+    return (x, K, u, status, aorder, statk, q, it, term, skip1, sc_idx,
+            sc_st, sc_slot)
+
+
+def _raw_out(state, hscale):
+    """The kernels' seven outputs from the loop's final state."""
+    x, K, u, status, aorder, _, q, it, term, skip1, sc_idx, sc_st, \
+        sc_slot = state
     term = torch.where(term == RUNNING, MAX_ITER_REACHED, term)
-    scal = torch.cat([q, it, term, skip1, sc_idx, sc_st, sc_slot, ints(0)],
-                     dim=1)
-    return (x, u, status.to(torch.int32), aorder.to(torch.int32),
-            scal.to(torch.int32), K, tr0[:, 0])
+    scal = torch.cat([q, it, term, skip1, sc_idx, sc_st, sc_slot,
+                      torch.zeros_like(q)], dim=1)
+    return (x, u, status.to(_I), aorder.to(_I), scal.to(_I), K, hscale)
 
 
-def _gi_fused_cuda_raw(G, Ct, lo, up, xlo, xup, a, n, m, max_iter):
-    global launches
+def _gi_fused_plain_raw(G, Ct, lo, up, xlo, xup, a, n, m, max_iter):
+    """K1's computation as batched masked tensor code, line for line after
+    ``_kernel_packed_fused`` and ``_packed_iterate``."""
     B, np_, _ = G.shape
     mp_ = Ct.shape[2]
+    mtp_ = mp_ + np_
+    dev, f32, i64 = G.device, torch.float32, torch.int64
+
+    def ints(v):
+        return torch.full((B, 1), v, dtype=i64, device=dev)
+
+    # ---- prologue: H0 = G^-1 through the block helpers (K2) ----
+    L = chol_b_plain(G)
+    Li = tri_inv_b_plain(L)
+    H0 = Li.transpose(1, 2) @ Li
+    eye = torch.eye(np_, dtype=f32, device=dev)
+    posdef = posdef_plain(L)[:, None]                              # (B, 1)
+    H0 = torch.where(posdef[:, :, None], H0, eye)
+    tr0 = torch.clamp_min(torch.diagonal(H0, dim1=1, dim2=2)
+                          .sum(dim=1, keepdim=True), 1e-30)        # (B, 1)
+    x0 = -(H0 @ a[:, :, None])[:, :, 0]
+    x0 = torch.where(posdef, x0, 0.0)
+    K = torch.cat([H0, torch.zeros_like(H0)], dim=2)
+
+    iot_n = torch.arange(np_, device=dev, dtype=i64)[None, :]
+    iot_m = torch.arange(mp_, device=dev, dtype=i64)[None, :]
+    iot_mt = torch.arange(mtp_, device=dev, dtype=i64)[None, :]
+    lane2 = torch.arange(2 * np_, device=dev, dtype=i64)[None, None, :]
+    real_n = iot_n < n
+    real_m = iot_m < m
+    dep_thr = 2e-7 * tr0
+
+    # ---- equality / fixed auto-activation, ascending index order ----
+    rem = torch.cat([(lo == up) & real_m, (xlo == xup) & real_n], dim=1)
+    over = rem.sum(dim=1, keepdim=True) > n
+    term = torch.where(posdef, ints(RUNNING), ints(NON_POS_HESSIAN))
+    x = x0
+    u = torch.zeros((B, np_), dtype=f32, device=dev)
+    status = torch.zeros((B, mtp_), dtype=i64, device=dev)
+    aorder = torch.full((B, np_), -1, dtype=i64, device=dev)
+    statk = torch.zeros((B, np_), dtype=i64, device=dev)
+    q = ints(0)
+    while True:
+        act = (term == RUNNING) & rem.any(dim=1, keepdim=True)
+        if not bool(act.any()):
+            break
+        _, idx = _rowmin(torch.where(rem, iot_mt, mtp_), iot_mt)
+        is_bnd = idx >= mp_
+        st = torch.where(is_bnd, FIXED, EQUALITY).to(i64)
+        cidx = idx.clamp(0, mp_ - 1)
+        crow = _col(Ct, cidx)
+        e = (iot_n == idx - mp_).to(f32)
+        nplus = torch.where(is_bnd, e, crow)
+        zr = _vecmat(nplus, K)
+        z, r = zr[:, :np_], zr[:, np_:]
+        b_gen = lo.gather(1, cidx)
+        b_bnd = xlo.gather(1, (idx - mp_).clamp(0, np_ - 1))
+        b = torch.where(is_bnd, b_bnd, b_gen)
+        nz = (nplus * z).sum(dim=1, keepdim=True)
+        nn = (nplus * nplus).sum(dim=1, keepdim=True)
+        nz_safe = torch.where(nz != 0, nz, 1.0)
+        nx = (nplus * x).sum(dim=1, keepdim=True)
+        zz = (z * z).sum(dim=1, keepdim=True)
+        t = torch.where(zz > 0, (b - nx) / nz_safe, 0.0)
+        t = torch.where(act, t, 0.0)
+        r_head = torch.where(iot_n < q, r, 0.0)
+        u2 = u - t * r_head
+        u2 = torch.where(iot_n == q, u2 + t, u2)
+        x2 = x + t * z
+        dependent = nz <= dep_thr * nn
+        dsafe = torch.where(dependent, 1.0, nz)
+        zn = z / dsafe
+        u_upd = torch.where(act, z, 0.0)
+        K2 = K - u_upd[:, :, None] * (torch.cat([z, r_head], dim=1)
+                                      / dsafe)[:, None, :]
+        K = torch.where(act[:, :, None] & (lane2 == (np_ + q)[:, :, None]),
+                        zn[:, :, None], K2)
+        status = torch.where(act & (iot_mt == idx), st, status)
+        aorder = torch.where(act & (iot_n == q), idx, aorder)
+        statk = torch.where(act & (iot_n == q), st, statk)
+        term = torch.where(act & dependent, LINEAR_DEPENDENCY_DETECTED, term)
+        q = torch.where(act, q + 1, q)
+        rem = rem & ~(act & (iot_mt == idx))
+        x, u = x2, u2
+    term = torch.where(over & (term == RUNNING), OVERCONSTRAINED_PROBLEM,
+                       term)
+
+    init = (x, K, u, status, aorder, statk, q, ints(0), term, ints(0),
+            ints(-1), ints(0), q)
+    return _raw_out(_packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0,
+                                          init, n, m, max_iter), tr0[:, 0])
+
+
+def _gi_loop_plain_raw(G, Ct, lo, up, xlo, xup, K0, x0, u0, status0,
+                       aorder0, statk0, scal0, hscale0, n, m, max_iter):
+    """K3's computation: ``_kernel_packed`` on the state passed in."""
+    s = scal0.long()
+    scalars = [s[:, j:j + 1] for j in range(7)]   # q, it, ..., sc_slot
+    tr0 = torch.clamp_min(hscale0[:, None], 1e-30)
+    init = (x0, K0, u0, status0.long(), aorder0.long(), statk0.long(),
+            *scalars)
+    return _raw_out(_packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0,
+                                          init, n, m, max_iter), hscale0)
+
+
+def _gi_warm_plain_raw(G, Ct, lo, up, xlo, xup, a, K0, status0, aorder0,
+                       statk0, b0, q0, n, m, max_iter):
+    """K4's computation: ``_kernel_packed_warm``'s prologue (tr0 from the
+    carried H, the closed form, the u < -1e-5 deactivations), then the
+    loop."""
+    B, np_, _ = G.shape
+    mtp_ = Ct.shape[2] + np_
+    dev, i64 = G.device, torch.int64
+    iot_n = torch.arange(np_, device=dev, dtype=i64)[None, :]
+    iot_mt = torch.arange(mtp_, device=dev, dtype=i64)[None, :]
+    lane2 = torch.arange(2 * np_, device=dev, dtype=i64)[None, None, :]
+    K, b = K0, b0
+    status, aorder, statk = status0.long(), aorder0.long(), statk0.long()
+    q = q0.long()[:, None]
+    tr0 = torch.clamp_min(torch.diagonal(K[:, :, :np_], dim1=1, dim2=2)
+                          .sum(dim=1, keepdim=True), 1e-30)
+
+    def closed_form(K, b, statk):
+        # x = N*^T b_act - H a = K [-a; b_act],  u = (K^T (a + G x))[np:]
+        x = _matvec(K, torch.cat([-a, b], dim=1))
+        u = _vecmat(a + _matvec(G, x), K)[:, np_:]
+        return x, torch.where(statk != 0, u, 0.0)
+
+    x, u = closed_form(K, b, statk)
+    it = torch.zeros((B, 1), dtype=i64, device=dev)
+    while True:
+        elig = (statk != 0) & (statk != EQUALITY) & (statk != FIXED)
+        mn, lpos = _rowmin(torch.where(elig, u, 0.0), iot_n)
+        act = mn < -1e-5
+        if not bool(act.any()):
+            break
+        nl = _col(K, np_ + lpos)
+        w = _vecmat(_matvec(G, nl), K)[:, np_:]
+        wl = w.gather(1, lpos)
+        wl_safe = torch.where(wl.abs() > 0, wl, 1.0)
+        wmask = torch.where((statk != 0) & (iot_n != lpos), w, 0.0)
+        K = K - (torch.where(act, nl, 0.0)[:, :, None]
+                 * (torch.cat([-nl, wmask], dim=1) / wl_safe)[:, None, :])
+        K = torch.where(act[:, :, None] & (lane2 == (np_ + lpos)[:, :, None]),
+                        0.0, K)
+        at_l = act & (iot_n == lpos)
+        rem_idx = aorder.gather(1, lpos).clamp(0, mtp_ - 1)
+        status = torch.where(act & (iot_mt == rem_idx), 0, status)
+        aorder = torch.where(at_l, -1, aorder)
+        statk = torch.where(at_l, 0, statk)
+        b = torch.where(at_l, 0.0, b)
+        q = torch.where(act, q - 1, q)
+        x2, u2 = closed_form(K, b, statk)
+        x = torch.where(act, x2, x)
+        u = torch.where(act, u2, u)
+        it = torch.where(act, it + 1, it)
+
+    init = (x, K, u, status, aorder, statk, q, it,
+            torch.full_like(q, RUNNING), torch.zeros_like(q),
+            torch.full_like(q, -1), torch.zeros_like(q), q)
+    return _raw_out(_packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0,
+                                          init, n, m, max_iter), tr0[:, 0])
+
+
+def _launch(entry, dtypes, ins, n, m, max_iter):
+    """Run the C entry point ``entry`` on the padded inputs ``ins`` (G and
+    C^T first) and return the seven raw outputs."""
+    G, Ct = ins[0], ins[1]
+    B, np_, _ = G.shape
+    mp_ = Ct.shape[2]
+    dev = G.device
+    for i, (t, dt) in enumerate(zip(ins, dtypes, strict=True)):
+        if t.device != dev or t.dtype != dt or t.shape[0] != B:
+            raise ValueError(f"{entry}: input {i} is {t.dtype} {tuple(t.shape)}"
+                             f" on {t.device}, expected {dt} with batch {B} "
+                             f"on {dev}")
     lib = _build.library()
-    smem = lib.jrlqp_gi_fused_smem_bytes(np_, mp_)
+    smem = lib.jrlqp_gi_smem_bytes(np_, mp_)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"gi_fused: n={n}, m={m} needs {smem} B of shared "
+        raise ValueError(f"{entry}: n={n}, m={m} needs {smem} B of shared "
                          f"memory, more than a block's {_SMEM_LIMIT}")
-    dev, f32, i32 = G.device, torch.float32, torch.int32
-    x = torch.empty((B, np_), dtype=f32, device=dev)
-    u = torch.empty((B, np_), dtype=f32, device=dev)
-    status = torch.empty((B, mp_ + np_), dtype=i32, device=dev)
-    aorder = torch.empty((B, np_), dtype=i32, device=dev)
-    scal = torch.empty((B, 8), dtype=i32, device=dev)
-    K = torch.empty((B, np_, 2 * np_), dtype=f32, device=dev)
-    hscale = torch.empty((B,), dtype=f32, device=dev)
-    ins = [t.contiguous() for t in (G, Ct, lo, up, xlo, xup, a)]
-    outs = (x, u, status, aorder, scal, K, hscale)
+    outs = (torch.empty((B, np_), dtype=_F, device=dev),
+            torch.empty((B, np_), dtype=_F, device=dev),
+            torch.empty((B, mp_ + np_), dtype=_I, device=dev),
+            torch.empty((B, np_), dtype=_I, device=dev),
+            torch.empty((B, 8), dtype=_I, device=dev),
+            torch.empty((B, np_, 2 * np_), dtype=_F, device=dev),
+            torch.empty((B,), dtype=_F, device=dev))
+    ins = [t.contiguous() for t in ins]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.jrlqp_gi_fused(*[t.data_ptr() for t in ins],
-                              *[t.data_ptr() for t in outs],
-                              B, n, m, np_, mp_, int(max_iter), stream)
-    _build.check(code, "gi_fused")
+    code = getattr(lib, entry)(*[t.data_ptr() for t in ins],
+                               *[t.data_ptr() for t in outs],
+                               B, n, m, np_, mp_, int(max_iter), stream)
+    _build.check(code, entry)
+    return outs
+
+
+def _gi_fused_cuda_raw(*args):
+    global launches
+    *ins, n, m, max_iter = args
+    outs = _launch("jrlqp_gi_fused", _FUSED_IN, ins, n, m, max_iter)
     launches += 1
     return outs
 
 
-def _check_input(pb32):
+def _gi_loop_cuda_raw(*args):
+    global loop_launches
+    *ins, n, m, max_iter = args
+    outs = _launch("jrlqp_gi_loop", _LOOP_IN, ins, n, m, max_iter)
+    loop_launches += 1
+    return outs
+
+
+def _gi_warm_cuda_raw(*args):
+    global warm_launches
+    *ins, n, m, max_iter = args
+    outs = _launch("jrlqp_gi_warm", _WARM_IN, ins, n, m, max_iter)
+    warm_launches += 1
+    return outs
+
+
+def _on_cuda(pb32, name: str) -> bool:
+    """True for a CUDA problem, False for a CPU one; raises otherwise."""
     if pb32.G.dtype != torch.float32:
-        raise TypeError(f"fused GI wants a float32 problem, got {pb32.G.dtype}")
+        raise TypeError(f"{name} wants a float32 problem, got {pb32.G.dtype}")
+    dev = pb32.G.device
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    return dev.type == "cuda"
 
 
 def gi_fused_plain(pb32, max_iter: int) -> dict:
     """The plain PyTorch version of K1 on any device, remapped to (m+n)."""
-    _check_input(pb32)
+    _on_cuda(pb32, "gi_fused_plain")
     inputs, (n, m) = prepare(pb32)
     return postprocess(_gi_fused_plain_raw(*inputs, n, m, max_iter), n, m)
 
@@ -401,10 +666,45 @@ def run_loop_fused(pb32, max_iter: int) -> dict:
     space, and q, it, term, skip1, sc_idx, sc_status, H, Ns, hscale. A
     CUDA problem runs the kernel K1; a CPU problem runs the plain version.
     Any other device raises."""
-    _check_input(pb32)
-    dev = pb32.G.device
-    if dev.type not in ("cuda", "cpu"):
-        raise RuntimeError(f"run_loop_fused: no kernel for device {dev}")
+    run = (_gi_fused_cuda_raw if _on_cuda(pb32, "run_loop_fused")
+           else _gi_fused_plain_raw)
     inputs, (n, m) = prepare(pb32)
-    run = _gi_fused_cuda_raw if dev.type == "cuda" else _gi_fused_plain_raw
+    return postprocess(run(*inputs, n, m, max_iter), n, m)
+
+
+def gi_loop_plain(pb32, state0, max_iter: int) -> dict:
+    """The plain PyTorch version of K3 on any device, remapped to (m+n)."""
+    _on_cuda(pb32, "gi_loop_plain")
+    inputs, (n, m) = prepare_state(pb32, state0)
+    return postprocess(_gi_loop_plain_raw(*inputs, n, m, max_iter), n, m)
+
+
+def run_loop(pb32, state0, max_iter: int) -> dict:
+    """The GI loop from a batched ``FastState`` ``state0`` (counterpart of
+    ``run_loop_pallas(pb32, state0, max_iter)``): the dict of
+    :func:`run_loop_fused`. A CUDA problem runs the kernel K3; a CPU
+    problem runs the plain version. Any other device raises."""
+    run = (_gi_loop_cuda_raw if _on_cuda(pb32, "run_loop")
+           else _gi_loop_plain_raw)
+    inputs, (n, m) = prepare_state(pb32, state0)
+    return postprocess(run(*inputs, n, m, max_iter), n, m)
+
+
+def gi_warm_plain(pb32, H, Ns, status, aorder, q, max_iter: int) -> dict:
+    """The plain PyTorch version of K4 on any device, remapped to (m+n)."""
+    _on_cuda(pb32, "gi_warm_plain")
+    inputs, (n, m) = prepare_warm(pb32, H, Ns, status, aorder, q)
+    return postprocess(_gi_warm_plain_raw(*inputs, n, m, max_iter), n, m)
+
+
+def run_warm_loop(pb32, H, Ns, status, aorder, q, max_iter: int) -> dict:
+    """The warm-carry solve (counterpart of ``run_warm_loop_pallas``): the
+    previous solve's H, N*, status, aorder and q (library index layout,
+    holes allowed) with the new problem ``pb32``, which must share its G
+    and C. Returns the dict of :func:`run_loop_fused`. A CUDA problem runs
+    the kernel K4; a CPU problem runs the plain version. Any other device
+    raises."""
+    run = (_gi_warm_cuda_raw if _on_cuda(pb32, "run_warm_loop")
+           else _gi_warm_plain_raw)
+    inputs, (n, m) = prepare_warm(pb32, H, Ns, status, aorder, q)
     return postprocess(run(*inputs, n, m, max_iter), n, m)

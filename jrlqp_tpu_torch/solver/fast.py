@@ -1,9 +1,19 @@
-"""Throughput GI engine: the fused f32 kernel plus f64 iterative refinement.
+"""Throughput GI engine: the f32 kernels plus f64 iterative refinement.
 
-Counterpart of :mod:`jrlqp_tpu.solver.fast` on its main path,
-``solve_refined_pallas(..., fused_init=True)``: the f32 active-set loop runs
-in the fused kernel (:mod:`jrlqp_tpu_torch.ops.cuda.gi_kernel`), producing
-the explicit operators H = G^-1 (I - N N*) and N*; a few steps of
+Counterpart of :mod:`jrlqp_tpu.solver.fast` on three paths:
+
+- the main path ``solve_refined_kernel`` (``solve_refined_pallas(...,
+  fused_init=True)``): the whole f32 solve in the fused kernel K1;
+- the hint warm start ``solve_refined_warm_kernel``
+  (``solve_refined_warm_pallas``): the warm init here in batched torch
+  (hint processing, M = N^T G^-1 N by Cholesky, the closed form, the u < 0
+  deactivations), then the loop in K3;
+- the trajectory carry ``solve_refined_kernel_carry``
+  (``solve_refined_pallas_carry``): a cold K1 step, then K4 steps that
+  start from the previous step's operators.
+
+The kernels (:mod:`jrlqp_tpu_torch.ops.cuda.gi_kernel`) produce the
+explicit operators H = G^-1 (I - N N*) and N*; a few steps of
 mixed-precision refinement on the final active set then take the KKT
 residual to <= 1e-8:
 
@@ -14,6 +24,10 @@ The refinement is the native-f64 branch of ``_refine_batch``
 (fast.py:397-548): the GPU has f64, so the double-single emulation and the
 one-hot gathers of the TPU branch become plain f64 products,
 ``torch.gather`` and ``scatter_add``.
+
+The cold init helpers (``_init_fast`` and what it uses) are the XLA
+engine's, batched with masked lanes: compact slots that shift on removal,
+not the kernels' hole-based slots. They serve as the warm init's fallback.
 """
 from __future__ import annotations
 
@@ -21,11 +35,17 @@ import dataclasses
 
 import torch
 
-from ..ops.cuda.gi_kernel import run_loop_fused
+from ..ops.cuda.gi_kernel import run_loop, run_loop_fused, run_warm_loop
 from ..problems import QPProblem
 from ..types import (
+    EQUALITY,
+    FIXED,
     INCONSISTENT_INPUT,
+    LINEAR_DEPENDENCY_DETECTED,
     LOWER_BOUND,
+    NON_POS_HESSIAN,
+    OVERCONSTRAINED_PROBLEM,
+    RUNNING,
     UPPER,
     UPPER_BOUND,
     SolverOptions,
@@ -33,7 +53,8 @@ from ..types import (
 from ..validation import inconsistent_mask
 from .state import GIResult
 
-__all__ = ["FastState", "solve_refined_kernel"]
+__all__ = ["FastState", "WarmCarry", "solve_refined_kernel",
+           "solve_refined_warm_kernel", "solve_refined_kernel_carry"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +97,25 @@ def _state_from_kernel_out(out: dict, B: int) -> FastState:
         sc_status=out["sc_status"],
         hscale=out["hscale"],
     )
+
+
+def _where_state(mask, a: FastState, b: FastState) -> FastState:
+    """Per lane: ``a`` where ``mask`` (B,), else ``b``."""
+    def sel(x, y):
+        return torch.where(mask.view(-1, *([1] * (x.dim() - 1))), x, y)
+
+    return FastState(**{f.name: sel(getattr(a, f.name), getattr(b, f.name))
+                        for f in dataclasses.fields(FastState)})
+
+
+def _validated(pb: QPProblem, st: FastState, opt: SolverOptions
+               ) -> FastState:
+    """With ``opt.validate``, INCONSISTENT_INPUT on lanes whose data is
+    inconsistent."""
+    if not opt.validate:
+        return st
+    return dataclasses.replace(st, term=torch.where(
+        inconsistent_mask(pb), INCONSISTENT_INPUT, st.term).to(torch.int32))
 
 
 def _bmv(A, v):
@@ -169,8 +209,298 @@ def _refine_batch(pbs: QPProblem, st: FastState, ir_steps: int) -> GIResult:
                     status=st.term, active_set=st.status)
 
 
+def _outer(a, b):
+    return a[:, :, None] * b[:, None, :]
+
+
+def _dot(a, b):
+    return (a * b).sum(dim=1)
+
+
+# Relative threshold on delta = n+^T H n+ for declaring the candidate
+# dependent on the active set, times hscale |n+|^2 (fast.py:96-108).
+def _dep_eps(dtype):
+    return 2e-12 if dtype == torch.float64 else 2e-7
+
+
+def _constraint_normal(pb: QPProblem, idx, st):
+    """Signed normals n+ = sign (e_{idx-m} | C[idx]) of constraints ``idx``
+    with statuses ``st`` (dense.py:87-101); UPPER / UPPER_BOUND negate.
+    ``idx`` and ``st`` are (B,) or (B, k); the result adds a last axis n."""
+    m, n = pb.m, pb.n
+    shape = idx.shape
+    idx = idx.long().reshape(shape[0], -1)
+    st = st.long().reshape(shape[0], -1)
+    dt = pb.C.dtype
+    sign = torch.where((st == UPPER) | (st == UPPER_BOUND), -1.0, 1.0).to(dt)
+    if m > 0:
+        crow = pb.C.gather(
+            1, idx.clamp(0, m - 1)[:, :, None].expand(-1, -1, n))
+    else:
+        crow = torch.zeros(idx.shape + (n,), dtype=dt, device=idx.device)
+    e = (torch.arange(n, device=idx.device)
+         == (idx - m).clamp(0, n - 1)[:, :, None]).to(dt)
+    out = sign[:, :, None] * torch.where((st >= LOWER_BOUND)[:, :, None], e,
+                                         crow)
+    return out.reshape(*shape, n)
+
+
+def _selected_bound(pb: QPProblem, idx, st):
+    """The unsigned bound b of constraints ``idx`` with statuses ``st``
+    (dense.py:104-115); ``idx`` and ``st`` are (B,) or (B, k)."""
+    m, n = pb.m, pb.n
+    shape = idx.shape
+    idx = idx.long().reshape(shape[0], -1)
+    st = st.long().reshape(shape[0], -1)
+    if m > 0:
+        ci = idx.clamp(0, m - 1)
+        b_gen = torch.where(st == UPPER, pb.u.gather(1, ci),
+                            pb.l.gather(1, ci))
+    else:
+        b_gen = torch.zeros(idx.shape, dtype=pb.G.dtype, device=idx.device)
+    bi = (idx - m).clamp(0, n - 1)
+    b_bnd = torch.where(st == UPPER_BOUND, pb.xu.gather(1, bi),
+                        pb.xl.gather(1, bi))
+    return torch.where(st >= LOWER_BOUND, b_bnd, b_gen).reshape(shape)
+
+
+def _apply_add(state: FastState, nplus, z, r, idx, st) -> FastState:
+    """Rank-one add update in compact slots (fast.py:111-130): slot q
+    takes the constraint ``idx`` with status ``st``."""
+    B, n = state.x.shape
+    k = torch.arange(n, device=z.device)[None, :]
+    q = state.q.long()
+    delta = _dot(nplus, z)
+    hscale = torch.clamp_min(state.hscale, 1e-30)
+    dependent = delta <= _dep_eps(z.dtype) * hscale * _dot(nplus, nplus)
+    dsafe = torch.where(dependent, 1.0, delta)
+    zn = z / dsafe[:, None]
+    at_q = k == q.clamp(0, n - 1)[:, None]
+    Ns = state.Ns - _outer(torch.where(k < q[:, None], r, 0.0), zn)
+    return dataclasses.replace(
+        state, H=state.H - _outer(z, zn),
+        Ns=torch.where(at_q[:, :, None], zn[:, None, :], Ns),
+        status=state.status.scatter(1, idx.long()[:, None],
+                                    st.to(torch.int32)[:, None]),
+        aorder=torch.where(at_q, idx.to(torch.int32)[:, None],
+                           state.aorder),
+        q=(q + 1).to(torch.int32),
+        term=torch.where(dependent, LINEAR_DEPENDENCY_DETECTED,
+                         state.term).to(torch.int32))
+
+
+def _apply_remove(pb: QPProblem, state: FastState, l, u_new) -> FastState:
+    """Rank-one remove update of slot ``l``, then the rows after it shift
+    up (fast.py:133-164)."""
+    B, n = state.x.shape
+    dev = state.x.device
+    k = torch.arange(n, device=dev)[None, :]
+    kq = torch.arange(n + 1, device=dev)[None, :]
+    q_old = state.q.long()[:, None]
+    q_new = q_old - 1
+    l = l.long()[:, None]
+    lc = l.clamp(0, n - 1)
+    nl = state.Ns.gather(1, lc[:, :, None].expand(-1, 1, n))[:, 0]  # N* row
+    w = _bmv(state.Ns, _bmv(pb.G, nl))   # w_j = (M^-1)_jl
+    wl = w.gather(1, lc)
+    wl_safe = torch.where(wl.abs() > 0, wl, 1.0)
+    H = state.H + _outer(nl, nl / wl_safe)
+    wmask = torch.where((k < q_old) & (k != l), w, 0.0)
+    Ns = state.Ns - _outer(wmask / wl_safe, nl)
+    # delete row l (shift rows l+1..q_old-1 up), zero the freed row
+    src = torch.where((k >= l) & (k < q_new), k + 1, k).clamp(0, n - 1)
+    Ns = Ns.gather(1, src[:, :, None].expand(-1, -1, n))
+    Ns = torch.where((k >= q_new)[:, :, None], 0.0, Ns)
+    rem_idx = state.aorder.long().gather(1, lc).clamp(
+        0, state.status.shape[1] - 1)
+    aorder = state.aorder.gather(1, src)
+    aorder = torch.where(k == q_new.clamp(0, n - 1), -1, aorder)
+    usrc = torch.where((kq >= l) & (kq < q_old), kq + 1, kq).clamp(0, n)
+    u = u_new.gather(1, usrc)
+    u = torch.where(kq == q_old.clamp(0, n), 0.0, u)
+    return dataclasses.replace(
+        state, H=H, Ns=Ns, status=state.status.scatter(1, rem_idx, 0),
+        aorder=aorder.to(torch.int32), u=u,
+        q=q_new[:, 0].to(torch.int32))
+
+
+def _inverse_cholesky(A):
+    """(L^-T L^-1 = A^-1, ok) per lane from ``torch.linalg.cholesky_ex``:
+    ok is ``info == 0``, not a finite diagonal, since torch leaves a
+    partial, finite factor on failure; a failed lane inverts I."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand_as(A)
+    L, info = torch.linalg.cholesky_ex(A)
+    ok = info == 0
+    Linv = torch.linalg.solve_triangular(
+        torch.where(ok[:, None, None], L, eye), eye, upper=False)
+    return Linv.transpose(1, 2) @ Linv, ok
+
+
+def _init_fast(pb: QPProblem, opt: SolverOptions) -> FastState:
+    """Cold init: H = G^-1, x = -G^-1 a, then the equality/fixed replay
+    (fast.py:249-262)."""
+    H, posdef = _inverse_cholesky(pb.G)
+    return _init_fast_from_ops(pb, H, -_bmv(H, pb.a), posdef, opt)
+
+
+def _init_fast_from_ops(pb: QPProblem, H, x, posdef, opt: SolverOptions
+                        ) -> FastState:
+    """Cold init from given operators H = G^-1 and x = -G^-1 a
+    (fast.py:265-328): equalities (l == u) and fixed variables (xl == xu)
+    are activated in ascending index order by rank-one adds, until a lane
+    stops RUNNING; more of them than n ends OVERCONSTRAINED_PROBLEM."""
+    B, n = pb.a.shape
+    m = pb.m
+    mt = m + n
+    dt, dev, i32 = pb.G.dtype, pb.G.device, torch.int32
+    state = FastState(
+        x=x, f=0.5 * _dot(pb.a, x), H=H,
+        Ns=torch.zeros((B, n, n), dtype=dt, device=dev),
+        status=torch.zeros((B, mt), dtype=i32, device=dev),
+        aorder=torch.full((B, n), -1, dtype=i32, device=dev),
+        u=torch.zeros((B, n + 1), dtype=dt, device=dev),
+        q=torch.zeros((B,), dtype=i32, device=dev),
+        it=torch.zeros((B,), dtype=i32, device=dev),
+        term=torch.where(posdef, RUNNING, NON_POS_HESSIAN).to(i32),
+        skip1=torch.zeros((B,), dtype=torch.bool, device=dev),
+        sc_idx=torch.full((B,), -1, dtype=i32, device=dev),
+        sc_status=torch.zeros((B,), dtype=i32, device=dev),
+        hscale=torch.diagonal(H, dim1=1, dim2=2).sum(dim=1))
+
+    eqmask = torch.cat([pb.l == pb.u, pb.xl == pb.xu], dim=1)
+    ar = torch.arange(mt, device=dev)[None, :]
+    perm = torch.argsort(torch.where(eqmask, ar, mt + ar), dim=1,
+                         stable=True)
+    neq = eqmask.sum(dim=1)
+    kq = torch.arange(n + 1, device=dev)[None, :]
+    kk = torch.zeros((B,), dtype=torch.long, device=dev)
+    while True:
+        active = (kk < neq) & (state.term == RUNNING)
+        if not bool(active.any()):
+            break
+        idx = perm.gather(1, kk.clamp(0, mt - 1)[:, None])[:, 0]
+        stc = torch.where(idx < m, EQUALITY, FIXED)
+        nplus = _constraint_normal(pb, idx, stc)
+        z = _bmv(state.H, nplus)
+        r = _bmv(state.Ns, nplus)
+        nz = _dot(nplus, z)
+        nz_safe = torch.where(nz != 0, nz, 1.0)
+        t = torch.where(_dot(z, z) > 0,
+                        (_selected_bound(pb, idx, stc) - _dot(nplus, state.x))
+                        / nz_safe, 0.0)
+        q = state.q.long()[:, None]
+        r_ext = torch.cat([torch.where(kq[:, :n] < q, r, 0.0),
+                           torch.zeros_like(r[:, :1])], dim=1)
+        u = state.u - t[:, None] * r_ext
+        u = u + torch.where(kq == q.clamp(0, n), t[:, None], 0.0)
+        st = dataclasses.replace(state, x=state.x + t[:, None] * z,
+                                 f=state.f + t * nz * 0.5 * t, u=u)
+        state = _where_state(active, _apply_add(st, nplus, z, r, idx, stc),
+                             state)
+        kk = torch.where(active, kk + 1, kk)
+    term = torch.where((neq > n) & (state.term == RUNNING),
+                       OVERCONSTRAINED_PROBLEM, state.term)
+    return _validated(pb, dataclasses.replace(state, term=term.to(i32)), opt)
+
+
+def _init_fast_warm(pb: QPProblem, as_hint, opt: SolverOptions
+                    ) -> FastState:
+    """Warm init of the explicit-operator engine from (B, m+n) activation
+    hints (fast.py:778-848): the hinted set's normals N and signed bounds
+    b_act, then
+
+        M  = N^T G^-1 N  (identity beyond q), by one Cholesky
+        N* = M^-1 N^T G^-1,     H = G^-1 - (G^-1 N) N*
+        u  = M^-1 b + N* a,     x = N*^T b - H a
+
+    and the one-at-a-time deactivation of wrongly hinted constraints with
+    u < 0. A lane whose M has no Cholesky factor (a rank-deficient hinted
+    set) falls back to the cold init. hscale is trace(G^-1)."""
+    from .warm_start import (
+        _active_normals_and_bounds,
+        _process_initial_active_set,
+    )
+
+    B, n = pb.a.shape
+    dev = pb.G.device
+    status, aorder, q, over = _process_initial_active_set(pb, as_hint, opt)
+    N, b_act = _active_normals_and_bounds(pb, status, aorder, q)
+    k = torch.arange(n, device=dev)
+    ql = q.long()[:, None]
+    Ginv, posdef = _inverse_cholesky(pb.G)
+    W = Ginv @ N                                  # cols 0..q-1 = G^-1 n_k
+    M = N.transpose(1, 2) @ W
+    pad = (k[None, :, None] >= ql[:, :, None]) | (k[None, None, :]
+                                                   >= ql[:, :, None])
+    eye = torch.eye(n, dtype=M.dtype, device=dev)
+    Minv, indep = _inverse_cholesky(torch.where(pad, eye, M))
+    Ns = Minv @ W.transpose(1, 2)
+    Ns = torch.where((k[None, :] >= ql)[:, :, None], 0.0, Ns)
+    H = Ginv - W @ Ns
+    u_head = _bmv(Minv, b_act) + _bmv(Ns, pb.a)
+    u_head = torch.where(k[None, :] < ql, u_head, 0.0)
+    x = _bmtv(Ns, b_act) - _bmv(H, pb.a)
+    i32 = torch.int32
+    zeros = torch.zeros((B,), dtype=i32, device=dev)
+    state = FastState(
+        x=x, f=0.5 * _dot(x, _bmv(pb.G, x)) + _dot(pb.a, x), H=H, Ns=Ns,
+        status=status, aorder=aorder,
+        u=torch.cat([u_head, torch.zeros_like(u_head[:, :1])], dim=1),
+        q=q, it=zeros,
+        term=torch.where(over, OVERCONSTRAINED_PROBLEM,
+                         torch.where(posdef, RUNNING, NON_POS_HESSIAN)
+                         ).to(i32),
+        skip1=torch.zeros((B,), dtype=torch.bool, device=dev),
+        sc_idx=zeros - 1, sc_status=zeros,
+        hscale=torch.diagonal(Ginv, dim1=1, dim2=2).sum(dim=1))
+    if not bool(indep.all()):
+        state = _where_state(indep, state, _init_fast(pb, opt))
+    return _deactivate_negative_u(pb, _validated(pb, state, opt), b_act)
+
+
+def _deactivate_negative_u(pb: QPProblem, state: FastState, b_act
+                           ) -> FastState:
+    """Deactivate hinted constraints with u < 0 one at a time, the most
+    negative first (lowest slot on ties), while the lane is RUNNING
+    (fast.py:851-895): a remove update, then the closed form on the
+    reduced set, each counted as an iteration. ``b_act`` are the signed
+    bounds of the slots."""
+    B, n = pb.a.shape
+    m = pb.m
+    k = torch.arange(n, device=pb.G.device)[None, :]
+    utol = -1e-14 if pb.G.dtype == torch.float64 else -1e-5
+    b = b_act
+    while True:
+        q = state.q.long()[:, None]
+        valid = k < q
+        idxs = torch.where(valid, state.aorder.long(), 0)
+        sts = state.status.long().gather(1, idxs.clamp(0, m + n - 1))
+        elig = valid & (sts != EQUALITY) & (sts != FIXED)
+        vals = torch.where(elig, state.u[:, :n], 0.0)
+        lmin = vals.argmin(dim=1)
+        umin = vals.gather(1, lmin[:, None])[:, 0]
+        active = (state.term == RUNNING) & (umin < utol)
+        if not bool(active.any()):
+            return state
+        st2 = _apply_remove(pb, state, lmin, state.u)
+        q2 = st2.q.long()[:, None]
+        src = torch.where((k >= lmin[:, None]) & (k < q2), k + 1, k)
+        b2 = torch.where(k >= q2, 0.0, b.gather(1, src.clamp(0, n - 1)))
+        # closed form on the reduced set (M^-1 = N* G N*^T)
+        nb = _bmtv(st2.Ns, b2)
+        x2 = nb - _bmv(st2.H, pb.a)
+        u2 = torch.where(k < q2, _bmv(st2.Ns, pb.a + _bmv(pb.G, nb)), 0.0)
+        st2 = dataclasses.replace(
+            st2, x=x2, f=0.5 * _dot(x2, _bmv(pb.G, x2)) + _dot(pb.a, x2),
+            u=torch.cat([u2, torch.zeros_like(u2[:, :1])], dim=1),
+            it=state.it + 1)
+        state = _where_state(active, st2, state)
+        b = torch.where(active[:, None], b2, b)
+
+
 def solve_refined_kernel(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
-                         ir_steps: int = 1) -> GIResult:
+                         ir_steps: int = 3) -> GIResult:
     """Batched f32 GI in the fused kernel, then ``ir_steps`` steps of f64
     refinement (counterpart of ``solve_refined_pallas(pbs, opt, ir_steps,
     fused_init=True)``).
@@ -187,12 +517,63 @@ def _solve_refined(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
     """:func:`solve_refined_kernel` with the f32 loop ``run_loop(pb32,
     max_iter)`` given: the kernel's wrapper, or its plain version for a
     comparison on the card."""
-    B = pbs.batch
     pb32 = pbs.with_dtype(torch.float32)
-    out = run_loop(pb32, opt.max_iter)
-    st = _state_from_kernel_out(out, B)
-    if opt.validate:
-        bad = inconsistent_mask(pb32)
-        st = dataclasses.replace(st, term=torch.where(
-            bad, INCONSISTENT_INPUT, st.term).to(torch.int32))
-    return _refine_batch(pbs, st, ir_steps)
+    st = _state_from_kernel_out(run_loop(pb32, opt.max_iter), pbs.batch)
+    return _refine_batch(pbs, _validated(pb32, st, opt), ir_steps)
+
+
+def solve_refined_warm_kernel(pbs: QPProblem, as_hints,
+                              opt: SolverOptions = SolverOptions(),
+                              ir_steps: int = 3) -> GIResult:
+    """Batched warm-started solve from (B, m+n) activation hints, e.g. the
+    previous control step's ``active_set`` (counterpart of
+    ``solve_refined_warm_pallas``). Hints count only with
+    ``opt.warm_start``. The f32 warm init runs here in torch, the loop in
+    the kernel K3 (a CPU batch: its plain version), then ``ir_steps`` steps
+    of f64 refinement."""
+    pb32 = pbs.with_dtype(torch.float32)
+    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+    state0 = _init_fast_warm(pb32, as_hints, opt32)
+    out = run_loop(pb32, state0, opt.max_iter)
+    return _refine_batch(pbs, _state_from_kernel_out(out, pbs.batch),
+                         ir_steps)
+
+
+@dataclasses.dataclass(frozen=True)
+class WarmCarry:
+    """Solver state carried between the solves of a control-loop
+    trajectory (``jrlqp_tpu.solver.fast.WarmCarry``). When consecutive
+    problems share G and C and only a and the bounds drift, the previous
+    solve's operators are exactly the warm operators, so a warm step does
+    no factorization at all. Slots may hold holes (aorder == -1)."""
+
+    H: torch.Tensor       # (B, n, n) f32 reduced inverse operator
+    Ns: torch.Tensor      # (B, n, n) f32 N* row of each slot
+    status: torch.Tensor  # (B, m+n) int32 ActivationStatus
+    aorder: torch.Tensor  # (B, n) int32 constraint of each slot, -1 free
+    q: torch.Tensor       # (B,) int32 active count
+
+
+def solve_refined_kernel_carry(pbs: QPProblem, carry: WarmCarry | None = None,
+                               opt: SolverOptions = SolverOptions(),
+                               ir_steps: int = 3
+                               ) -> tuple[GIResult, WarmCarry]:
+    """Batched solve of one step of a trajectory of related QPs
+    (counterpart of ``solve_refined_pallas_carry``); returns ``(result,
+    carry)``. ``carry=None`` solves cold in K1; a carry from the previous
+    step, whose G and C must be this step's, starts K4 from its operators.
+    A CPU batch runs the kernels' plain versions. With ``opt.validate``
+    the cold step ends lanes with inconsistent data INCONSISTENT_INPUT
+    (the warm step, like the JAX one, does not check)."""
+    pb32 = pbs.with_dtype(torch.float32)
+    if carry is None:
+        out = run_loop_fused(pb32, opt.max_iter)
+    else:
+        out = run_warm_loop(pb32, carry.H, carry.Ns, carry.status,
+                            carry.aorder, carry.q, opt.max_iter)
+    st = _state_from_kernel_out(out, pbs.batch)
+    if carry is None:
+        st = _validated(pb32, st, opt)
+    return (_refine_batch(pbs, st, ir_steps),
+            WarmCarry(H=out["H"], Ns=out["Ns"], status=out["status"],
+                      aorder=out["aorder"], q=out["q"]))

@@ -1,6 +1,6 @@
-"""The port's kernels on a CUDA card, held against their plain PyTorch
-versions on the same card; also the numpy batch builders that the CPU
-tests share.
+"""The port's kernels (K1, K2, K3, K4) on a CUDA card, held against their
+plain PyTorch versions on the same card; also the numpy batch builders
+that the CPU tests share.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and no jax:
@@ -37,6 +37,14 @@ def np_qp_batch(seed, batch, n, m, act_frac):
                 l=cx - np.where(tight, 0.0, 3.0 * off_l), u=cx + 3.0 * off_u,
                 xl=np.full((batch, n), -np.inf),
                 xu=np.full((batch, n), np.inf))
+
+
+def drifted(d, scale, seed):
+    """Batch ``d`` with l and u shifted together by scale * N(0, 1): the
+    next step of a control-loop trajectory (G and C unchanged)."""
+    shift = scale * np.random.default_rng(seed).standard_normal(
+        d["l"].shape)
+    return dict(d, l=d["l"] + shift, u=d["u"] + shift)
 
 
 def _eq_fixed(d):
@@ -102,21 +110,70 @@ def test_chol_inv_b_kernel_matches_plain(cuda_device, n, s):
     torch.testing.assert_close(Li[pd], Lip[pd], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CASES))
-def test_gi_fused_kernel_matches_plain(cuda_device, name):
-    d, max_iter = make_case(name)
-    pb = problem_from_numpy(**{k: v.astype(np.float32) for k, v in d.items()},
-                            device=cuda_device)
-    before = gi_kernel.launches
-    ours = gi_kernel.run_loop_fused(pb, max_iter)
-    torch.cuda.synchronize()
-    assert gi_kernel.launches == before + 1
-    ref = gi_kernel.gi_fused_plain(pb, max_iter)
+def _assert_kernel_matches_plain(ours, ref):
     for k in ("term", "it", "q", "status", "aorder"):
         assert torch.equal(ours[k], ref[k]), k
     for k in ("x", "u", "H", "Ns"):
         torch.testing.assert_close(ours[k], ref[k], rtol=0, atol=1e-4)
+
+
+def _f32_problem(d, device):
+    return problem_from_numpy(**{k: v.astype(np.float32)
+                                 for k, v in d.items()}, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_gi_fused_kernel_matches_plain(cuda_device, name):
+    d, max_iter = make_case(name)
+    pb = _f32_problem(d, cuda_device)
+    before = gi_kernel.launches
+    ours = gi_kernel.run_loop_fused(pb, max_iter)
+    torch.cuda.synchronize()
+    assert gi_kernel.launches == before + 1
+    _assert_kernel_matches_plain(ours, gi_kernel.gi_fused_plain(pb, max_iter))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_gi_loop_kernel_matches_plain(cuda_device, name):
+    # K3 from the warm init of the cold active set, every second hint
+    # cleared
+    d, max_iter = make_case(name)
+    cold = fast.solve_refined_kernel(problem_from_numpy(**d,
+                                                        device=cuda_device),
+                                     SolverOptions(max_iter=max_iter))
+    hints = cold.active_set.clone()
+    hints[:, ::2] = 0
+    pb = _f32_problem(d, cuda_device)
+    opt32 = SolverOptions(max_iter=max_iter, warm_start=True).with_(
+        dtype=torch.float32, zero_z_threshold=1e-6)
+    state0 = fast._init_fast_warm(pb, hints, opt32)
+    before = gi_kernel.loop_launches
+    ours = gi_kernel.run_loop(pb, state0, max_iter)
+    torch.cuda.synchronize()
+    assert gi_kernel.loop_launches == before + 1
+    _assert_kernel_matches_plain(
+        ours, gi_kernel.gi_loop_plain(pb, state0, max_iter))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,scale", [(k, 0.02) for k in CASES]
+                         + [("n8_m12", 0.5)])
+def test_gi_warm_kernel_matches_plain(cuda_device, name, scale):
+    # K4 from the carry of a cold solve, on the drifted problem
+    d, max_iter = make_case(name)
+    _, carry = fast.solve_refined_kernel_carry(
+        problem_from_numpy(**d, device=cuda_device), None,
+        SolverOptions(max_iter=max_iter))
+    pb = _f32_problem(drifted(d, scale, 7), cuda_device)
+    co = (carry.H, carry.Ns, carry.status, carry.aorder, carry.q)
+    before = gi_kernel.warm_launches
+    ours = gi_kernel.run_warm_loop(pb, *co, max_iter)
+    torch.cuda.synchronize()
+    assert gi_kernel.warm_launches == before + 1
+    _assert_kernel_matches_plain(
+        ours, gi_kernel.gi_warm_plain(pb, *co, max_iter))
 
 
 @pytest.mark.cuda

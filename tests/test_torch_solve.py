@@ -1,6 +1,8 @@
 """The port's main path ``solve_refined_kernel`` (plain K1 on the CPU, then
 f64 refinement) against ``solve_refined_pallas(..., fused_init=True)`` in
 interpret mode, on the batches of test_torch_gi_kernel.py."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -82,3 +84,23 @@ def test_torch_generator_batch_solves():
     res = solve_refined_kernel(pbs, SolverOptions(max_iter=150), ir_steps=1)
     resid = kkt_residual(res.x, res.multipliers, pbs)
     assert bool(((resid <= 1e-8) & (res.status == 0)).all()), resid
+
+
+def test_default_ir_steps_match_pallas():
+    # both packages called with their defaults: ir_steps is 3 in each
+    assert (inspect.signature(solve_refined_kernel).parameters["ir_steps"]
+            .default == inspect.signature(solve_refined_pallas)
+            .parameters["ir_steps"].default == 3)
+    d, max_iter = make_case("n8_m12")
+    ref = solve_refined_pallas(jax_problem(d), JOptions(max_iter=max_iter),
+                               interpret=True, pack=4, fused_init=True)
+    pb = problem_from_numpy(**d)
+    res = solve_refined_kernel(pb, SolverOptions(max_iter=max_iter))
+    ours = result_to_numpy(res)
+    np.testing.assert_array_equal(ours["status"], np.asarray(ref.status))
+    np.testing.assert_array_equal(ours["active_set"],
+                                  np.asarray(ref.active_set))
+    np.testing.assert_allclose(ours["x"], np.asarray(ref.x), atol=1e-7)
+    np.testing.assert_allclose(ours["multipliers"],
+                               np.asarray(ref.multipliers), atol=1e-6)
+    assert bool((kkt_residual(res.x, res.multipliers, pb) <= 1e-8).all())
