@@ -4,8 +4,9 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Builds the CUDA kernels from jrlqp_tpu_torch/csrc/, checks each kernel
-against its plain PyTorch version on the card, and drives the port's paths
-at n=50, m=100:
+against its plain PyTorch version on the card, and drives the port's paths,
+the dense ones at n=50, m=100 and the structured one at the multi-robot IK
+width (9 robots x 43 dof, n=387, m=36):
 
 1. the card and the build;
 2. K2 (block Cholesky and inverse) against its plain version;
@@ -19,7 +20,19 @@ at n=50, m=100:
 7. the control-loop warm paths at batch 16384: a cold step and 10 warm K4
    steps of ``solve_refined_kernel_carry`` at bound drift 0.02, each held
    against a cold solve, and one ``solve_refined_warm_kernel`` hint step
-   (K3), each gated like the main path, with solves/s and device times.
+   (K3), each gated like the main path, with solves/s and device times;
+8. K5-K8 (the structured block-LLT chains) against their plain versions at
+   the IK shape, batch 1024: tri-block-diagonal (with lower_only) and
+   block-arrow down and up, with device times;
+9. the structured cold batch ``solve_structured_fast_batch`` at batch 1024
+   (K5 + K6, the torch GI loop, f64 refinement), gated like the main path
+   and held against the port's dense engine ``solve_refined``; the two
+   arrow layouts (K7 + K8) gated alike; solves/s of the kernel route, the
+   composed ``"blocks"`` route and the dense engine, and the time split;
+10. the IK trajectory: a cold step and 9 warm steps of
+   ``solve_structured_fast_carry`` at batch 1024 (10,240 solves), fresh
+   0.02 N(0, 1) noise on a and a 0.02 N(0, 1) shift of l and u per step,
+   each gated and held against a cold solve of the step.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is nonzero. The last
@@ -36,6 +49,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
@@ -47,6 +62,9 @@ K2_BATCH = 4096      # K2-vs-plain comparison
 STEPS, DRIFT = 10, 0.02
 HINT_IR_STEPS, HINT_MIN_RATE = 3, 0.998  # the hint step's (see phase 7)
 SEED = 0
+IK_NB, IK_S, IK_MC = 9, 43, 4  # the reference's Sequential IK
+IK_BATCH, IK_MAX_ITER, IK_IR_STEPS = 1024, 200, 3
+IK_STEPS, IK_DRIFT = 10, 0.02
 
 
 def _fail(msg: str) -> None:
@@ -105,7 +123,16 @@ def main() -> int:
     )
     from jrlqp_tpu_torch.ops.cuda import _build, block_llt, gi_kernel
     from jrlqp_tpu_torch.solver import fast
+    from jrlqp_tpu_torch.structured import (
+        GType,
+        solve_structured_fast_batch,
+        solve_structured_fast_carry,
+        structured_from_numpy,
+        structured_qp_problem,
+    )
+    from jrlqp_tpu_torch.structured import solver as ssolver
     from jrlqp_tpu_torch.testing.batch_gen import random_qp_batch
+    from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
     from jrlqp_tpu_torch.testing.kkt import kkt_residual
 
     dev = torch.device("cuda", 0)
@@ -121,12 +148,20 @@ def main() -> int:
         gi_kernel.loop_launches = 0
         gi_kernel.warm_launches = 0
         block_llt.launches = 0
+        block_llt.tri_llt_launches = 0
+        block_llt.tri_solve_launches = 0
+        block_llt.arrow_llt_launches = 0
+        block_llt.arrow_solve_launches = 0
 
     def counts():
         return {"gi_fused": gi_kernel.launches,
                 "chol_inv_b": block_llt.launches,
                 "gi_loop": gi_kernel.loop_launches,
-                "gi_warm": gi_kernel.warm_launches}
+                "gi_warm": gi_kernel.warm_launches,
+                "tri_block_llt": block_llt.tri_llt_launches,
+                "tri_block_solve": block_llt.tri_solve_launches,
+                "block_arrow_llt": block_llt.arrow_llt_launches,
+                "block_arrow_solve": block_llt.arrow_solve_launches}
 
     def drifted(pb, scale):
         """``pb`` with l and u shifted together by scale * N(0, 1)."""
@@ -136,8 +171,8 @@ def main() -> int:
 
     def gate(name, res, pbs, min_rate=0.999):
         """KKT <= 1e-8 & SUCCESS on >= min_rate of the lanes."""
-        _require(res.x.shape == (pbs.batch, N)
-                 and res.multipliers.shape == (pbs.batch, M + N),
+        _require(res.x.shape == (pbs.batch, pbs.n)
+                 and res.multipliers.shape == (pbs.batch, pbs.m + pbs.n),
                  f"{name}: output shapes")
         _require(bool(torch.isfinite(res.x).all()), f"{name}: non-finite x")
         resid = kkt_residual(res.x, res.multipliers, pbs)
@@ -442,6 +477,245 @@ def main() -> int:
     print(f"device ms at batch {BATCH} ({card}): K3 {k3_ms!r} "
           f"(plain {k3_plain_ms!r}), K4 {k4_ms!r} (plain {k4_plain_ms!r})")
 
+    del pbs, base7, steps, warm, carry, carry_in, co, state0, ins3, ins4
+
+    # ---- phase 8: K5-K8 (structured block-LLT chains) vs plain ----
+    ik = ik_batch(IK_BATCH, IK_NB, IK_S, IK_MC, seed=SEED)
+    n_ik = IK_NB * IK_S
+    diag32 = torch.from_numpy(ik["diag"]).to(dev, f32)
+    off32 = torch.from_numpy(ik["off"]).to(dev, f32)
+    eye_ik = torch.eye(n_ik, device=dev).reshape(1, IK_NB, IK_S, n_ik)
+    eye_ik = eye_ik.expand(IK_BATCH, -1, -1, -1).contiguous()
+
+    def rel_err(ours, ref):
+        return float((ours - ref).abs().max()
+                     / ref.abs().max().clamp_min(1.0))
+
+    def chain_pairs(kind):
+        """[(output, kernel, plain)] of one chain kind: the factorization
+        and the solve on the identity, on the same factor."""
+        if kind.startswith("tri"):
+            fac = block_llt.tri_block_llt(diag32, off32)
+            fac_p = block_llt.tri_block_llt_plain(diag32, off32)
+            lower = kind == "tri_lower"
+            y = block_llt.tri_block_solve(fac[1], fac[2], eye_ik, lower)
+            y_p = block_llt.tri_block_solve_plain(fac[1], fac[2], eye_ik,
+                                                  lower)
+        else:
+            up = kind == "arrow_up"
+            fac = block_llt.block_arrow_llt(diag32, off32, up=up)
+            fac_p = block_llt.block_arrow_llt_plain(diag32, off32, up=up)
+            y = block_llt.block_arrow_solve(fac[1], fac[2], eye_ik, up=up)
+            y_p = block_llt.block_arrow_solve_plain(fac[1], fac[2], eye_ik,
+                                                    up=up)
+        return [("factor", k, p) for k, p in zip(fac, fac_p)] + [
+            ("solve", y, y_p)]
+
+    struct_err = {"K5": 0.0, "K6": 0.0, "K7": 0.0, "K8": 0.0}
+    for kind in ("tri", "tri_lower", "arrow_down", "arrow_up"):
+        pairs = chain_pairs(kind)
+        torch.cuda.synchronize()
+        for what, k, p in pairs:
+            _require(k.shape == p.shape and bool(torch.isfinite(k).all()),
+                     f"{kind} {what}: shape or non-finite output")
+            rel = rel_err(k, p)
+            _require(rel <= 1e-5, f"{kind} {what}: kernel vs plain {rel} "
+                     f"> 1e-5 relative")
+            name = {("tri", "factor"): "K5", ("tri", "solve"): "K6",
+                    ("arr", "factor"): "K7", ("arr", "solve"): "K8"}[
+                        (kind[:3], what)]
+            struct_err[name] = max(struct_err[name],
+                                   float((k - p).abs().max()))
+        print(f"K5-K8 vs plain ({kind}, batch {IK_BATCH}, nb={IK_NB}, "
+              f"s={IK_S}): max |err| / max(1, |plain|) "
+              f"{max(rel_err(k, p) for _, k, p in pairs):.3e}")
+    del pairs
+    Ld, Lo, Li = block_llt.tri_block_llt(diag32, off32)
+    aLd, aLo, aLi = block_llt.block_arrow_llt(diag32, off32)
+    struct_ms = {
+        "K5": (_cuda_ms(lambda: block_llt.tri_block_llt(diag32, off32)),
+               _cuda_ms(lambda: block_llt.tri_block_llt_plain(diag32, off32),
+                        reps=1)),
+        "K6": (_cuda_ms(lambda: block_llt.tri_block_solve(Lo, Li, eye_ik)),
+               _cuda_ms(lambda: block_llt.tri_block_solve_plain(
+                   Lo, Li, eye_ik), reps=1)),
+        "K7": (_cuda_ms(lambda: block_llt.block_arrow_llt(diag32, off32)),
+               _cuda_ms(lambda: block_llt.block_arrow_llt_plain(
+                   diag32, off32), reps=1)),
+        "K8": (_cuda_ms(lambda: block_llt.block_arrow_solve(aLo, aLi,
+                                                            eye_ik)),
+               _cuda_ms(lambda: block_llt.block_arrow_solve_plain(
+                   aLo, aLi, eye_ik), reps=1)),
+    }
+    print(f"device ms at batch {IK_BATCH}, nb={IK_NB}, s={IK_S} ({card}): "
+          + ", ".join(f"{k} {v[0]!r} (plain {v[1]!r})"
+                      for k, v in struct_ms.items()))
+    del Ld, Lo, Li, aLd, aLo, aLi, eye_ik
+
+    # ---- phase 9: the structured cold batch ----
+    opt_ik = SolverOptions(max_iter=IK_MAX_ITER)
+    ik_t = {k: torch.from_numpy(ik[k]).to(dev) for k in ("a", "l", "u")}
+
+    def ik_args(d, gtype=GType.TRI_BLOCK_DIAGONAL):
+        sg, sc = structured_from_numpy(diag=ik["diag"], off=ik["off"],
+                                       gtype=gtype, blocks=ik["blocks"],
+                                       device=dev)
+        return sg, d["a"], sc, d["l"], d["u"]
+
+    args9 = ik_args(ik_t)
+    pb9 = structured_qp_problem(*args9)
+    torch.cuda.synchronize()
+    reset_counts()
+    res9 = solve_structured_fast_batch(*args9, opt=opt_ik,
+                                       ir_steps=IK_IR_STEPS)
+    torch.cuda.synchronize()
+    cold_counts = counts()
+    print(f"structured cold batch launches: {cold_counts}")
+    _require(cold_counts["tri_block_llt"] == 1
+             and cold_counts["tri_block_solve"] == 1
+             and sum(cold_counts.values()) == 2,
+             "the structured cold batch did not run K5 and K6 once each "
+             "(and nothing else)")
+    rate9, kkt9, _ = gate("structured cold batch", res9, pb9)
+    dense9 = fast.solve_refined(pb9, opt_ik, ir_steps=IK_IR_STEPS)
+    same_st = int((res9.status != dense9.status).sum())
+    same_as = int((res9.active_set != dense9.active_set).any(dim=1).sum())
+    ok9 = (res9.status == 0) & (dense9.status == 0)
+    x9 = float((res9.x[ok9] - dense9.x[ok9]).abs().max())
+    print(f"structured vs dense engine: status differs on {same_st} lanes, "
+          f"active set on {same_as}, max |x err| {x9!r}")
+    _require(same_st == 0 and same_as == 0,
+             "structured and dense engines disagree on status or active set")
+    _require(x9 <= 1e-9, f"structured vs dense x differ by {x9} > 1e-9")
+    it9 = res9.iterations.double()
+    print(f"structured cold batch: batch {IK_BATCH}, n={n_ik}, "
+          f"m={IK_NB * IK_MC}: KKT<=1e-8 & SUCCESS rate {rate9!r}, max KKT "
+          f"{kkt9!r}, mean_it {float(it9.mean())!r}, max_it "
+          f"{int(res9.iterations.max())}, active constraints "
+          f"{int((res9.active_set != 0).sum(1).min())}-"
+          f"{int((res9.active_set != 0).sum(1).max())}")
+    arrow_counts = {}
+    for gtype in (GType.BLOCK_ARROW_DOWN, GType.BLOCK_ARROW_UP):
+        args_a = ik_args(ik_t, gtype)
+        reset_counts()
+        res_a = solve_structured_fast_batch(*args_a, opt=opt_ik,
+                                            ir_steps=IK_IR_STEPS)
+        torch.cuda.synchronize()
+        arrow_counts[gtype.name] = c = counts()
+        print(f"structured cold batch ({gtype.name}) launches: {c}")
+        _require(c["block_arrow_llt"] == 1 and c["block_arrow_solve"] == 1
+                 and sum(c.values()) == 2,
+                 f"{gtype.name}: did not run K7 and K8 once each")
+        rate_a, kkt_a, _ = gate(f"structured {gtype.name}", res_a,
+                                structured_qp_problem(*args_a))
+        print(f"structured cold batch ({gtype.name}): rate {rate_a!r}, "
+              f"max KKT {kkt_a!r}, mean_it "
+              f"{float(res_a.iterations.double().mean())!r}")
+    del res_a, args_a
+
+    sps9 = {
+        "kernel route (K5+K6)": IK_BATCH / _wall_s(
+            lambda: solve_structured_fast_batch(*args9, opt=opt_ik,
+                                                ir_steps=IK_IR_STEPS)),
+        "blocks route": IK_BATCH / _wall_s(
+            lambda: solve_structured_fast_batch(*args9, opt=opt_ik,
+                                                ir_steps=IK_IR_STEPS,
+                                                backend="blocks")),
+        "dense engine": IK_BATCH / _wall_s(
+            lambda: fast.solve_refined(pb9, opt_ik, ir_steps=IK_IR_STEPS)),
+    }
+    for k, v in sps9.items():
+        print(f"solves/s (best of 3, batch {IK_BATCH}, IK, {card}): {k} "
+              f"{v!r}")
+
+    def split9():
+        """Wall ms of the cold batch's stages, each closed by a sync."""
+        sg, a, sc, lo_, up_ = args9
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        pbs_, pb32, opt32 = ssolver._problems(sg, a, sc, lo_, up_, None,
+                                              None, opt_ik)
+        mark()
+        H, posdef = ssolver._structured_inverse_kernel_batch(
+            sg.diag.to(f32), sg.off.to(f32), sg.gtype)
+        mark()
+        x = torch.where(posdef[:, None], -fast._bmv(H, pb32.a), 0.0)
+        st = fast._run_loop(pb32, fast._init_fast_from_ops(
+            pb32, H, x, posdef, opt32), opt32)
+        mark()
+        fast._refine_batch(pbs_, st, IK_IR_STEPS)
+        mark()
+        return [1e3 * (b - a_) for a_, b in zip(marks, marks[1:])]
+
+    split9()
+    parts = min((split9() for _ in range(3)), key=sum)
+    print(f"structured cold batch split, wall ms ({card}): dense problem "
+          f"{parts[0]!r}, K5+K6 {parts[1]!r}, init + torch loop "
+          f"{parts[2]!r}, refinement {parts[3]!r}")
+    del dense9
+
+    # ---- phase 10: the IK trajectory (a cold step, then warm steps) ----
+    rng = np.random.default_rng(SEED + 1)
+    traj = [{k: torch.from_numpy(v).to(dev) for k, v in
+             ik_step(ik, IK_DRIFT, rng).items() if k in ("a", "l", "u")}
+            for _ in range(IK_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    res_t, carry_t = solve_structured_fast_carry(
+        *ik_args(traj[0]), None, opt=opt_ik, ir_steps=IK_IR_STEPS)
+    results = [res_t]
+    for d in traj[1:]:
+        carry_prev = carry_t
+        res_t, carry_t = solve_structured_fast_carry(
+            *ik_args(d), carry_t, opt=opt_ik, ir_steps=IK_IR_STEPS)
+        results.append(res_t)
+    torch.cuda.synchronize()
+    traj_ik_counts = counts()
+    print(f"IK trajectory launches (cold step + {IK_STEPS - 1} warm steps): "
+          f"{traj_ik_counts}")
+    _require(traj_ik_counts["tri_block_llt"] == 1
+             and traj_ik_counts["tri_block_solve"] == 1
+             and sum(traj_ik_counts.values()) == 2,
+             "the IK trajectory launched K5-K8 other than once on the cold "
+             "step")
+    rows_ik = []
+    for i, (r_, d) in enumerate(zip(results, traj)):
+        args_s = ik_args(d)
+        pb_s = structured_qp_problem(*args_s)
+        res_c = solve_structured_fast_batch(*args_s, opt=opt_ik,
+                                            ir_steps=IK_IR_STEPS)
+        rate, max_kkt, passed = gate(f"IK step {i}", r_, pb_s)
+        passed_c = ((kkt_residual(res_c.x, res_c.multipliers, pb_s) <= 1e-8)
+                    & (res_c.status == 0))
+        same = (r_.active_set == res_c.active_set).all(dim=1)
+        ok = same & passed & passed_c
+        x_err = float((r_.x[ok] - res_c.x[ok]).abs().max())
+        _require(x_err <= 1e-7, f"IK step {i}: |x - x_cold| {x_err} > 1e-7")
+        row = dict(step=i, kind="cold" if i == 0 else "warm",
+                   mean_it=float(r_.iterations.double().mean()),
+                   max_it=int(r_.iterations.max()),
+                   cold_mean_it=float(res_c.iterations.double().mean()),
+                   same_active_set=float(same.double().mean()),
+                   pass_rate=rate, max_kkt=max_kkt, x_err=x_err)
+        rows_ik.append(row)
+        print(f"IK step {i}: {row}")
+    warm_it = sum(r["mean_it"] for r in rows_ik[1:]) / (IK_STEPS - 1)
+    print(f"IK warm steps: mean_it {warm_it!r} (cold "
+          f"{sum(r['cold_mean_it'] for r in rows_ik) / IK_STEPS!r})")
+    last = ik_args(traj[-1])
+    warm_s = _wall_s(lambda: solve_structured_fast_carry(
+        *last, carry_prev, opt=opt_ik, ir_steps=IK_IR_STEPS))
+    cold_s = _wall_s(lambda: solve_structured_fast_carry(
+        *last, None, opt=opt_ik, ir_steps=IK_IR_STEPS))
+    print(f"IK trajectory solves/s (best of 3, batch {IK_BATCH}, {card}): "
+          f"warm step {IK_BATCH / warm_s!r} ({warm_s * 1e3!r} ms), cold "
+          f"step {IK_BATCH / cold_s!r} ({cold_s * 1e3!r} ms); "
+          f"{IK_STEPS} steps = {IK_STEPS * IK_BATCH} solves")
+
     src = "jrlqp_tpu_torch/csrc/gi_kernel.cu"
     pallas = "jrlqp_tpu/ops/pallas/gi_kernel.py"
     kernels = [
@@ -463,6 +737,19 @@ def main() -> int:
          "launches": traj_counts["gi_warm"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]
+    struct_src = "jrlqp_tpu_torch/csrc/struct_llt.cu"
+    struct_pallas = "jrlqp_tpu/ops/pallas/block_llt.py"
+    for key, name, line, launched in (
+            ("K5", "tri_block_llt", 225, cold_counts),
+            ("K6", "tri_block_solve", 283, cold_counts),
+            ("K7", "block_arrow_llt", 350, arrow_counts["BLOCK_ARROW_UP"]),
+            ("K8", "block_arrow_solve", 405,
+             arrow_counts["BLOCK_ARROW_UP"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": struct_src,
+            "replaces": f"{struct_pallas}:{line}",
+            "launches": launched[name], "max_abs_err": struct_err[key],
+            "ms": struct_ms[key][0], "plain_ms": struct_ms[key][1]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

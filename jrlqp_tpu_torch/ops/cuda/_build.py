@@ -45,6 +45,14 @@ _SIGNATURES = {
     # G, Ct, l, u, xl, xu, a, K0, status0, aorder0, statk0, b_act, q; the
     # 7 outputs as above; B, n, m, np_, mp_, max_iter; stream
     "jrlqp_gi_warm": [_P] * 20 + [_I] * 6 + [_P],
+    # diag, off; Ld, Lo, Li; B, nb, s; stream
+    "jrlqp_tri_block_llt": [_P] * 5 + [_I] * 3 + [_P],
+    # diag, side; Ld, Lo, Li; B, nb, s, up; stream
+    "jrlqp_block_arrow_llt": [_P] * 5 + [_I] * 4 + [_P],
+    # Lo, Li, r; y; B, nb, s, k, lower_only; stream
+    "jrlqp_tri_block_solve": [_P] * 4 + [_I] * 5 + [_P],
+    # Lo, Li, r; y; B, nb, s, k, up; stream
+    "jrlqp_block_arrow_solve": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,22 @@
-"""Block Cholesky and triangular inverse of (B, s, s) f32 blocks (K2).
+"""Block Cholesky kernels: K2 on (B, s, s) blocks, and the structured
+block-LLT kernels K5-K8 on (B, nb, s, s) block chains, all f32.
 
-Counterpart of the Pallas device helpers ``_chol_b`` (block_llt.py:89) and
-``_tri_inv_b`` (:121). The CUDA versions are device functions in
-``csrc/block_llt.cuh``, shared with the fused GI kernel (K1);
-:func:`chol_inv_b` runs them alone through the thin kernel
+K2 is the counterpart of the Pallas device helpers ``_chol_b``
+(block_llt.py:89) and ``_tri_inv_b`` (:121). The CUDA versions are device
+functions in ``csrc/block_llt.cuh``, shared with the fused GI kernel (K1)
+and K5/K7; :func:`chol_inv_b` runs them alone through the thin kernel
 ``csrc/block_llt.cu``, one thread block per matrix.
 
-The plain versions below are the same masked loops in PyTorch. They are not
+K5-K8 (``csrc/struct_llt.cu``) are the counterparts of the Pallas wrappers
+``tri_block_llt_pallas`` (:246), ``tri_block_solve_pallas`` (:314),
+``block_arrow_llt_pallas`` (:372) and ``block_arrow_solve_pallas`` (:429):
+the factorizations return ``(L_diag, L_off, Linv_diag)`` with
+``Linv_diag[i] = L_i^-1``, the solves ``y = G^-1 r`` for r of shape
+(B, nb, s, k), at the unpadded shapes. Up arrows are factored in the rolled
+block order (block 0 last), as the Pallas wrappers do; the solve takes the
+rhs and returns y in the original order.
+
+The plain versions below are the same algorithms in PyTorch. They are not
 ``torch.linalg.cholesky``, which raises on a non-SPD block where these clamp
 the pivot at 1e-30 and let :func:`posdef_plain` flag the block.
 """
@@ -16,10 +26,22 @@ import torch
 
 from . import _build
 
-__all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain"]
+__all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain",
+           "tri_block_llt", "tri_block_llt_plain", "tri_block_solve",
+           "tri_block_solve_plain", "block_arrow_llt",
+           "block_arrow_llt_plain", "block_arrow_solve",
+           "block_arrow_solve_plain"]
 
-# launches of the CUDA kernel since the last reset (set to 0 to reset)
+# launches of each CUDA kernel since the last reset (set to 0 to reset):
+# K2 (chol_inv_b), K5, K6, K7 and K8
 launches = 0
+tri_llt_launches = 0
+tri_solve_launches = 0
+arrow_llt_launches = 0
+arrow_solve_launches = 0
+
+# K7 keeps five s x s f32 blocks in a thread block's shared memory
+_STRUCT_MAX_S = 96
 
 
 def chol_b_plain(A: torch.Tensor) -> torch.Tensor:
@@ -96,3 +118,202 @@ def chol_inv_b(A: torch.Tensor):
         raise RuntimeError(f"chol_inv_b: no kernel for device {A.device}")
     L = chol_b_plain(A)
     return L, tri_inv_b_plain(L), posdef_plain(L)
+
+
+# ---------------------------------------------------------------------------
+# K5-K8: the structured block-LLT chains
+# ---------------------------------------------------------------------------
+
+
+def tri_block_llt_plain(diag: torch.Tensor, off: torch.Tensor):
+    """K5's plain version: L_i = chol(D_i - S'_{i-1} S'_{i-1}^T),
+    S'_i = S_i L_i^-T and L_i^-1 for (B, nb, s, s) diagonal and
+    (B, nb-1, s, s) sub-diagonal blocks (``_tri_llt_kernel``)."""
+    B, nb, s, _ = diag.shape
+    M = torch.zeros_like(diag[:, 0])
+    Ls, Lis, Sps = [], [], []
+    for i in range(nb):
+        L = chol_b_plain(diag[:, i] - M)
+        Li = tri_inv_b_plain(L)
+        Ls.append(L)
+        Lis.append(Li)
+        if i < nb - 1:
+            Sp = off[:, i] @ Li.mT
+            Sps.append(Sp)
+            M = Sp @ Sp.mT
+    Lo = torch.stack(Sps, 1) if Sps else diag.new_zeros((B, 0, s, s))
+    return torch.stack(Ls, 1), Lo, torch.stack(Lis, 1)
+
+
+def tri_block_solve_plain(L_off: torch.Tensor, Linv: torch.Tensor,
+                          r: torch.Tensor, lower_only: bool = False):
+    """K6's plain version: y = G^-1 r by the forward then the backward block
+    chain of products with the L_i^-1 (``_tri_solve_kernel``); with
+    ``lower_only`` y = L^-1 r. r is (B, nb, s, k)."""
+    nb = r.shape[1]
+    ys = []
+    for i in range(nb):
+        rhs = r[:, i] if i == 0 else r[:, i] - L_off[:, i - 1] @ ys[-1]
+        ys.append(Linv[:, i] @ rhs)
+    if lower_only:
+        return torch.stack(ys, 1)
+    out = [None] * nb
+    for i in range(nb - 1, -1, -1):
+        rhs = ys[i] if i == nb - 1 else ys[i] - L_off[:, i].mT @ out[i + 1]
+        out[i] = Linv[:, i].mT @ rhs
+    return torch.stack(out, 1)
+
+
+def block_arrow_llt_plain(diag: torch.Tensor, side: torch.Tensor,
+                          up: bool = False):
+    """K7's plain version: chol of each head block, B_i = S_i L_i^-T, the
+    Schur complement D_last - sum B_i B_i^T factored last, and each L_i^-1
+    (``_arrow_llt_kernel``). An up arrow is factored in the rolled order."""
+    if up:
+        diag = torch.roll(diag, -1, dims=1)
+    B, nb, s, _ = diag.shape
+    L_h = chol_b_plain(diag[:, :-1].reshape(-1, s, s))
+    Li_h = tri_inv_b_plain(L_h).view(B, nb - 1, s, s)
+    L_h = L_h.view(B, nb - 1, s, s)
+    Bs = side @ Li_h.mT
+    L_last = chol_b_plain(diag[:, -1] - (Bs @ Bs.mT).sum(1))
+    Li_last = tri_inv_b_plain(L_last)
+    return (torch.cat([L_h, L_last[:, None]], 1), Bs,
+            torch.cat([Li_h, Li_last[:, None]], 1))
+
+
+def block_arrow_solve_plain(L_side: torch.Tensor, Linv: torch.Tensor,
+                            r: torch.Tensor, up: bool = False):
+    """K8's plain version: y = G^-1 r for an arrow factor, independent heads
+    with the coupling gathered into the last block, then scattered back
+    (``_arrow_solve_kernel``). r and y are in the original block order."""
+    if up:
+        r = torch.roll(r, -1, dims=1)
+    heads = Linv[:, :-1] @ r[:, :-1]
+    y_last = Linv[:, -1] @ (r[:, -1] - (L_side @ heads).sum(1))
+    w_last = Linv[:, -1].mT @ y_last
+    y_head = Linv[:, :-1].mT @ (heads - L_side.mT @ w_last[:, None])
+    y = torch.cat([y_head, w_last[:, None]], 1)
+    return torch.roll(y, 1, dims=1) if up else y
+
+
+def _chain_on_cuda(name: str, s: int, *ts) -> bool:
+    """True for CUDA f32 tensors, False for CPU ones; raises otherwise."""
+    dev = ts[0].device
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} wants float32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+    if dev.type == "cuda":
+        if s > _STRUCT_MAX_S:
+            raise ValueError(f"{name}: block size {s} > {_STRUCT_MAX_S}")
+        return True
+    if dev.type != "cpu":
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    return False
+
+
+def _check_factor_shapes(name: str, diag, off):
+    if diag.dim() != 4 or diag.shape[2] != diag.shape[3]:
+        raise ValueError(f"{name} wants diag (B, nb, s, s), got "
+                         f"{tuple(diag.shape)}")
+    B, nb, s, _ = diag.shape
+    if tuple(off.shape) != (B, nb - 1, s, s):
+        raise ValueError(f"{name} wants off {(B, nb - 1, s, s)}, got "
+                         f"{tuple(off.shape)}")
+
+
+def _check_solve_shapes(name: str, L_off, Linv, r):
+    _check_factor_shapes(name, Linv, L_off)
+    if r.dim() != 4 or tuple(r.shape[:3]) != tuple(Linv.shape[:3]):
+        raise ValueError(f"{name} wants r (B, nb, s, k) with (B, nb, s) = "
+                         f"{tuple(Linv.shape[:3])}, got {tuple(r.shape)}")
+
+
+def _factor_cuda(entry: str, diag, off, *flags):
+    B, nb, s, _ = diag.shape
+    Ld, Li, Lo = torch.empty_like(diag), torch.empty_like(diag), \
+        torch.empty_like(off)
+    stream = torch.cuda.current_stream(diag.device).cuda_stream
+    code = getattr(_build.library(), entry)(
+        diag.data_ptr(), off.data_ptr(), Ld.data_ptr(), Lo.data_ptr(),
+        Li.data_ptr(), B, nb, s, *flags, stream)
+    _build.check(code, entry)
+    return Ld, Lo, Li
+
+
+def _solve_cuda(entry: str, L_off, Linv, r, flag: bool):
+    B, nb, s, k = r.shape
+    y = torch.empty_like(r)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    code = getattr(_build.library(), entry)(
+        L_off.data_ptr(), Linv.data_ptr(), r.data_ptr(), y.data_ptr(), B, nb,
+        s, k, int(flag), stream)
+    _build.check(code, entry)
+    return y
+
+
+def tri_block_llt(diag: torch.Tensor, off: torch.Tensor):
+    """(L_diag, L_off, Linv_diag) of a batch of f32 block-tridiagonal
+    chains, diag (B, nb, s, s) and off (B, nb-1, s, s) with off[i] at block
+    (i+1, i): the counterpart of ``tri_block_llt_pallas``. A CUDA batch
+    runs the kernel K5, a CPU batch its plain version; any other device
+    raises."""
+    global tri_llt_launches
+    _check_factor_shapes("tri_block_llt", diag, off)
+    if not _chain_on_cuda("tri_block_llt", diag.shape[-1], diag, off):
+        return tri_block_llt_plain(diag, off)
+    out = _factor_cuda("jrlqp_tri_block_llt", diag.contiguous(),
+                       off.contiguous())
+    tri_llt_launches += 1
+    return out
+
+
+def tri_block_solve(L_off: torch.Tensor, Linv: torch.Tensor, r: torch.Tensor,
+                    lower_only: bool = False):
+    """y = G^-1 r (or L^-1 r with ``lower_only``) for r (B, nb, s, k) and
+    the factor of :func:`tri_block_llt`: the counterpart of
+    ``tri_block_solve_pallas``. A CUDA batch runs the kernel K6, a CPU
+    batch its plain version; any other device raises."""
+    global tri_solve_launches
+    _check_solve_shapes("tri_block_solve", L_off, Linv, r)
+    if not _chain_on_cuda("tri_block_solve", r.shape[2], L_off, Linv, r):
+        return tri_block_solve_plain(L_off, Linv, r, lower_only)
+    y = _solve_cuda("jrlqp_tri_block_solve", L_off.contiguous(),
+                    Linv.contiguous(), r.contiguous(), lower_only)
+    tri_solve_launches += 1
+    return y
+
+
+def block_arrow_llt(diag: torch.Tensor, side: torch.Tensor, up: bool = False):
+    """(L_diag, L_side, Linv_diag) of a batch of f32 block-arrow matrices,
+    diag (B, nb, s, s) and side (B, nb-1, s, s) with side[i] at block
+    (nb-1, i), or at (0, i+1) when ``up``: the counterpart of
+    ``block_arrow_llt_pallas``. An up arrow's factor is in the rolled block
+    order (block 0 last). A CUDA batch runs the kernel K7, a CPU batch its
+    plain version; any other device raises."""
+    global arrow_llt_launches
+    _check_factor_shapes("block_arrow_llt", diag, side)
+    if not _chain_on_cuda("block_arrow_llt", diag.shape[-1], diag, side):
+        return block_arrow_llt_plain(diag, side, up)
+    out = _factor_cuda("jrlqp_block_arrow_llt", diag.contiguous(),
+                       side.contiguous(), int(up))
+    arrow_llt_launches += 1
+    return out
+
+
+def block_arrow_solve(L_side: torch.Tensor, Linv: torch.Tensor,
+                      r: torch.Tensor, up: bool = False):
+    """y = G^-1 r for r (B, nb, s, k) and the factor of
+    :func:`block_arrow_llt` with the same ``up``: the counterpart of
+    ``block_arrow_solve_pallas``. A CUDA batch runs the kernel K8, a CPU
+    batch its plain version; any other device raises."""
+    global arrow_solve_launches
+    _check_solve_shapes("block_arrow_solve", L_side, Linv, r)
+    if not _chain_on_cuda("block_arrow_solve", r.shape[2], L_side, Linv, r):
+        return block_arrow_solve_plain(L_side, Linv, r, up)
+    y = _solve_cuda("jrlqp_block_arrow_solve", L_side.contiguous(),
+                    Linv.contiguous(), r.contiguous(), up)
+    arrow_solve_launches += 1
+    return y

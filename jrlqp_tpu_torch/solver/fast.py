@@ -25,9 +25,14 @@ The refinement is the native-f64 branch of ``_refine_batch``
 one-hot gathers of the TPU branch become plain f64 products,
 ``torch.gather`` and ``scatter_add``.
 
-The cold init helpers (``_init_fast`` and what it uses) are the XLA
-engine's, batched with masked lanes: compact slots that shift on removal,
-not the kernels' hole-based slots. They serve as the warm init's fallback.
+The XLA engine is here too, batched with masked lanes: compact slots that
+shift on removal, not the kernels' hole-based slots. Its cold inits
+(``_init_fast``, ``_init_fast_from_ops``) serve the warm init's fallback
+and the structured layer; its loop (``fast_iteration`` run by
+``_run_loop`` until no lane is RUNNING) is the GI loop of the structured
+path, whose n is too large for the kernels' shared memory, and of the
+dense engine ``solve_refined``; ``_init_fast_from_carry`` starts the loop
+from a carried operator.
 """
 from __future__ import annotations
 
@@ -40,12 +45,17 @@ from ..problems import QPProblem
 from ..types import (
     EQUALITY,
     FIXED,
+    INACTIVE,
     INCONSISTENT_INPUT,
+    INFEASIBLE,
     LINEAR_DEPENDENCY_DETECTED,
+    LOWER,
     LOWER_BOUND,
+    MAX_ITER_REACHED,
     NON_POS_HESSIAN,
     OVERCONSTRAINED_PROBLEM,
     RUNNING,
+    SUCCESS,
     UPPER,
     UPPER_BOUND,
     SolverOptions,
@@ -54,7 +64,8 @@ from ..validation import inconsistent_mask
 from .state import GIResult
 
 __all__ = ["FastState", "WarmCarry", "solve_refined_kernel",
-           "solve_refined_warm_kernel", "solve_refined_kernel_carry"]
+           "solve_refined_warm_kernel", "solve_refined_kernel_carry",
+           "fast_iteration", "solve_refined"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -497,6 +508,178 @@ def _deactivate_negative_u(pb: QPProblem, state: FastState, b_act
             it=state.it + 1)
         state = _where_state(active, st2, state)
         b = torch.where(active[:, None], b2, b)
+
+
+def _init_fast_from_carry(pb: QPProblem, H, Ns, status, aorder, q
+                          ) -> FastState:
+    """Warm init from a previous solve's operators (fast.py:971-1009), for
+    a batch that shares that solve's G and C. The carried slots are
+    compacted first (a stable sort, holes last), then the closed form for
+    the new a and bounds through the carried operators
+
+        x = N*^T b_act - H a,   u = N* (G x + a)   (active slots)
+
+    with hscale = trace(H), and the one-at-a-time deactivation of slots
+    with u < 0."""
+    from .warm_start import _active_normals_and_bounds
+
+    B, n = pb.a.shape
+    dev = pb.G.device
+    k = torch.arange(n, device=dev)[None, :]
+    order = torch.argsort(torch.where(aorder >= 0, k, n + k), dim=1,
+                          stable=True)
+    aorder = aorder.gather(1, order)
+    Ns = Ns.gather(1, order[:, :, None].expand(-1, -1, n))
+    _, b_act = _active_normals_and_bounds(pb, status, aorder, q)
+    x = _bmtv(Ns, b_act) - _bmv(H, pb.a)
+    u = torch.where(k < q.long()[:, None],
+                    _bmv(Ns, pb.a + _bmv(pb.G, x)), 0.0)
+    i32 = torch.int32
+    zeros = torch.zeros((B,), dtype=i32, device=dev)
+    state = FastState(
+        x=x, f=0.5 * _dot(x, _bmv(pb.G, x)) + _dot(pb.a, x), H=H, Ns=Ns,
+        status=status, aorder=aorder,
+        u=torch.cat([u, torch.zeros_like(u[:, :1])], dim=1),
+        q=q, it=zeros, term=zeros + RUNNING,
+        skip1=torch.zeros((B,), dtype=torch.bool, device=dev),
+        sc_idx=zeros - 1, sc_status=zeros,
+        hscale=torch.diagonal(H, dim1=1, dim2=2).sum(dim=1))
+    return _deactivate_negative_u(pb, state, b_act)
+
+
+def _select_violated(pb: QPProblem, x, status):
+    """The most violated inactive constraint of each lane (dense.py:56-84):
+    (index into [0, m+n), its ActivationStatus, the violation), which is
+    negative iff a constraint is violated. ``argmin`` takes the first
+    minimum: general constraints before bounds, ties to the lowest index,
+    which is the reference's scan order."""
+    m = pb.m
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    cx = _bmv(pb.C, x)
+    sl, su = cx - pb.l, pb.u - cx
+    cand_c = torch.where(status[:, :m] != INACTIVE, inf, torch.minimum(sl, su))
+    st_c = torch.where(sl <= su, LOWER, UPPER)
+    slb, sub = x - pb.xl, pb.xu - x
+    cand_b = torch.where(status[:, m:] != INACTIVE, inf,
+                         torch.minimum(slb, sub))
+    st_b = torch.where(slb <= sub, LOWER_BOUND, UPPER_BOUND)
+    cand = torch.cat([cand_c, cand_b], dim=1)
+    p = cand.argmin(dim=1, keepdim=True)
+    sts = torch.cat([st_c, st_b], dim=1).gather(1, p)
+    return (p[:, 0].to(torch.int32), sts[:, 0].to(torch.int32),
+            cand.gather(1, p)[:, 0])
+
+
+def fast_iteration(pb: QPProblem, state: FastState, opt: SolverOptions
+                   ) -> FastState:
+    """One explicit-form GI pass on every RUNNING lane (fast.py:167-246);
+    other lanes are returned unchanged. Select the most violated
+    constraint (not after a partial step, which keeps its candidate), take
+    the step, then add the candidate (full step) or remove the blocking
+    slot (partial step). A lane with nothing violated ends SUCCESS, one
+    without a step INFEASIBLE."""
+    B, n = state.x.shape
+    m = pb.m
+    dt, dev = state.x.dtype, state.x.device
+    big = torch.tensor(opt.big_bnd, dtype=dt, device=dev)
+    k = torch.arange(n, device=dev)[None, :]
+    kq = torch.arange(n + 1, device=dev)[None, :]
+    q = state.q.long()[:, None]
+    at_q = kq == q.clamp(0, n)
+
+    sel_idx, sel_st, viol = _select_violated(pb, state.x, state.status)
+    do_select = ~state.skip1
+    success = do_select & (viol >= 0)
+    sc_idx = torch.where(do_select, sel_idx, state.sc_idx)
+    sc_st = torch.where(do_select, sel_st, state.sc_status)
+    u0 = torch.where(do_select[:, None] & at_q, 0.0, state.u)
+
+    nplus = _constraint_normal(pb, sc_idx, sc_st)
+    z = _bmv(state.H, nplus)
+    r = _bmv(state.Ns, nplus)            # rows >= q of N* are zero
+
+    # step lengths: t1 over the removable active slots, t2 the full step
+    valid = k < q
+    idxs = torch.where(valid, state.aorder.long(), 0)
+    stat_k = state.status.long().gather(1, idxs.clamp(0, m + n - 1))
+    eligible = (valid & (stat_k != EQUALITY) & (stat_k != FIXED) & (r > 0))
+    tks = torch.where(eligible, u0[:, :n] / torch.where(eligible, r, 1.0),
+                      big)
+    l = tks.argmin(dim=1)
+    t1 = torch.minimum(tks.gather(1, l[:, None])[:, 0], big)
+    nz = _dot(nplus, z)
+    sign = torch.where((sc_st == UPPER) | (sc_st == UPPER_BOUND), -1.0,
+                       1.0).to(dt)
+    b = _selected_bound(pb, sc_idx, sc_st)
+    # scale-aware zero-z test, relative to the init-time hscale
+    zthr = opt.zero_z_threshold * (state.hscale.clamp_min(1e-30) / n)
+    t2 = torch.where(_dot(z, z) > zthr * zthr * _dot(nplus, nplus),
+                     (sign * b - _dot(nplus, state.x))
+                     / torch.where(nz != 0, nz, 1.0), big)
+    t = torch.minimum(t1, t2)
+    infeasible = t >= big
+    dual_step = (t2 >= big) & ~infeasible
+    full_step = ~infeasible & ~dual_step & (t2 <= t1)
+
+    uq = u0.gather(1, q.clamp(0, n))[:, 0]
+    r_ext = torch.cat([torch.where(valid, r, 0.0),
+                       torch.zeros_like(r[:, :1])], dim=1)
+    u_stepped = (u0 - t[:, None] * r_ext
+                 + torch.where(at_q, t[:, None], 0.0))
+    primal = ~infeasible & ~dual_step
+    st2 = dataclasses.replace(
+        state, sc_idx=sc_idx, sc_status=sc_st, u=u_stepped,
+        x=torch.where(primal[:, None], state.x + t[:, None] * z, state.x),
+        f=torch.where(primal, state.f + t * nz * (0.5 * t + uq), state.f))
+
+    def stepped(st):
+        return dataclasses.replace(st, it=state.it + 1,
+                                   skip1=~full_step & ~infeasible)
+
+    running = state.term == RUNNING
+    go = running & ~(success | infeasible)
+    # a lane that stops keeps its state, with the new term and candidate
+    held = dataclasses.replace(
+        state,
+        term=torch.where(running & success, SUCCESS, torch.where(
+            running & infeasible, INFEASIBLE, state.term)).to(torch.int32),
+        sc_idx=torch.where(running, sc_idx, state.sc_idx),
+        sc_status=torch.where(running, sc_st, state.sc_status))
+    added = stepped(_apply_add(st2, nplus, z, r, sc_idx, sc_st))
+    removed = stepped(_apply_remove(pb, st2, l, u_stepped))
+    return _where_state(go & full_step, added,
+                        _where_state(go & ~full_step, removed, held))
+
+
+def _run_loop(pb: QPProblem, state: FastState, opt: SolverOptions
+              ) -> FastState:
+    """:func:`fast_iteration` until no lane is RUNNING: the XLA engine's
+    while loop (fast.py:342-351) over the batch. A lane that reaches
+    ``opt.max_iter`` while RUNNING ends MAX_ITER_REACHED there, so it
+    stops where its own loop would."""
+    while True:
+        capped = (state.term == RUNNING) & (state.it >= opt.max_iter)
+        state = dataclasses.replace(state, term=torch.where(
+            capped, MAX_ITER_REACHED, state.term).to(torch.int32))
+        if not bool((state.term == RUNNING).any()):
+            return state
+        state = fast_iteration(pb, state, opt)
+
+
+def _run_fast(pb: QPProblem, opt: SolverOptions) -> FastState:
+    return _run_loop(pb, _init_fast(pb, opt), opt)
+
+
+def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
+                  ir_steps: int = 3) -> GIResult:
+    """The dense engine, batched: the f32 cold init (Cholesky of G), the
+    f32 explicit-form loop in torch, then ``ir_steps`` steps of f64
+    refinement (counterpart of ``vmap(jrlqp_tpu.solver.fast.
+    solve_refined)``, fast.py:620-635). It launches no kernel, so it runs
+    at any n, on any device."""
+    pb32 = pbs.with_dtype(torch.float32)
+    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+    return _refine_batch(pbs, _run_fast(pb32, opt32), ir_steps)
 
 
 def solve_refined_kernel(pbs: QPProblem, opt: SolverOptions = SolverOptions(),

@@ -1,0 +1,223 @@
+"""The structured fast solver, batched: a blocked factorization of G feeds
+the explicit-operator GI engine (BlockGISolver analog).
+
+Counterpart of the fast entry points of :mod:`jrlqp_tpu.structured.solver`
+(solver.py:210-515). A cold solve computes H = G^-1 from the block chain,
+O(nb s^3) for the factor and O(n^2 s) for the inverse instead of a dense
+O(n^3) Cholesky, then runs the XLA engine's loop (``fast_iteration``, here
+batched torch) and the f64 refinement. ``backend`` picks how H is made:
+
+- ``"auto"``: the kernels K5 and K6, or K7 and K8 for an arrow
+  (:mod:`jrlqp_tpu_torch.ops.cuda.block_llt`), one launch each for the
+  whole batch: a CUDA batch runs the kernels or raises, a CPU batch runs
+  their plain versions;
+- ``"blocks"``: the composed per-block torch.linalg path of
+  :mod:`.blocks` (the JAX package's ``backend="xla"``), only when asked for
+  by name.
+
+The GI loop stays torch: at IK sizes (n = 387) the kernels' K = [H | N*^T]
+does not fit a thread block's shared memory. The f64 J/R ``solve_structured``
+waits for the dense engine.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+from ..ops.cuda.block_llt import (
+    block_arrow_llt,
+    block_arrow_solve,
+    tri_block_llt,
+    tri_block_solve,
+)
+from ..problems import QPProblem
+from ..solver.fast import (
+    WarmCarry,
+    _bmv,
+    _init_fast_from_carry,
+    _init_fast_from_ops,
+    _refine_batch,
+    _run_loop,
+    _validated,
+)
+from ..solver.state import GIResult
+from ..types import SolverOptions
+from .containers import GType, StructuredC, StructuredG
+
+__all__ = ["solve_structured_fast", "solve_structured_fast_batch",
+           "solve_structured_fast_carry", "structured_qp_problem"]
+
+BACKENDS = ("auto", "blocks")
+
+
+def structured_qp_problem(
+    sg: StructuredG,
+    a: torch.Tensor,
+    sc: Union[StructuredC, torch.Tensor],
+    l: torch.Tensor,
+    u: torch.Tensor,
+    xl: Optional[torch.Tensor] = None,
+    xu: Optional[torch.Tensor] = None,
+) -> QPProblem:
+    """The dense batched QPProblem of a structured batch (solver.py:40-57);
+    ``sc`` is a StructuredC or a dense (B, m, n) C, missing variable
+    bounds are -inf / +inf."""
+    C = sc.to_dense() if isinstance(sc, StructuredC) else sc
+    inf = torch.full_like(a, float("inf"))
+    return QPProblem(G=sg.to_dense(), a=a, C=C, l=l, u=u,
+                     xl=-inf if xl is None else xl,
+                     xu=inf if xu is None else xu,
+                     objcst=a.new_zeros((a.shape[0],)))
+
+
+def _structured_inverse_kernel_batch(diag, off, gtype):
+    """(H = G^-1 (B, n, n), posdef (B,)) of f32 block chains through the
+    kernels: the factorization (K5, or K7 for an arrow) and the solve on
+    the identity (K6 or K8), one launch each (solver.py:210-248). The
+    kernel clamps pivots at 1e-30 instead of making a NaN, so a non-SPD
+    lane shows as a collapsed factor: posdef is min(diag L) > 1e-6
+    max(diag L) over the whole factor."""
+    B, nb, s, _ = diag.shape
+    n = nb * s
+    eye = torch.eye(n, dtype=diag.dtype, device=diag.device)
+    eye_b = eye.reshape(1, nb, s, n).expand(B, nb, s, n)
+    if gtype == GType.TRI_BLOCK_DIAGONAL:
+        Ld, Lo, Li = tri_block_llt(diag, off)
+        H = tri_block_solve(Lo, Li, eye_b)
+    else:
+        up = gtype == GType.BLOCK_ARROW_UP
+        Ld, Lo, Li = block_arrow_llt(diag, off, up=up)
+        H = block_arrow_solve(Lo, Li, eye_b, up=up)
+    d = torch.diagonal(Ld, dim1=-2, dim2=-1).reshape(B, n)
+    posdef = d.amin(dim=1) > 1e-6 * d.amax(dim=1)
+    return H.reshape(B, n, n), posdef
+
+
+def _structured_inverse_blocks(sg32: StructuredG):
+    """(H, posdef) through the composed per-block path: H = J0 J0^T with
+    J0 = L^-T (solver.py:490-497); a non-SPD lane inverts I."""
+    fac = sg32.llt()
+    n = sg32.n
+    eye = torch.eye(n, dtype=sg32.diag.dtype, device=sg32.diag.device)
+    J0 = torch.where(fac.posdef[:, None, None], fac.inverse_transpose(), eye)
+    return J0 @ J0.transpose(1, 2), fac.posdef
+
+
+def _check_backend(backend):
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+
+
+def _problems(sgs, a, scs, l, u, xl, xu, opt):
+    """(pbs, pb32, opt32): the dense batch in its dtype and in f32."""
+    pbs = structured_qp_problem(sgs, a, scs, l, u, xl, xu)
+    return (pbs, pbs.with_dtype(torch.float32),
+            opt.with_(dtype=torch.float32, zero_z_threshold=1e-6))
+
+
+def _solve_structured_states(sgs, a, scs, l, u, xl, xu, opt, backend):
+    """The cold solve up to the end of the loop (solver.py:457-515):
+    (pbs, pb32, opt32, final f32 states)."""
+    _check_backend(backend)
+    pbs, pb32, opt32 = _problems(sgs, a, scs, l, u, xl, xu, opt)
+    n = sgs.n
+    f32 = torch.float32
+    if backend == "auto":
+        H, posdef = _structured_inverse_kernel_batch(
+            sgs.diag.to(f32), sgs.off.to(f32), sgs.gtype)
+        eye = torch.eye(n, dtype=f32, device=H.device)
+        H = torch.where(posdef[:, None, None], H, eye)
+    else:
+        H, posdef = _structured_inverse_blocks(dataclasses.replace(
+            sgs, diag=sgs.diag.to(f32), off=sgs.off.to(f32)))
+    x = torch.where(posdef[:, None], -_bmv(H, pb32.a), 0.0)
+    state0 = _init_fast_from_ops(pb32, H, x, posdef, opt32)
+    return pbs, pb32, opt32, _run_loop(pb32, state0, opt32)
+
+
+def solve_structured_fast_batch(
+    sgs: StructuredG,
+    a: torch.Tensor,
+    scs: Union[StructuredC, torch.Tensor],
+    l: torch.Tensor,
+    u: torch.Tensor,
+    xl: Optional[torch.Tensor] = None,
+    xu: Optional[torch.Tensor] = None,
+    opt: SolverOptions = SolverOptions(),
+    ir_steps: int = 3,
+    backend: str = "auto",
+) -> GIResult:
+    """Batched structured solve (solver.py:335-365): ``sgs.diag`` is
+    (B, nb, s, s), ``a`` (B, n), ``l``/``u`` (B, m), ``scs`` a StructuredC
+    or a dense (B, m, n) C. H = G^-1 by the block kernels (one launch per
+    stage for the whole batch), the GI loop in f32, then ``ir_steps`` steps
+    of f64 refinement. Runs on the batch's device."""
+    pbs, _, _, states = _solve_structured_states(sgs, a, scs, l, u, xl, xu,
+                                                 opt, backend)
+    return _refine_batch(pbs, states, ir_steps)
+
+
+def solve_structured_fast_carry(
+    sgs: StructuredG,
+    a: torch.Tensor,
+    scs: Union[StructuredC, torch.Tensor],
+    l: torch.Tensor,
+    u: torch.Tensor,
+    carry: Optional[WarmCarry] = None,
+    xl: Optional[torch.Tensor] = None,
+    xu: Optional[torch.Tensor] = None,
+    opt: SolverOptions = SolverOptions(),
+    ir_steps: int = 3,
+    backend: str = "auto",
+) -> tuple[GIResult, WarmCarry]:
+    """One step of a structured trajectory (sequential IK,
+    solver.py:370-454); returns ``(result, carry)``. ``carry=None`` solves
+    cold as :func:`solve_structured_fast_batch`. A carry from the previous
+    step, whose G and C must be this step's (only a and the bounds drift),
+    starts the loop from its operators: no factorization, no kernel
+    launch. With ``opt.validate`` a warm step also ends lanes with
+    inconsistent data INCONSISTENT_INPUT."""
+    if carry is None:
+        pbs, _, _, states = _solve_structured_states(
+            sgs, a, scs, l, u, xl, xu, opt, backend)
+    else:
+        _check_backend(backend)
+        pbs, pb32, opt32 = _problems(sgs, a, scs, l, u, xl, xu, opt)
+        state0 = _init_fast_from_carry(pb32, carry.H, carry.Ns, carry.status,
+                                       carry.aorder, carry.q)
+        states = _run_loop(pb32, _validated(pb32, state0, opt), opt32)
+    res = _refine_batch(pbs, states, ir_steps)
+    return res, WarmCarry(H=states.H, Ns=states.Ns, status=states.status,
+                          aorder=states.aorder, q=states.q)
+
+
+def solve_structured_fast(
+    sg: StructuredG,
+    a: torch.Tensor,
+    sc: Union[StructuredC, torch.Tensor],
+    l: torch.Tensor,
+    u: torch.Tensor,
+    xl: Optional[torch.Tensor] = None,
+    xu: Optional[torch.Tensor] = None,
+    opt: SolverOptions = SolverOptions(),
+    ir_steps: int = 3,
+    backend: str = "auto",
+) -> GIResult:
+    """One structured problem (solver.py:260-330): ``sg.diag`` is
+    (nb, s, s), ``a`` (n,), ... The batch of one through
+    :func:`solve_structured_fast_batch`; the result has no batch
+    dimension."""
+    def one(t):
+        return None if t is None else t[None]
+
+    sgs = dataclasses.replace(sg, diag=sg.diag[None], off=sg.off[None])
+    scs = (StructuredC(blocks=sc.blocks[None]) if isinstance(sc, StructuredC)
+           else sc[None])
+    res = solve_structured_fast_batch(sgs, a[None], scs, l[None], u[None],
+                                      one(xl), one(xu), opt, ir_steps,
+                                      backend)
+    return GIResult(**{f.name: getattr(res, f.name)[0]
+                       for f in dataclasses.fields(GIResult)})

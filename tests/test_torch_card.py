@@ -1,6 +1,6 @@
-"""The port's kernels (K1, K2, K3, K4) on a CUDA card, held against their
-plain PyTorch versions on the same card; also the numpy batch builders
-that the CPU tests share.
+"""The port's kernels (K1-K8) on a CUDA card, held against their plain
+PyTorch versions on the same card, and the launch counts of the structured
+path; also the numpy batch builders that the CPU tests share.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and no jax:
@@ -16,6 +16,14 @@ import torch
 from jrlqp_tpu_torch import SolverOptions, problem_from_numpy
 from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
 from jrlqp_tpu_torch.solver import fast
+from jrlqp_tpu_torch.structured import (
+    GType,
+    solve_structured_fast_batch,
+    solve_structured_fast_carry,
+    structured_from_numpy,
+    structured_qp_problem,
+)
+from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
 
 
@@ -190,3 +198,106 @@ def test_solve_on_card_matches_cpu(cuda_device, name):
     ok = res.status == 0
     resid = kkt_residual(res.x, res.multipliers, pb)
     assert bool((resid[ok] <= 1e-8).all())
+
+
+# K5-K8: (name, batch, nb, s) x kind; the tolerance is relative to the
+# largest entry, as the kernels sum in another order than the plain versions
+STRUCT_SHAPES = [("small", 8, 3, 8), ("ik", 64, 9, 43)]
+STRUCT_KINDS = ["tri", "tri_lower", "arrow_down", "arrow_up"]
+
+
+def struct_err(ours, ref):
+    """max |ours - ref| / max(1, max |ref|)."""
+    return float((ours - ref).abs().max() / ref.abs().max().clamp_min(1.0))
+
+
+def struct_kernel_pairs(kind, diag, off):
+    """[(name, kernel output, plain output)] of the factorization and the
+    solve on the identity for one kind of chain; the kernels launch once
+    each."""
+    B, nb, s, _ = diag.shape
+    n = nb * s
+    eye = torch.eye(n, dtype=diag.dtype, device=diag.device)
+    r = eye.reshape(1, nb, s, n).expand(B, nb, s, n)
+    if kind.startswith("tri"):
+        fac = block_llt.tri_block_llt(diag, off)
+        fac_p = block_llt.tri_block_llt_plain(diag, off)
+        lower = kind == "tri_lower"
+        y = block_llt.tri_block_solve(fac[1], fac[2], r, lower_only=lower)
+        y_p = block_llt.tri_block_solve_plain(fac[1], fac[2], r,
+                                              lower_only=lower)
+    else:
+        up = kind == "arrow_up"
+        fac = block_llt.block_arrow_llt(diag, off, up=up)
+        fac_p = block_llt.block_arrow_llt_plain(diag, off, up=up)
+        y = block_llt.block_arrow_solve(fac[1], fac[2], r, up=up)
+        y_p = block_llt.block_arrow_solve_plain(fac[1], fac[2], r, up=up)
+    return list(zip(("L_diag", "L_off", "Linv_diag", "y"), (*fac, y),
+                    (*fac_p, y_p)))
+
+
+def _struct_counts():
+    return (block_llt.tri_llt_launches, block_llt.tri_solve_launches,
+            block_llt.arrow_llt_launches, block_llt.arrow_solve_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STRUCT_KINDS)
+@pytest.mark.parametrize("shape", STRUCT_SHAPES, ids=lambda t: t[0])
+def test_struct_kernels_match_plain(cuda_device, shape, kind):
+    _, B, nb, s = shape
+    d = ik_batch(B, nb=nb, s=s, mc=2, seed=nb + s)
+    diag = torch.from_numpy(d["diag"].astype(np.float32)).to(cuda_device)
+    off = torch.from_numpy(d["off"].astype(np.float32)).to(cuda_device)
+    before = _struct_counts()
+    pairs = struct_kernel_pairs(kind, diag, off)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_struct_counts(), before)]
+    assert launched == ([1, 1, 0, 0] if kind.startswith("tri")
+                        else [0, 0, 1, 1])
+    for name, ours, ref in pairs:
+        assert ours.shape == ref.shape, name
+        assert struct_err(ours, ref) <= 1e-5, name
+
+
+def _ik_problem(d, gtype, device):
+    sg, sc = structured_from_numpy(diag=d["diag"], off=d["off"],
+                                   gtype=gtype, blocks=d["blocks"],
+                                   device=device)
+    a, l, u = (torch.from_numpy(d[k]).to(device) for k in ("a", "l", "u"))
+    return sg, a, sc, l, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gtype", list(GType))
+def test_structured_launch_counts_and_cpu_parity(cuda_device, gtype):
+    # a cold batch launches the factorization and the solve once each and
+    # no GI kernel; a warm carry step launches nothing
+    d = ik_batch(6, nb=3, s=8, mc=2, seed=5)
+    opt = SolverOptions(max_iter=200)
+    before = _struct_counts()
+    gi_before = (gi_kernel.launches, gi_kernel.loop_launches,
+                 gi_kernel.warm_launches)
+    res, carry = solve_structured_fast_carry(
+        *_ik_problem(d, gtype, cuda_device), None, opt=opt)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_struct_counts(), before)]
+    tri = gtype == GType.TRI_BLOCK_DIAGONAL
+    assert launched == ([1, 1, 0, 0] if tri else [0, 0, 1, 1])
+    ref = solve_structured_fast_batch(*_ik_problem(d, gtype, "cpu"), opt=opt)
+    assert torch.equal(res.status.cpu(), ref.status)
+    assert torch.equal(res.iterations.cpu(), ref.iterations)
+    assert torch.equal(res.active_set.cpu(), ref.active_set)
+    torch.testing.assert_close(res.x.cpu(), ref.x, rtol=0, atol=1e-7)
+    before = _struct_counts()
+    step = _ik_problem(ik_step(d, 0.02, np.random.default_rng(1)), gtype,
+                       cuda_device)
+    res_w, _ = solve_structured_fast_carry(*step, carry, opt=opt)
+    torch.cuda.synchronize()
+    assert _struct_counts() == before
+    assert (gi_kernel.launches, gi_kernel.loop_launches,
+            gi_kernel.warm_launches) == gi_before
+    assert bool((res_w.status == 0).all())
+    resid = kkt_residual(res_w.x, res_w.multipliers,
+                         structured_qp_problem(*step))
+    assert float(resid.max()) <= 1e-8
