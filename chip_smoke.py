@@ -32,7 +32,34 @@ width (9 robots x 43 dof, n=387, m=36):
 10. the IK trajectory: a cold step and 9 warm steps of
    ``solve_structured_fast_carry`` at batch 1024 (10,240 solves), fresh
    0.02 N(0, 1) noise on a and a 0.02 N(0, 1) shift of l and u per step,
-   each gated and held against a cold solve of the step.
+   each gated and held against a cold solve of the step;
+11. K9 (the compact-slot loop) against its plain version, 1024 lanes from
+   the torch cold init, and lane for lane against the torch XLA loop;
+12. the compact path ``solve_refined_kernel_compact`` at batch 16384 (one
+   K9 launch, no K1), gated like the main path, with solves/s beside the
+   main path's and the split: init, prepare, K9, remap, refinement;
+13. the rescue ``solve_refined_kernel_rescued`` at batch 16384: pass rate
+   1.0 at act_frac 0.3 and >= 0.9999 at act_frac 0.9, with the rescued
+   count and the rescue's wall ms;
+14. the J/R engines: ``solve_batch`` at batch 1024 against the main path
+   (same status and active set, x within 1e-7), ``solve_warm`` from its
+   active set (0 iterations), and ``solve_structured`` at the IK width,
+   batch 256, against ``solve_structured_fast_batch``;
+15. observability on 256 lanes: ``solve_fast_traced`` and ``solve_traced``
+   against their untraced solves, ``capture_kernel_trajectory`` on one lane
+   (one K9 launch per cap) against the f32 fast trace, ``dump_matlab``, and
+   ``no_retrace`` around repeated solves at two shapes.
+
+Every kernel's line in the JSON record carries ``bound_ms``, the least time
+the card could take for the kernel's work on this run's inputs: the larger
+of the bytes it must move (each input read once, each output written once)
+at 3.35 TB/s and its operations at 67 TFLOP/s (f32 outside the tensor
+cores; H100 SXM data sheet). Both are counted at the unpadded sizes, from
+this run's iteration and active counts, with triangular factors counted as
+triangles, by ``_gi_flops``, ``_gi_bytes`` and the phase 4 and 8 blocks.
+``library_ms`` is the time of one PyTorch call that computes the same
+function where there is one (``torch.cholesky_solve`` with the dense factor
+beside K6 and K8), else null.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is nonzero. The last
@@ -65,6 +92,9 @@ SEED = 0
 IK_NB, IK_S, IK_MC = 9, 43, 4  # the reference's Sequential IK
 IK_BATCH, IK_MAX_ITER, IK_IR_STEPS = 1024, 200, 3
 IK_STEPS, IK_DRIFT = 10, 0.02
+RESCUE_ACT_FRAC = 0.9       # phase 13's hard set
+OBS_BATCH, SJR_BATCH = 256, 256
+PEAK_F32, PEAK_BW = 67e12, 3.35e12   # H100 SXM: FLOP/s (f32, no TC), B/s
 
 
 def _fail(msg: str) -> None:
@@ -108,6 +138,35 @@ def _wall_s(fn, reps: int = 3) -> float:
     return best
 
 
+def _bound(flops: float, nbytes: int):
+    """(bound ms, what binds): the larger of the operation and byte times."""
+    t_op, t_b = 1e3 * flops / PEAK_F32, 1e3 * nbytes / PEAK_BW
+    return (max(t_op, t_b), "operations" if t_op >= t_b else "bytes")
+
+
+def _gi_flops(it, q0, q_end, n: int, m: int) -> float:
+    """FLOPs of GI loop iterations at (n, m), summed over the lanes; ``it``,
+    ``q0`` and ``q_end`` are (B,) tensors of each lane's iterations and its
+    active count at the start and at the end. Per iteration: the selection
+    C x (2mn), z = H n+ (2n^2) and r = N* n+ over the q active rows (2nq),
+    and the rank-one update of H (2n^2) and of those q rows of N* (2nq). A
+    lane's q summed over its iterations is taken as it (q0 + q_end - 1) / 2,
+    exact for a lane that only adds."""
+    it, q0, q_end = (v.double() for v in (it, q0, q_end))
+    q_sum = (it * (q0 + q_end - 1) / 2).clamp_min(0)
+    return float((it * (2 * m * n + 4 * n * n) + 4 * n * q_sum).sum())
+
+
+def _gi_bytes(batch: int, n: int, m: int, state_words: int) -> int:
+    """Bytes a GI kernel must move at the unpadded (n, m), 4 per f32 or
+    i32 word: the problem (G, C, l, u, xl, xu), ``state_words`` per problem
+    of what it starts from, and its outputs (x, u, status, aorder, eight
+    scalars, K = [H | N*^T] and tr0)."""
+    problem = n * n + m * n + 2 * m + 2 * n
+    outputs = 2 * n * n + 4 * n + m + 9
+    return 4 * batch * (problem + state_words + outputs)
+
+
 def main() -> int:
     import torch
 
@@ -116,15 +175,27 @@ def main() -> int:
         return 1
     import jrlqp_tpu_torch  # noqa: F401  (pins full-f32 matmuls)
     from jrlqp_tpu_torch import (
+        LogFlags,
         SolverOptions,
+        capture_kernel_trajectory,
+        dump_matlab,
+        no_retrace,
+        solve_batch,
+        solve_fast,
+        solve_fast_traced,
         solve_refined_kernel,
         solve_refined_kernel_carry,
+        solve_refined_kernel_compact,
+        solve_refined_kernel_rescued,
         solve_refined_warm_kernel,
+        solve_traced,
+        solve_warm,
     )
     from jrlqp_tpu_torch.ops.cuda import _build, block_llt, gi_kernel
-    from jrlqp_tpu_torch.solver import fast
+    from jrlqp_tpu_torch.solver import dense, fast
     from jrlqp_tpu_torch.structured import (
         GType,
+        solve_structured,
         solve_structured_fast_batch,
         solve_structured_fast_carry,
         structured_from_numpy,
@@ -147,6 +218,7 @@ def main() -> int:
         gi_kernel.launches = 0
         gi_kernel.loop_launches = 0
         gi_kernel.warm_launches = 0
+        gi_kernel.compact_launches = 0
         block_llt.launches = 0
         block_llt.tri_llt_launches = 0
         block_llt.tri_solve_launches = 0
@@ -158,6 +230,7 @@ def main() -> int:
                 "chol_inv_b": block_llt.launches,
                 "gi_loop": gi_kernel.loop_launches,
                 "gi_warm": gi_kernel.warm_launches,
+                "gi_compact": gi_kernel.compact_launches,
                 "tri_block_llt": block_llt.tri_llt_launches,
                 "tri_block_solve": block_llt.tri_solve_launches,
                 "block_arrow_llt": block_llt.arrow_llt_launches,
@@ -244,7 +317,8 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
-    print(f"shared memory per block (gi_fused, gi_loop, gi_warm share one "
+    print(f"shared memory per block (gi_fused, gi_loop, gi_warm and "
+          f"gi_compact share one "
           f"layout): {lib.jrlqp_gi_smem_bytes(np_, gi_kernel._round_up(M, 8))}"
           f" B")
 
@@ -331,7 +405,20 @@ def main() -> int:
         block_llt.chol_b_plain(G_main)), reps=1)
     print(f"device ms at batch {BATCH} ({card}): K1 {k1_ms!r} "
           f"(plain {k1_plain_ms!r}), K2 {k2_ms!r} (plain {k2_plain_ms!r})")
-    del inputs, G_main
+    outs1 = gi_kernel._gi_fused_cuda_raw(*inputs, n, m, MAX_ITER)
+    it1 = int(outs1[4][:, 1].sum())
+    # K1's loop starts at q = the equalities and fixed variables it replays;
+    # prologue: Cholesky, L^-1, H0 = L^-T L^-1 (~n^3) and x0 (2n^2)
+    q0_1 = (pbs.l == pbs.u).sum(dim=1) + (pbs.xl == pbs.xu).sum(dim=1)
+    k1_bound = _bound(_gi_flops(outs1[4][:, 1], q0_1, outs1[4][:, 0], N, M)
+                      + BATCH * (N ** 3 + 2 * N * N),
+                      _gi_bytes(BATCH, N, M, N))
+    # K2 on the n x n G (its padding is the identity): Cholesky and
+    # triangular inverse, 2/3 n^3; G's lower triangle in, L and L^-1 out
+    k2_bound = _bound(BATCH * 2 / 3 * N ** 3,
+                      4 * BATCH * 3 * N * (N + 1) // 2)
+    print(f"bounds ({card}): K1 {k1_bound} ({it1} iterations), K2 {k2_bound}")
+    del inputs, G_main, outs1
 
     # ---- phase 5: K3 (loop from a given state) vs plain ----
     base5 = random_qp_batch(gen, CHECK_BATCH, N, M, WARM_ACT_FRAC,
@@ -476,6 +563,21 @@ def main() -> int:
         *ins4, n, m, MAX_ITER), reps=1)
     print(f"device ms at batch {BATCH} ({card}): K3 {k3_ms!r} "
           f"(plain {k3_plain_ms!r}), K4 {k4_ms!r} (plain {k4_plain_ms!r})")
+    outs3 = gi_kernel._gi_loop_cuda_raw(*ins3, n, m, MAX_ITER)
+    outs4 = gi_kernel._gi_warm_cuda_raw(*ins4, n, m, MAX_ITER)
+    it3_l = outs3[4][:, 1] - ins3[12][:, 1]
+    it3, it4 = int(it3_l.sum()), int(outs4[4][:, 1].sum())
+    # K3 starts from K0, x0, u0, status, aorder, statk, scalars and tr0
+    k3_bound = _bound(_gi_flops(it3_l, ins3[12][:, 0], outs3[4][:, 0], N, M),
+                      _gi_bytes(BATCH, N, M, 2 * N * N + 5 * N + M + 9))
+    # K4 from a, K, status, aorder, statk, b_act and q; its closed form
+    # x = K [-a; b] and u = (a + G x)^T K, ~6n^2
+    k4_bound = _bound(_gi_flops(outs4[4][:, 1], co[4], outs4[4][:, 0], N, M)
+                      + BATCH * 6 * N * N,
+                      _gi_bytes(BATCH, N, M, 2 * N * N + 5 * N + M + 1))
+    print(f"bounds ({card}): K3 {k3_bound} ({it3} iterations), K4 "
+          f"{k4_bound} ({it4} iterations)")
+    del outs3, outs4
 
     del pbs, base7, steps, warm, carry, carry_in, co, state0, ins3, ins4
 
@@ -550,7 +652,39 @@ def main() -> int:
     print(f"device ms at batch {IK_BATCH}, nb={IK_NB}, s={IK_S} ({card}): "
           + ", ".join(f"{k} {v[0]!r} (plain {v[1]!r})"
                       for k, v in struct_ms.items()))
-    del Ld, Lo, Li, aLd, aLo, aLi, eye_ik
+    # Both chains have nb diagonal blocks and nb - 1 coupling blocks. A
+    # factor: per diagonal block its Cholesky and inverse (2/3 s^3), per
+    # coupling block the product with a triangular inverse (s^3) and the
+    # symmetric Schur update (s^3). A solve, per rhs column: forward and
+    # backward, per diagonal block a triangular product (s^2) and per
+    # coupling block a dense one (2 s^2), (6 nb - 4) s^2 in all. Bytes:
+    # symmetric and triangular blocks as triangles, coupling blocks whole.
+    tri_w, sq_w = IK_S * (IK_S + 1) // 2, IK_S * IK_S
+    fac_flops = IK_BATCH * (IK_NB * 2 / 3 + (IK_NB - 1) * 2) * IK_S ** 3
+    sol_flops = IK_BATCH * (6 * IK_NB - 4) * sq_w * n_ik
+    fac_bytes = 4 * IK_BATCH * (3 * IK_NB * tri_w + 2 * (IK_NB - 1) * sq_w)
+    sol_bytes = 4 * IK_BATCH * (IK_NB * tri_w + (IK_NB - 1) * sq_w
+                                + 2 * n_ik * n_ik)
+    struct_bound = {
+        "K5": _bound(fac_flops, fac_bytes),
+        "K6": _bound(sol_flops, sol_bytes),
+        "K7": _bound(fac_flops, fac_bytes),
+        "K8": _bound(sol_flops, sol_bytes),
+    }
+    # library yardstick of the solves: torch.cholesky_solve with the dense
+    # factor of the same G on the same identity right-hand side
+    from jrlqp_tpu_torch.structured import blocks as sblocks
+    eye_d = eye_ik.reshape(IK_BATCH, n_ik, n_ik)
+    lib_ms = {}
+    for key, G_d in (("K6", sblocks.tri_block_to_dense(diag32, off32)),
+                     ("K8", sblocks.block_arrow_to_dense(diag32, off32,
+                                                         up=False))):
+        L_d = torch.linalg.cholesky(G_d)
+        lib_ms[key] = _cuda_ms(lambda: torch.cholesky_solve(eye_d, L_d))
+        del G_d, L_d
+    print(f"bounds ({card}): {struct_bound}; library ms "
+          f"(torch.cholesky_solve, dense factor): {lib_ms}")
+    del Ld, Lo, Li, aLd, aLo, aLi, eye_ik, eye_d
 
     # ---- phase 9: the structured cold batch ----
     opt_ik = SolverOptions(max_iter=IK_MAX_ITER)
@@ -716,26 +850,308 @@ def main() -> int:
           f"step {IK_BATCH / cold_s!r} ({cold_s * 1e3!r} ms); "
           f"{IK_STEPS} steps = {IK_STEPS * IK_BATCH} solves")
 
+    del results, traj, carry_t, carry_prev, res9, pb9, args9
+    opt32 = opt.with_(dtype=f32, zero_z_threshold=1e-6)
+
+    # ---- phase 11: K9 (the compact-slot loop) vs plain and the XLA loop ----
+    pb11 = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC, dtype=f32)
+    st11 = fast._init_fast(pb11, opt32)
+    ok_k = gi_kernel.run_loop_compact(pb11, st11, MAX_ITER)
+    ok_p = gi_kernel.gi_compact_plain(pb11, st11, MAX_ITER)
+    torch.cuda.synchronize()
+    k9_err = against_plain("K9", ok_k, ok_p, pb11.with_dtype(f64))
+    xla = fast._run_loop(pb11, st11, opt32)
+    ok_x = {f.name: getattr(xla, f.name) for f in dataclasses.fields(xla)}
+    ok_x["u"] = xla.u[:, :N]
+    against_plain("K9 (reference: the torch XLA loop)", ok_k, ok_x,
+                  pb11.with_dtype(f64))
+    del pb11, st11, ok_k, ok_p, ok_x, xla
+
+    # ---- phase 12: the compact path at the headline batch ----
+    pb12 = problems()
+    torch.cuda.synchronize()
+    reset_counts()
+    res12 = solve_refined_kernel_compact(pb12, opt, ir_steps=IR_STEPS)
+    torch.cuda.synchronize()
+    compact_counts = counts()
+    print(f"compact path launches: {compact_counts}")
+    _require(compact_counts["gi_compact"] == 1
+             and sum(compact_counts.values()) == 1,
+             "the compact path did not run K9 once (and nothing else)")
+    rate12, kkt12, _ = gate("compact path", res12, pb12)
+    print(f"compact path: batch {BATCH}, n={N}, m={M}: KKT<=1e-8 & SUCCESS "
+          f"rate {rate12!r}, max KKT {kkt12!r}, mean_it "
+          f"{float(res12.iterations.double().mean())!r}, max_it "
+          f"{int(res12.iterations.max())}")
+    sps12 = {
+        "solve_refined_kernel (K1)": BATCH / _wall_s(
+            lambda: solve_refined_kernel(pb12, opt, ir_steps=IR_STEPS)),
+        "solve_refined_kernel_compact (K9)": BATCH / _wall_s(
+            lambda: solve_refined_kernel_compact(pb12, opt,
+                                                 ir_steps=IR_STEPS)),
+    }
+    for k, v in sps12.items():
+        print(f"solves/s (best of 3, batch {BATCH}, {card}): {k} {v!r}")
+
+    def split12():
+        """Wall ms of the compact path's stages, each closed by a sync."""
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        p32 = pb12.with_dtype(f32)
+        st = fast._init_fast(p32, opt32)
+        mark()
+        ins, (n_, m_) = gi_kernel.prepare_state(p32, st)
+        mark()
+        raw = gi_kernel._gi_compact_cuda_raw(*ins, n_, m_, MAX_ITER)
+        mark()
+        out = gi_kernel.postprocess(raw, n_, m_)
+        mark()
+        fast._refine_batch(pb12, fast._state_from_kernel_out(out, BATCH),
+                           IR_STEPS)
+        mark()
+        return [1e3 * (b - a_) for a_, b in zip(marks, marks[1:])]
+
+    split12()
+    parts12 = min((split12() for _ in range(3)), key=sum)
+    print(f"compact path split, wall ms ({card}): cast + torch init "
+          f"{parts12[0]!r}, prepare {parts12[1]!r}, K9 {parts12[2]!r}, remap "
+          f"{parts12[3]!r}, refinement {parts12[4]!r}")
+    pb12_32 = pb12.with_dtype(f32)
+    ins9, (n, m) = gi_kernel.prepare_state(pb12_32,
+                                           fast._init_fast(pb12_32, opt32))
+    k9_ms = _cuda_ms(lambda: gi_kernel._gi_compact_cuda_raw(*ins9, n, m,
+                                                            MAX_ITER))
+    k9_plain_ms = _cuda_ms(lambda: gi_kernel._gi_compact_plain_raw(
+        *ins9, n, m, MAX_ITER), reps=1)
+    outs9 = gi_kernel._gi_compact_cuda_raw(*ins9, n, m, MAX_ITER)
+    it9_l = outs9[4][:, 1] - ins9[12][:, 1]
+    it9 = int(it9_l.sum())
+    k9_bound = _bound(_gi_flops(it9_l, ins9[12][:, 0], outs9[4][:, 0], N, M),
+                      _gi_bytes(BATCH, N, M, 2 * N * N + 5 * N + M + 9))
+    print(f"device ms at batch {BATCH} ({card}): K9 {k9_ms!r} (plain "
+          f"{k9_plain_ms!r}); bound {k9_bound} ({it9} iterations)")
+    del ins9, outs9, pb12_32
+
+    # ---- phase 13: the rescue at the headline batch ----
+    rescue_rows = {}
+    for act_frac, min_rate in ((ACT_FRAC, 1.0), (RESCUE_ACT_FRAC, 0.9999)):
+        pb13 = pb12 if act_frac == ACT_FRAC else problems(act_frac)
+        torch.cuda.synchronize()
+        reset_counts()
+        res13 = solve_refined_kernel_rescued(pb13, opt, ir_steps=IR_STEPS)
+        torch.cuda.synchronize()
+        c13 = counts()
+        _require(c13["gi_loop"] == 1 and sum(c13.values()) == 1,
+                 f"rescue at act_frac {act_frac}: the first stage did not "
+                 f"run K3 once (and nothing else)")
+        rate13, kkt13, _ = gate(f"rescue (act_frac {act_frac})", res13, pb13,
+                                min_rate)
+        # the stages, timed apart: the first stage, the check, the rescue
+        t = time.perf_counter()
+        first = fast._solve_refined_from_init(pb13, opt, IR_STEPS,
+                                              gi_kernel.run_loop)
+        resid = fast._batch_kkt(pb13, first.x, first.multipliers)
+        bad = torch.nonzero((resid > 1e-8) | (first.status != 0))[:, 0]
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t
+        t = time.perf_counter()
+        if bad.numel():
+            sub = fast._rescue_subbatch(pb13._map(lambda v: v[bad]), opt)
+            _require(bool((sub.status == 0).all()),
+                     "a rescued lane did not end SUCCESS")
+        torch.cuda.synchronize()
+        t_rescue = time.perf_counter() - t
+        rescue_rows[act_frac] = row = dict(
+            pass_rate=rate13, max_kkt=kkt13, rescued=int(bad.numel()),
+            first_stage_ms=1e3 * t_first, rescue_ms=1e3 * t_rescue,
+            first_stage_pass_rate=float(((resid <= 1e-8)
+                                         & (first.status == 0)).double()
+                                        .mean()),
+            solves_per_s=BATCH / _wall_s(lambda: solve_refined_kernel_rescued(
+                pb13, opt, ir_steps=IR_STEPS), reps=2))
+        print(f"rescue (act_frac {act_frac}, batch {BATCH}, {card}): {row}")
+        del res13, first, resid
+    del pb13
+
+    # ---- phase 14: the J/R engines ----
+    pb14 = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC,
+                           dtype=f32).with_dtype(f64)
+    torch.cuda.synchronize()
+    reset_counts()
+    passes = []
+    t14 = [time.perf_counter()]
+
+    def mark14():
+        torch.cuda.synchronize()
+        t14.append(time.perf_counter())
+
+    st14 = dense.init_state(pb14, opt)
+    mark14()
+    st14 = dense.run_loop(pb14, st14, opt,
+                          on_pass=lambda a_, b_: passes.append(1))
+    mark14()
+    res14 = dense.finalize(pb14, st14)
+    mark14()
+    init14, loop14, fin14 = (1e3 * (b - a_) for a_, b in zip(t14, t14[1:]))
+    _require(sum(counts().values()) == 0, "the J/R engine launched a kernel")
+    rate14, kkt14, pass14 = gate("solve_batch (J/R, f64)", res14, pb14)
+    ref14 = solve_refined_kernel(pb14, opt, ir_steps=IR_STEPS)
+    same14 = ((res14.status == ref14.status)
+              & (res14.active_set == ref14.active_set).all(dim=1))
+    _require(float(same14.double().mean()) >= 0.999,
+             "solve_batch and the main path disagree on > 0.1% of lanes")
+    ok14 = same14 & pass14 & (ref14.status == 0)
+    x14 = float((res14.x[ok14] - ref14.x[ok14]).abs().max())
+    _require(x14 <= 1e-7, f"solve_batch vs main path x differ by {x14}")
+    sps14 = CHECK_BATCH / _wall_s(lambda: solve_batch(pb14, opt), reps=2)
+    print(f"solve_batch (J/R, f64, batch {CHECK_BATCH}, {card}): pass rate "
+          f"{rate14!r}, max KKT {kkt14!r}, mean_it "
+          f"{float(res14.iterations.double().mean())!r}, same status and "
+          f"active set as the main path on {float(same14.double().mean())!r}"
+          f", x within {x14!r}; wall ms: init {init14!r}, loop {loop14!r} "
+          f"({len(passes)} passes, {loop14 / max(len(passes), 1)!r} ms per "
+          f"pass), finalize {fin14!r}; solves/s {sps14!r}")
+    # the J/R removal's Givens sweep: one masked rotation per row pair, a
+    # dozen small launches each, for every lane at once
+    from jrlqp_tpu_torch.ops.linalg import givens_remove
+    sweep = {}
+    for B_, n_, q_ in ((CHECK_BATCH, N, N), (SJR_BATCH, n_ik, IK_NB * IK_MC)):
+        eye_ = torch.eye(n_, dtype=f64, device=dev).expand(B_, n_, n_)
+        R_ = torch.triu(torch.rand((B_, n_, n_), generator=gen, device=dev,
+                                   dtype=f64)) + eye_
+        q_t = torch.full((B_,), q_, dtype=torch.int32, device=dev)
+        l_t = torch.zeros((B_,), dtype=torch.int32, device=dev)
+        sweep[(B_, n_, q_ - 1)] = _cuda_ms(
+            lambda: givens_remove(eye_, R_, q_t, l_t))
+        del eye_, R_
+    print(f"Givens sweep, device ms per removal pass ({card}), keyed (batch, "
+          f"n, rotations): {sweep}")
+    res14w = solve_warm(pb14, res14.active_set, opt.with_(warm_start=True))
+    zero14 = float((res14w.iterations == 0).double().mean())
+    _require(zero14 >= 0.999, f"solve_warm: 0 iterations on {zero14} < 0.999")
+    print(f"solve_warm from the J/R active set: 0 iterations on {zero14!r} "
+          f"of the lanes, status SUCCESS on "
+          f"{float((res14w.status == 0).double().mean())!r}")
+    ik14 = ik_batch(SJR_BATCH, IK_NB, IK_S, IK_MC, seed=SEED + 2)
+    sg14, sc14 = structured_from_numpy(diag=ik14["diag"], off=ik14["off"],
+                                       gtype=GType.TRI_BLOCK_DIAGONAL,
+                                       blocks=ik14["blocks"], device=dev)
+    a14, l14, u14 = (torch.from_numpy(ik14[k]).to(dev) for k in "alu")
+    opt_ik = SolverOptions(max_iter=IK_MAX_ITER)
+    t = time.perf_counter()
+    rs14 = solve_structured(sg14, a14, sc14, l14, u14, opt=opt_ik)
+    torch.cuda.synchronize()
+    ts14 = time.perf_counter() - t
+    pbs14 = structured_qp_problem(sg14, a14, sc14, l14, u14)
+    rates14, kkts14, _ = gate("solve_structured (J/R, f64)", rs14, pbs14, 1.0)
+    rf14 = solve_structured_fast_batch(sg14, a14, sc14, l14, u14, opt=opt_ik,
+                                       ir_steps=IK_IR_STEPS)
+    same_s = int((rs14.active_set != rf14.active_set).any(dim=1).sum())
+    _require(same_s == 0, f"solve_structured and the fast structured batch "
+             f"disagree on the active set of {same_s} lanes")
+    print(f"solve_structured (J/R, f64, batch {SJR_BATCH}, n={n_ik}, "
+          f"{card}): pass rate {rates14!r}, max KKT {kkts14!r}, mean_it "
+          f"{float(rs14.iterations.double().mean())!r}, same active set as "
+          f"solve_structured_fast_batch on every lane, max |x err| "
+          f"{float((rs14.x - rf14.x).abs().max())!r}; wall "
+          f"{1e3 * ts14!r} ms ({SJR_BATCH / ts14!r} solves/s)")
+    del st14, res14w, rs14, rf14, sg14, sc14, pbs14
+
+    # ---- phase 15: observability ----
+    pb15 = pb14._map(lambda v: v[:OBS_BATCH])
+    pb15_32 = pb15.with_dtype(f32)
+    flags = (LogFlags.ITERATION_BASIC_DETAILS | LogFlags.ACTIVE_SET
+             | LogFlags.ITERATION_ADVANCE_DETAILS)
+    for name, traced, plain, p_, o_ in (
+            ("solve_fast_traced (f32)", solve_fast_traced, solve_fast,
+             pb15_32, opt32),
+            ("solve_traced (J/R, f64)", solve_traced, solve_batch, pb15,
+             opt)):
+        rt, tr = traced(p_, o_, flags)
+        rp = plain(p_, o_)
+        _require(torch.equal(rt.iterations, rp.iterations)
+                 and torch.equal(rt.status, rp.status)
+                 and torch.equal(rt.x, rp.x),
+                 f"{name} differs from its untraced solve")
+        last = (rt.iterations.long() - 1).clamp_min(0)
+        row = tr.x[torch.arange(OBS_BATCH, device=dev), last]
+        has = rt.iterations > 0
+        _require(torch.equal(row[has], rt.x[has]),
+                 f"{name}: the last valid row is not x")
+        _require(torch.equal(tr.valid.sum(dim=1), rt.iterations.long()),
+                 f"{name}: valid rows != iterations")
+        if name.startswith("solve_fast"):
+            fast_trace, fast_res = tr, rt
+    print(f"traced solves (batch {OBS_BATCH}): equal to the untraced ones; "
+          f"the last valid row is x on every lane")
+    n_it = int(fast_res.iterations[0])
+    reset_counts()
+    cap = capture_kernel_trajectory(pb15._map(lambda v: v[:1]), opt,
+                                    n_iters=n_it + 1)
+    torch.cuda.synchronize()
+    cap_counts = counts()
+    _require(cap_counts["gi_compact"] == n_it + 1
+             and sum(cap_counts.values()) == n_it + 1,
+             f"capture: {cap_counts}, expected {n_it + 1} K9 launches")
+    cap_err = 0.0
+    for k in range(n_it):
+        ref_x = fast_trace.x[0, k]
+        e = float((cap["x"][k, 0] - ref_x).abs().max()
+                  / ref_x.abs().max().clamp_min(1.0))
+        cap_err = max(cap_err, e)
+    _require(cap_err <= 1e-4, f"capture vs fast trace: {cap_err} > 1e-4")
+    _require(int(cap["term"][n_it, 0]) == 0, "capture: no SUCCESS at the "
+             "last cap")
+    script = dump_matlab("log", fast_trace, fast_res)
+    print(f"capture_kernel_trajectory on lane 0: {n_it + 1} caps, launches "
+          f"{cap_counts}, max |x - trace x| / max(1, |x|) {cap_err!r}, "
+          f"SUCCESS at the last cap; dump_matlab: "
+          f"{len(script.splitlines())} lines")
+    small = random_qp_batch(gen, OBS_BATCH, 20, 30, ACT_FRAC,
+                            dtype=f32).with_dtype(f64)
+    solve_refined_kernel_compact(small, opt, ir_steps=IR_STEPS)
+    with no_retrace():
+        for p_ in (pb15, small, pb15, small):
+            solve_refined_kernel(p_, opt, ir_steps=IR_STEPS)
+            solve_refined_kernel_compact(p_, opt, ir_steps=IR_STEPS)
+    print(f"no_retrace: 8 solves at (n, m) = ({N}, {M}) and (20, 30) built "
+          f"and loaded nothing (library loads {_build.loads})")
+    del pb14, pb15, pb15_32, small, fast_trace, cap
+
     src = "jrlqp_tpu_torch/csrc/gi_kernel.cu"
     pallas = "jrlqp_tpu/ops/pallas/gi_kernel.py"
     kernels = [
         {"name": "gi_fused", "route": "cuda", "source": src,
          "replaces": f"{pallas}:674",
          "launches": main_counts["gi_fused"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "chol_inv_b", "route": "cuda",
          "source": "jrlqp_tpu_torch/csrc/block_llt.cuh",
          "replaces": "jrlqp_tpu/ops/pallas/block_llt.py:89",
          "launches": main_counts["chol_inv_b"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "runs_inside": "gi_fused"},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None,
+         "runs_inside": "gi_fused"},
         {"name": "gi_loop", "route": "cuda", "source": src,
          "replaces": f"{pallas}:628",
          "launches": hint_counts["gi_loop"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None},
         {"name": "gi_warm", "route": "cuda", "source": src,
          "replaces": f"{pallas}:836",
          "launches": traj_counts["gi_warm"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": None},
+        {"name": "gi_compact", "route": "cuda", "source": src,
+         "replaces": f"{pallas}:104",
+         "launches": compact_counts["gi_compact"], "max_abs_err": k9_err,
+         "ms": k9_ms, "plain_ms": k9_plain_ms, "bound_ms": k9_bound[0],
+         "bound_by": k9_bound[1], "library_ms": None},
     ]
     struct_src = "jrlqp_tpu_torch/csrc/struct_llt.cu"
     struct_pallas = "jrlqp_tpu/ops/pallas/block_llt.py"
@@ -749,7 +1165,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": struct_src,
             "replaces": f"{struct_pallas}:{line}",
             "launches": launched[name], "max_abs_err": struct_err[key],
-            "ms": struct_ms[key][0], "plain_ms": struct_ms[key][1]})
+            "ms": struct_ms[key][0], "plain_ms": struct_ms[key][1],
+            "bound_ms": struct_bound[key][0],
+            "bound_by": struct_bound[key][1],
+            "library_ms": lib_ms.get(key)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,11 @@ counterpart of ``jrlqp_tpu.solver.fast.solve_refined_pallas(...,
 fused_init=True)``. Control-loop warm paths: ``solve_refined_warm_kernel``
 (from activation hints, ``solve_refined_warm_pallas``) and
 ``solve_refined_kernel_carry`` with ``WarmCarry`` (operator reuse along a
-trajectory, ``solve_refined_pallas_carry``).
+trajectory, ``solve_refined_pallas_carry``). The f64 J/R engine: ``solve``
+and ``solve_batch`` (:mod:`.solver.dense`), ``solve_warm`` and the rescue
+``solve_refined_kernel_rescued`` (K3, then f64 for the failed lanes); the
+compact-slot kernel K9 behind ``solve_refined_kernel_compact`` and the
+tracing of :mod:`jrlqp_tpu_torch.utils`.
 """
 import torch as _torch
 
@@ -24,13 +28,28 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from .problems import QPProblem, problem_from_numpy, result_to_numpy  # noqa: E402
+from .solver.dense import solve, solve_batch  # noqa: E402
 from .solver.fast import (  # noqa: E402
     WarmCarry,
+    solve_fast,
+    solve_fast_warm,
     solve_refined_kernel,
     solve_refined_kernel_carry,
+    solve_refined_kernel_compact,
+    solve_refined_kernel_rescued,
     solve_refined_warm_kernel,
 )
 from .solver.state import GIResult  # noqa: E402
+from .solver.warm_start import solve_warm  # noqa: E402
+from .structured import solve_structured  # noqa: E402
+from .utils import (  # noqa: E402
+    LogFlags,
+    capture_kernel_trajectory,
+    dump_matlab,
+    no_retrace,
+    solve_fast_traced,
+    solve_traced,
+)
 from .types import ActivationStatus, SolverOptions, TerminationStatus  # noqa: E402
 from .validation import inconsistent_mask  # noqa: E402
 
@@ -40,6 +59,20 @@ __all__ = [
     "QPProblem",
     "problem_from_numpy",
     "result_to_numpy",
+    "solve",
+    "solve_batch",
+    "solve_warm",
+    "solve_fast",
+    "solve_fast_warm",
+    "solve_structured",
+    "solve_refined_kernel_rescued",
+    "solve_refined_kernel_compact",
+    "LogFlags",
+    "solve_traced",
+    "solve_fast_traced",
+    "capture_kernel_trajectory",
+    "dump_matlab",
+    "no_retrace",
     "solve_refined_kernel",
     "solve_refined_warm_kernel",
     "solve_refined_kernel_carry",

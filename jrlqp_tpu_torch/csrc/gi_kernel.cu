@@ -1,6 +1,8 @@
 // Goldfarb-Idnani kernels in f32, one thread block per problem: the fused
-// whole solve (K1), the loop from a given state (K3) and the loop from a
-// carried operator (K4). All three run the same loop, gi_loop below.
+// whole solve (K1), the loop from a given state (K3), the loop from a
+// carried operator (K4) and K3's loop with compact slots (K9). All four run
+// the same loop, gi_loop below: K1, K3 and K4 with hole-based slots, K9
+// with compact ones.
 //
 // They replace the Pallas kernels of jrlqp_tpu/ops/pallas/gi_kernel.py,
 // which share the loop _packed_iterate (:364):
@@ -23,6 +25,19 @@
 //      the one-at-a-time deactivation of u < -1e-5 (lowest slot on ties),
 //      each a removal followed by a new closed form, counted as an
 //      iteration.
+//   K9 gi_compact_kernel <- _kernel (:104, the pack-1 branch of
+//      run_loop_pallas, pallas_call :1215). K3's entry and loop, with
+//      compact slots: slots 0..q-1 active, the candidate at slot q; a
+//      removal deletes slot l and shifts N* columns np+l+1..np+q-1, aorder,
+//      statk and u one slot down (u up to the candidate's slot q), where
+//      the hole layout zeroes slot l's column and moves the candidate's
+//      multiplier into it. The w mask is "slot < q and slot != l". The
+//      shifts overlap source and destination, so each thread moves whole
+//      rows of K in order, and the vectors are read into registers, a
+//      barrier passes, then they are written. A pending candidate's normal
+//      is rebuilt at entry as in K3; the Pallas kernel starts it at zero
+//      (:336-339). Like K3 it is latency-bound: its bound is K3's
+//      per-iteration work, about 1% of its time.
 //   The loop: most-violated selection (skipped after a removal),
 //   [z | r] = n+ K with K = [H | N*^T], step lengths, one rank-one update
 //   of K per iteration (add or remove), hole-based active slots.
@@ -217,11 +232,14 @@ __device__ __forceinline__ void candidate_normal(const Smem& S, int sc_idx,
 // loop's remove step and K4's deactivations both run it. Returns after the
 // barrier that publishes K, with the bookkeeping written by thread 0 and
 // not yet published.
-__device__ __forceinline__ void remove_slot(const Smem& S, int lpos, int np,
-                                            int mtp) {
+// The removal's vectors for active slot lpos: n_l* = K[:, np + lpos] into
+// nl, v = G n_l*, w = N* v. Returns w_l made safe (1 where it is 0), after
+// the barrier that publishes w.
+__device__ __forceinline__ float removal_vectors(const Smem& S, int lpos,
+                                                 int np) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int np2 = 2 * np, ldg = np + 1;
-  float* K = S.K;
+  const float* K = S.K;
   for (int i = tid; i < np; i += nt) S.nl[i] = K[i * np2 + np + lpos];
   __syncthreads();
   for (int i = tid; i < np; i += nt) {
@@ -237,7 +255,15 @@ __device__ __forceinline__ void remove_slot(const Smem& S, int lpos, int np,
   }
   __syncthreads();
   const float wl = S.w[lpos];
-  const float wl_safe = fabsf(wl) > 0.0f ? wl : 1.0f;
+  return fabsf(wl) > 0.0f ? wl : 1.0f;
+}
+
+__device__ __forceinline__ void remove_slot(const Smem& S, int lpos, int np,
+                                            int mtp) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int np2 = 2 * np;
+  float* K = S.K;
+  const float wl_safe = removal_vectors(S, lpos, np);
   for (int e = tid; e < np * np2; e += nt) {
     const int i = e / np2, j = e % np2;
     if (j == np + lpos) {
@@ -259,10 +285,73 @@ __device__ __forceinline__ void remove_slot(const Smem& S, int lpos, int np,
   }
 }
 
+// K9's removal of active slot lpos with compact slots (_kernel :276-318):
+// the rank-one update K -= n_l* [-n_l* | w_masked]^T / w_l with w masked to
+// slots < q other than lpos (slot lpos's column is left as it is), the step
+// u -= t r (t added at the candidate's slot q) and x += t z unless
+// dual_step, then the deletion of slot lpos: N* columns np+lpos.. take their
+// right neighbour below np+q-1 and are zeroed from there, aorder and statk
+// likewise (-1 and 0), u takes its right neighbour below q and is zeroed
+// from q, and the removed constraint's status is cleared. The caller's
+// closing barrier publishes the result.
+__device__ __forceinline__ void compact_remove(const Smem& S, int lpos, int q,
+                                               float t, bool dual_step,
+                                               int np, int mtp) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int np2 = 2 * np;
+  float* K = S.K;
+  const int rem_idx = clampi(S.aorder[lpos], 0, mtp - 1);
+  const float wl_safe = removal_vectors(S, lpos, np);
+  for (int e = tid; e < np * np2; e += nt) {
+    const int i = e / np2, j = e % np2;
+    const int k = j - np;
+    const float vj =
+        j < np ? -S.nl[j] : ((k < q && k != lpos) ? S.w[k] : 0.0f);
+    K[e] = sub_mul(K[e], S.nl[i], __fdiv_rn(vj, wl_safe));
+  }
+  for (int k = tid; k < np; k += nt) {
+    float uk = sub_mul(S.u[k], t, S.zr[np + k]);
+    if (k == q) uk = __fadd_rn(uk, t);
+    S.u[k] = uk;
+    if (!dual_step) S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
+  }
+  __syncthreads();
+  // N* columns: each thread shifts whole rows, in order, so no element is
+  // read after another thread has overwritten it
+  for (int i = tid; i < np; i += nt) {
+    float* row = K + i * np2 + np;
+    for (int k = lpos; k < np; ++k) row[k] = k < q - 1 ? row[k + 1] : 0.0f;
+  }
+  // the slot vectors: read into registers, barrier, write
+  for (int base = 0; base < np; base += nt) {
+    const int k = base + tid;
+    float uk = 0.0f;
+    int ak = -1, sk = 0;
+    if (k < np) {
+      const int src = k >= lpos ? k + 1 : k;
+      if (k < q) uk = S.u[src];
+      if (k < q - 1) {
+        ak = S.aorder[src];
+        sk = S.statk[src];
+      }
+    }
+    __syncthreads();
+    if (k < np) {
+      S.u[k] = uk;
+      S.aorder[k] = ak;
+      S.statk[k] = sk;
+    }
+  }
+  if (tid == 0) S.status[rem_idx] = 0;
+}
+
 // The GI loop (_packed_iterate) on the state in shared memory, until the
 // problem leaves RUNNING or has run max_iter iterations; RUNNING then
 // becomes MAX_ITER_REACHED. Enters and returns with the state published.
-// tr0 sets the dependence and zero-z thresholds.
+// tr0 sets the dependence and zero-z thresholds. kCompact selects K9's
+// compact slots (the candidate's slot is q, the active mask slot < q, the
+// compact removal); K1, K3 and K4 take the hole-based version.
+template <bool kCompact>
 __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
                                         int mp, int max_iter, float tr0,
                                         Scal& sc, int& parity) {
@@ -301,8 +390,9 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
         red_min(r, val, idx);
       }
       // the candidate's slot: the first free one, pinned while it lives
-      for (int k = tid; k < np; k += nt)
-        if (S.statk[k] == 0) r.i2 = min(r.i2, k);
+      if (!kCompact)
+        for (int k = tid; k < np; k += nt)
+          if (S.statk[k] == 0) r.i2 = min(r.i2, k);
       r = block_reduce(r, S.red, parity);
       success = r.v >= 0.0f;
       sc_idx = r.i;
@@ -313,12 +403,15 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
     }
     const float sign = (sc_st == UPPER || sc_st == UPPER_BOUND) ? -1.0f : 1.0f;
     const bool is_bnd = sc_st >= LOWER_BOUND;
+    const int slot = kCompact ? q : sc_slot;  // the candidate's slot
 
     // directions [z | r] = n+ K; r kept on active slots only (r_head)
     for (int j = tid; j < np2; j += nt) {
       float acc = 0.0f;
       for (int k = 0; k < np; ++k) acc += S.npl[k] * K[k * np2 + j];
-      S.zr[j] = (j >= np && S.statk[j - np] == 0) ? 0.0f : acc;
+      S.zr[j] = (j >= np && (kCompact ? j - np >= q : S.statk[j - np] == 0))
+                    ? 0.0f
+                    : acc;
     }
     __syncthreads();
 
@@ -327,8 +420,9 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
     for (int k = tid; k < np; k += nt) {
       const float r = S.zr[np + k];
       const int sk = S.statk[k];
+      const bool act = kCompact ? k < q : sk != 0;
       const bool elig =
-          sk != 0 && sk != EQUALITY && sk != FIXED && r > 0.0f;
+          act && sk != EQUALITY && sk != FIXED && r > 0.0f;
       red_min(s, elig ? __fdiv_rn(S.u[k], r) : BIG, k);
       const float z = S.zr[k], p = S.npl[k];
       s.s0 += z * z;
@@ -367,25 +461,29 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
       const float dsafe = dependent ? 1.0f : nz;
       for (int k = tid; k < np; k += nt) {
         float uk = sub_mul(S.u[k], t, S.zr[np + k]);
-        if (k == sc_slot) uk = __fadd_rn(uk, t);
+        if (k == slot) uk = __fadd_rn(uk, t);
         S.u[k] = uk;
         S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
       }
       for (int e = tid; e < np * np2; e += nt) {
         const int i = e / np2, j = e % np2;
-        K[e] = (j == np + sc_slot)
+        K[e] = (j == np + slot)
                    ? __fdiv_rn(S.zr[i], dsafe)
                    : sub_mul(K[e], S.zr[i], __fdiv_rn(S.zr[j], dsafe));
       }
       __syncthreads();
       if (tid == 0) {
         S.status[sc_idx] = sc_st;
-        S.aorder[sc_slot] = sc_idx;
-        S.statk[sc_slot] = sc_st;
+        S.aorder[slot] = sc_idx;
+        S.statk[slot] = sc_st;
       }
       ++q;
       if (dependent) term = LINEAR_DEPENDENCY_DETECTED;
       skip1 = 0;
+    } else if (kCompact) {
+      compact_remove(S, lpos, q, t, dual_step, np, mtp);
+      --q;
+      skip1 = 1;
     } else {
       // remove slot lpos; the pending candidate's multiplier moves into it
       const float cand_val = __fadd_rn(
@@ -405,7 +503,7 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
     __syncthreads();
   }
   if (term == RUNNING) term = MAX_ITER_REACHED;
-  sc = Scal{q, it, term, skip1, sc_idx, sc_st, sc_slot};
+  sc = Scal{q, it, term, skip1, sc_idx, sc_st, kCompact ? 0 : sc_slot};
   __syncthreads();
 }
 
@@ -603,29 +701,32 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   }
 
   Scal sc{q, 0, term, 0, -1, 0, q};
-  gi_loop(S, n, m, np, mp, max_iter, tr0, sc, parity);
+  gi_loop<false>(S, n, m, np, mp, max_iter, tr0, sc, parity);
   write_out(S, b, np, mp, sc, tr0, x_out, u_out, status_out, aorder_out,
             scal_out, K_out, hscale_out);
 }
 
-__global__ void __launch_bounds__(kThreads)
-gi_loop_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
-               const float* __restrict__ l_in, const float* __restrict__ u_in,
-               const float* __restrict__ xl_in,
-               const float* __restrict__ xu_in,
-               const float* __restrict__ K0_in,
-               const float* __restrict__ x0_in,
-               const float* __restrict__ u0_in,
-               const int* __restrict__ status0_in,
-               const int* __restrict__ aorder0_in,
-               const int* __restrict__ statk0_in,
-               const int* __restrict__ scal0_in,
-               const float* __restrict__ hscale0_in,
-               float* __restrict__ x_out, float* __restrict__ u_out,
-               int* __restrict__ status_out, int* __restrict__ aorder_out,
-               int* __restrict__ scal_out, float* __restrict__ K_out,
-               float* __restrict__ hscale_out, int n, int m, int np, int mp,
-               int max_iter) {
+// K3 (kCompact = false) and K9 (kCompact = true): the loop from the state
+// passed in. Each has a kernel of its own below, so a trace names it.
+template <bool kCompact>
+__device__ __forceinline__ void
+state_loop(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
+           const float* __restrict__ l_in, const float* __restrict__ u_in,
+           const float* __restrict__ xl_in,
+           const float* __restrict__ xu_in,
+           const float* __restrict__ K0_in,
+           const float* __restrict__ x0_in,
+           const float* __restrict__ u0_in,
+           const int* __restrict__ status0_in,
+           const int* __restrict__ aorder0_in,
+           const int* __restrict__ statk0_in,
+           const int* __restrict__ scal0_in,
+           const float* __restrict__ hscale0_in,
+           float* __restrict__ x_out, float* __restrict__ u_out,
+           int* __restrict__ status_out, int* __restrict__ aorder_out,
+           int* __restrict__ scal_out, float* __restrict__ K_out,
+           float* __restrict__ hscale_out, int n, int m, int np, int mp,
+           int max_iter) {
   extern __shared__ __align__(16) char smem_raw[];
   Smem S;
   smem_layout(np, mp, smem_raw, &S);
@@ -650,9 +751,62 @@ gi_loop_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
     __syncthreads();
   }
   int parity = 0;
-  gi_loop(S, n, m, np, mp, max_iter, fmaxf(hscale, 1e-30f), sc, parity);
+  gi_loop<kCompact>(S, n, m, np, mp, max_iter, fmaxf(hscale, 1e-30f), sc,
+                    parity);
   write_out(S, b, np, mp, sc, hscale, x_out, u_out, status_out, aorder_out,
             scal_out, K_out, hscale_out);
+}
+
+// K3: hole slots.
+__global__ void __launch_bounds__(kThreads)
+gi_loop_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
+               const float* __restrict__ l_in, const float* __restrict__ u_in,
+               const float* __restrict__ xl_in,
+               const float* __restrict__ xu_in,
+               const float* __restrict__ K0_in,
+               const float* __restrict__ x0_in,
+               const float* __restrict__ u0_in,
+               const int* __restrict__ status0_in,
+               const int* __restrict__ aorder0_in,
+               const int* __restrict__ statk0_in,
+               const int* __restrict__ scal0_in,
+               const float* __restrict__ hscale0_in,
+               float* __restrict__ x_out, float* __restrict__ u_out,
+               int* __restrict__ status_out, int* __restrict__ aorder_out,
+               int* __restrict__ scal_out, float* __restrict__ K_out,
+               float* __restrict__ hscale_out, int n, int m, int np, int mp,
+               int max_iter) {
+  state_loop<false>(G_in, Ct_in, l_in, u_in, xl_in, xu_in, K0_in, x0_in,
+                    u0_in, status0_in, aorder0_in, statk0_in, scal0_in,
+                    hscale0_in, x_out, u_out, status_out, aorder_out,
+                    scal_out, K_out, hscale_out, n, m, np, mp, max_iter);
+}
+
+// K9: compact slots.
+__global__ void __launch_bounds__(kThreads)
+gi_compact_kernel(const float* __restrict__ G_in,
+                  const float* __restrict__ Ct_in,
+                  const float* __restrict__ l_in,
+                  const float* __restrict__ u_in,
+                  const float* __restrict__ xl_in,
+                  const float* __restrict__ xu_in,
+                  const float* __restrict__ K0_in,
+                  const float* __restrict__ x0_in,
+                  const float* __restrict__ u0_in,
+                  const int* __restrict__ status0_in,
+                  const int* __restrict__ aorder0_in,
+                  const int* __restrict__ statk0_in,
+                  const int* __restrict__ scal0_in,
+                  const float* __restrict__ hscale0_in,
+                  float* __restrict__ x_out, float* __restrict__ u_out,
+                  int* __restrict__ status_out, int* __restrict__ aorder_out,
+                  int* __restrict__ scal_out, float* __restrict__ K_out,
+                  float* __restrict__ hscale_out, int n, int m, int np,
+                  int mp, int max_iter) {
+  state_loop<true>(G_in, Ct_in, l_in, u_in, xl_in, xu_in, K0_in, x0_in,
+                    u0_in, status0_in, aorder0_in, statk0_in, scal0_in,
+                    hscale0_in, x_out, u_out, status_out, aorder_out,
+                    scal_out, K_out, hscale_out, n, m, np, mp, max_iter);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -715,7 +869,7 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   }
 
   Scal sc{q, it, RUNNING, 0, -1, 0, q};
-  gi_loop(S, n, m, np, mp, max_iter, tr0, sc, parity);
+  gi_loop<false>(S, n, m, np, mp, max_iter, tr0, sc, parity);
   write_out(S, b, np, mp, sc, tr0, x_out, u_out, status_out, aorder_out,
             scal_out, K_out, hscale_out);
 }
@@ -748,6 +902,35 @@ extern "C" int jrlqp_gi_fused(const void* G, const void* Ct, const void* l,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <typename Kernel>
+int launch_state_loop(Kernel kernel, const void* G, const void* Ct,
+                      const void* l, const void* u, const void* xl,
+                      const void* xu, const void* K0, const void* x0,
+                      const void* u0, const void* status0, const void* aorder0,
+                      const void* statk0, const void* scal0,
+                      const void* hscale0, void* x_out, void* u_out,
+                      void* status_out, void* aorder_out, void* scal_out,
+                      void* K_out, void* hscale_out, int B, int n, int m,
+                      int np, int mp, int max_iter, void* stream) {
+  const size_t smem = smem_layout(np, mp, nullptr, nullptr);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0)
+    kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)G, (const float*)Ct, (const float*)l, (const float*)u,
+        (const float*)xl, (const float*)xu, (const float*)K0,
+        (const float*)x0, (const float*)u0, (const int*)status0,
+        (const int*)aorder0, (const int*)statk0, (const int*)scal0,
+        (const float*)hscale0, (float*)x_out, (float*)u_out,
+        (int*)status_out, (int*)aorder_out, (int*)scal_out, (float*)K_out,
+        (float*)hscale_out, n, m, np, mp, max_iter);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int jrlqp_gi_loop(const void* G, const void* Ct, const void* l,
                              const void* u, const void* xl, const void* xu,
                              const void* K0, const void* x0, const void* u0,
@@ -758,19 +941,27 @@ extern "C" int jrlqp_gi_loop(const void* G, const void* Ct, const void* l,
                              void* scal_out, void* K_out, void* hscale_out,
                              int B, int n, int m, int np, int mp,
                              int max_iter, void* stream) {
-  const size_t smem = smem_layout(np, mp, nullptr, nullptr);
-  cudaError_t err = set_smem(gi_loop_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0)
-    gi_loop_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)G, (const float*)Ct, (const float*)l, (const float*)u,
-        (const float*)xl, (const float*)xu, (const float*)K0,
-        (const float*)x0, (const float*)u0, (const int*)status0,
-        (const int*)aorder0, (const int*)statk0, (const int*)scal0,
-        (const float*)hscale0, (float*)x_out, (float*)u_out,
-        (int*)status_out, (int*)aorder_out, (int*)scal_out, (float*)K_out,
-        (float*)hscale_out, n, m, np, mp, max_iter);
-  return (int)cudaGetLastError();
+  return launch_state_loop(
+      gi_loop_kernel, G, Ct, l, u, xl, xu, K0, x0, u0, status0, aorder0, statk0,
+      scal0, hscale0, x_out, u_out, status_out, aorder_out, scal_out, K_out,
+      hscale_out, B, n, m, np, mp, max_iter, stream);
+}
+
+// K9: the same inputs and outputs as K3, compact slots.
+extern "C" int jrlqp_gi_compact(const void* G, const void* Ct, const void* l,
+                                const void* u, const void* xl, const void* xu,
+                                const void* K0, const void* x0,
+                                const void* u0, const void* status0,
+                                const void* aorder0, const void* statk0,
+                                const void* scal0, const void* hscale0,
+                                void* x_out, void* u_out, void* status_out,
+                                void* aorder_out, void* scal_out, void* K_out,
+                                void* hscale_out, int B, int n, int m, int np,
+                                int mp, int max_iter, void* stream) {
+  return launch_state_loop(
+      gi_compact_kernel, G, Ct, l, u, xl, xu, K0, x0, u0, status0, aorder0,
+      statk0, scal0, hscale0, x_out, u_out, status_out, aorder_out,
+      scal_out, K_out, hscale_out, B, n, m, np, mp, max_iter, stream);
 }
 
 extern "C" int jrlqp_gi_warm(const void* G, const void* Ct, const void* l,
@@ -797,7 +988,7 @@ extern "C" int jrlqp_gi_warm(const void* G, const void* Ct, const void* l,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory per block of each of the three kernels.
+// Dynamic shared memory per block of each of the four GI kernels.
 extern "C" size_t jrlqp_gi_smem_bytes(int np, int mp) {
   return smem_layout(np, mp, nullptr, nullptr);
 }

@@ -7,7 +7,8 @@ takes seconds). The library goes to ``build/jrlqp_tpu_torch/`` beside the
 package, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as is. Each C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on a nonzero
-code.
+code. ``loads`` counts the builds and loads of the library in this
+process (:func:`jrlqp_tpu_torch.utils.no_retrace` reads it).
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -42,6 +43,8 @@ _SIGNATURES = {
     # G, Ct, l, u, xl, xu, K0, x0, u0, status0, aorder0, statk0, scal0,
     # hscale0; the 7 outputs as above; B, n, m, np_, mp_, max_iter; stream
     "jrlqp_gi_loop": [_P] * 21 + [_I] * 6 + [_P],
+    # K9: K3's arguments
+    "jrlqp_gi_compact": [_P] * 21 + [_I] * 6 + [_P],
     # G, Ct, l, u, xl, xu, a, K0, status0, aorder0, statk0, b_act, q; the
     # 7 outputs as above; B, n, m, np_, mp_, max_iter; stream
     "jrlqp_gi_warm": [_P] * 20 + [_I] * 6 + [_P],
@@ -58,6 +61,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}
+loads = 0     # builds and loads of the library in this process
 
 
 def _nvcc() -> str:
@@ -125,9 +129,10 @@ def _build() -> Path:
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on the first call."""
-    global _lib
+    global _lib, loads
     with _lock:
         if _lib is None:
+            loads += 1
             lib = ctypes.CDLL(str(_build()))
             for name, args in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -1,5 +1,5 @@
-"""The GI kernels K1, K3 and K4: host preparation, the CUDA kernels, their
-plain PyTorch versions, and the index remap.
+"""The GI kernels K1, K3, K4 and K9: host preparation, the CUDA kernels,
+their plain PyTorch versions, and the index remap.
 
 Counterpart of ``jrlqp_tpu.ops.pallas.gi_kernel``, whose three packed
 kernels share the loop ``_packed_iterate`` (:364):
@@ -11,6 +11,8 @@ kernels share the loop ``_packed_iterate`` (:364):
   ``run_loop_pallas`` (:1102-1209), ``_kernel_packed`` (:628);
 - K4, the loop from a carried operator: ``run_warm_loop_pallas`` (:1339),
   ``_kernel_packed_warm`` (:836);
+- K9, K3's loop with compact slots: the pack-1 branch of
+  ``run_loop_pallas`` (:1210-1238), ``_kernel`` (:104);
 
 and ``_postprocess`` (:1244).
 
@@ -47,18 +49,20 @@ from . import _build
 from .block_llt import chol_b_plain, posdef_plain, tri_inv_b_plain
 
 __all__ = ["run_loop_fused", "gi_fused_plain", "run_loop", "gi_loop_plain",
-           "run_warm_loop", "gi_warm_plain", "prepare", "prepare_state",
-           "prepare_warm", "postprocess"]
+           "run_warm_loop", "gi_warm_plain", "run_loop_compact",
+           "gi_compact_plain", "prepare", "prepare_state", "prepare_warm",
+           "postprocess"]
 
 BIG = 1e30           # f32 infinity proxy inside the loop
 INF_BOUND = 1e31     # infinite bounds in the padded f32 inputs
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 
 # launches of each CUDA kernel since the last reset (set to 0 to reset):
-# K1 (gi_fused), K3 (gi_loop) and K4 (gi_warm)
+# K1 (gi_fused), K3 (gi_loop), K4 (gi_warm) and K9 (gi_compact)
 launches = 0
 loop_launches = 0
 warm_launches = 0
+compact_launches = 0
 
 _F, _I = torch.float32, torch.int32
 # input dtypes of the C entry points, in argument order
@@ -247,7 +251,7 @@ def _matvec(A, v):
 
 
 def _packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0, init, n, m,
-                          max_iter):
+                          max_iter, compact=False):
     """The GI loop (``_packed_iterate``) as batched masked tensor code, line
     for line, with the whole batch as one pack: stopped lanes freeze
     through selects. ``init`` is (x, K, u, status, aorder, statk, q, it,
@@ -255,7 +259,14 @@ def _packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0, init, n, m,
     the same tuple comes back. A lane that enters with skip1 = 1 starts
     from its pending candidate's normal, rebuilt from (sc_idx, sc_status)
     as ``fast.fast_iteration`` does (fast.py:175-183), not from zero as
-    ``_kernel_packed`` does (gi_kernel.py:648-653)."""
+    ``_kernel_packed`` and ``_kernel`` do (gi_kernel.py:648-653, :336-339).
+
+    With ``compact`` the slots are K9's (``_kernel``, gi_kernel.py:
+    146-360): slots 0..q-1 are active and the candidate sits at slot q; a
+    removal deletes slot l and shifts slots l+1..q-1 down by one (N*
+    columns, aorder, statk, and u up to the candidate's slot q), where the
+    hole layout frees slot l in place and moves the candidate's multiplier
+    into it. ``sc_slot`` is then unused."""
     x, K, u, status, aorder, statk, q, it, term, skip1, sc_idx, sc_st, \
         sc_slot = init
     B, np_, _ = G.shape
@@ -285,7 +296,7 @@ def _packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0, init, n, m,
         active = (term == RUNNING) & (it < max_iter)
         if not bool(active.any()):
             break
-        valid = statk != 0
+        valid = (iot_n < q) if compact else (statk != 0)
 
         cx = _vecmat(x, Ct)
         sl, su = cx - lo, up - cx
@@ -305,7 +316,7 @@ def _packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0, init, n, m,
         sc_idx_n = torch.where(do_select, p, sc_idx)
         sc_st_n = torch.where(do_select, sel_st, sc_st)
         _, free_f = _rowmin(torch.where(valid, np_, iot_n), iot_n)
-        sc_slot_n = torch.where(do_select, free_f, sc_slot)
+        sc_slot_n = q if compact else torch.where(do_select, free_f, sc_slot)
         nplus_sel, sign, is_bnd = normal(sc_idx_n, sc_st_n)
         nplus_n = torch.where(do_select, nplus_sel, nplus)
 
@@ -370,22 +381,42 @@ def _packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0, init, n, m,
         K_n = torch.where(
             add_sel[:, :, None] & (lane2 == (np_ + sc_slot_n)[:, :, None]),
             zn[:, :, None], K_n)
-        K_n = torch.where(
-            rem_sel[:, :, None] & (lane2 == (np_ + lpos)[:, :, None]),
-            0.0, K_n)
-
         status_add = torch.where(iot_mt == sc_idx_n, sc_st_n, status)
         aorder_add = torch.where(iot_n == sc_slot_n, sc_idx_n, aorder)
         statk_add = torch.where(iot_n == sc_slot_n, sc_st_n, statk)
         rem_idx = aorder.gather(1, lpos).clamp(0, mtp_ - 1)
         status_rem = torch.where(iot_mt == rem_idx, 0, status)
-        aorder_rem = torch.where(iot_n == lpos, -1, aorder)
-        statk_rem = torch.where(iot_n == lpos, 0, statk)
-        # the pending candidate's multiplier moves into the freed slot
-        # (needed when it sat in a padded slot at a full-rank vertex)
-        cand_val = u_stepped.gather(1, sc_slot_n)
-        u_rem = torch.where(iot_n == lpos, cand_val,
-                            torch.where(iot_n == sc_slot_n, 0.0, u_stepped))
+        if compact:
+            # delete slot lpos: N* columns, aorder and statk from lpos+1
+            # up to q-1 move down one, everything from q-1 on is cleared;
+            # u (the candidate at slot q) moves down up to q
+            col = lane2 - np_
+            ql = (q - 1)[:, :, None]
+            src = torch.where((col >= lpos[:, :, None]) & (col < ql),
+                              lane2 + 1, lane2).clamp(max=2 * np_ - 1)
+            K_rem = K_n.gather(2, src.expand(B, np_, 2 * np_))
+            K_rem = torch.where(col >= ql, 0.0, K_rem)
+            K_n = torch.where(rem_sel[:, :, None], K_rem, K_n)
+            below = (iot_n >= lpos) & (iot_n < q - 1)
+            src_v = torch.where(below, iot_n + 1, iot_n)
+            aorder_rem = torch.where(iot_n >= q - 1, -1,
+                                     aorder.gather(1, src_v))
+            statk_rem = torch.where(iot_n >= q - 1, 0, statk.gather(1, src_v))
+            src_u = torch.where((iot_n >= lpos) & (iot_n < q), iot_n + 1,
+                                iot_n).clamp(max=np_ - 1)
+            u_rem = torch.where(iot_n >= q, 0.0, u_stepped.gather(1, src_u))
+        else:
+            K_n = torch.where(
+                rem_sel[:, :, None] & (lane2 == (np_ + lpos)[:, :, None]),
+                0.0, K_n)
+            aorder_rem = torch.where(iot_n == lpos, -1, aorder)
+            statk_rem = torch.where(iot_n == lpos, 0, statk)
+            # the pending candidate's multiplier moves into the freed slot
+            # (needed when it sat in a padded slot at a full-rank vertex)
+            cand_val = u_stepped.gather(1, sc_slot_n)
+            u_rem = torch.where(iot_n == lpos, cand_val,
+                                torch.where(iot_n == sc_slot_n, 0.0,
+                                            u_stepped))
 
         def sel2(a_, b_, c_):
             return torch.where(add_sel, a_, torch.where(rem_sel, b_, c_))
@@ -515,15 +546,25 @@ def _gi_fused_plain_raw(G, Ct, lo, up, xlo, xup, a, n, m, max_iter):
 
 
 def _gi_loop_plain_raw(G, Ct, lo, up, xlo, xup, K0, x0, u0, status0,
-                       aorder0, statk0, scal0, hscale0, n, m, max_iter):
-    """K3's computation: ``_kernel_packed`` on the state passed in."""
+                       aorder0, statk0, scal0, hscale0, n, m, max_iter,
+                       compact=False):
+    """K3's computation: ``_kernel_packed`` on the state passed in; with
+    ``compact``, K9's: ``_kernel``, whose scalar slot 6 comes back 0."""
     s = scal0.long()
     scalars = [s[:, j:j + 1] for j in range(7)]   # q, it, ..., sc_slot
     tr0 = torch.clamp_min(hscale0[:, None], 1e-30)
     init = (x0, K0, u0, status0.long(), aorder0.long(), statk0.long(),
             *scalars)
-    return _raw_out(_packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0,
-                                          init, n, m, max_iter), hscale0)
+    final = _packed_iterate_plain(G, Ct, lo, up, xlo, xup, tr0, init, n, m,
+                                  max_iter, compact)
+    if compact:
+        final = (*final[:-1], torch.zeros_like(final[-1]))
+    return _raw_out(final, hscale0)
+
+
+def _gi_compact_plain_raw(*args):
+    """K9's computation: ``_kernel`` on the state passed in."""
+    return _gi_loop_plain_raw(*args, compact=True)
 
 
 def _gi_warm_plain_raw(G, Ct, lo, up, xlo, xup, a, K0, status0, aorder0,
@@ -634,6 +675,14 @@ def _gi_loop_cuda_raw(*args):
     return outs
 
 
+def _gi_compact_cuda_raw(*args):
+    global compact_launches
+    *ins, n, m, max_iter = args
+    outs = _launch("jrlqp_gi_compact", _LOOP_IN, ins, n, m, max_iter)
+    compact_launches += 1
+    return outs
+
+
 def _gi_warm_cuda_raw(*args):
     global warm_launches
     *ins, n, m, max_iter = args
@@ -707,4 +756,23 @@ def run_warm_loop(pb32, H, Ns, status, aorder, q, max_iter: int) -> dict:
     run = (_gi_warm_cuda_raw if _on_cuda(pb32, "run_warm_loop")
            else _gi_warm_plain_raw)
     inputs, (n, m) = prepare_warm(pb32, H, Ns, status, aorder, q)
+    return postprocess(run(*inputs, n, m, max_iter), n, m)
+
+
+def gi_compact_plain(pb32, state0, max_iter: int) -> dict:
+    """The plain PyTorch version of K9 on any device, remapped to (m+n)."""
+    _on_cuda(pb32, "gi_compact_plain")
+    inputs, (n, m) = prepare_state(pb32, state0)
+    return postprocess(_gi_compact_plain_raw(*inputs, n, m, max_iter), n, m)
+
+
+def run_loop_compact(pb32, state0, max_iter: int) -> dict:
+    """The GI loop with compact slots from a batched ``FastState``
+    ``state0`` with compact slots, such as ``_init_fast``'s (counterpart of
+    ``run_loop_pallas(pb32, state0, max_iter, pack=1)``): the dict of
+    :func:`run_loop_fused`. A CUDA problem runs the kernel K9; a CPU
+    problem runs the plain version. Any other device raises."""
+    run = (_gi_compact_cuda_raw if _on_cuda(pb32, "run_loop_compact")
+           else _gi_compact_plain_raw)
+    inputs, (n, m) = prepare_state(pb32, state0)
     return postprocess(run(*inputs, n, m, max_iter), n, m)

@@ -54,10 +54,11 @@ class QPProblem:
 
 
 def problem_from_numpy(*, G, a, C, l, u, xl, xu, objcst=None,
-                       device="cpu") -> QPProblem:
+                       device="cuda") -> QPProblem:
     """Batched :class:`QPProblem` from numpy arrays (a JAX problem's fields
     passed through ``np.asarray``). Values, dtype and +/-inf bounds are
-    kept bitwise."""
+    kept bitwise. The problem goes to ``device``, the card unless the caller
+    names another (``device="cpu"`` for the CPU)."""
     B = np.shape(G)[0]
     if objcst is None:
         objcst = np.zeros((B,), np.asarray(G).dtype)

@@ -1,6 +1,6 @@
 """Throughput GI engine: the f32 kernels plus f64 iterative refinement.
 
-Counterpart of :mod:`jrlqp_tpu.solver.fast` on three paths:
+Counterpart of :mod:`jrlqp_tpu.solver.fast` on five paths:
 
 - the main path ``solve_refined_kernel`` (``solve_refined_pallas(...,
   fused_init=True)``): the whole f32 solve in the fused kernel K1;
@@ -10,7 +10,13 @@ Counterpart of :mod:`jrlqp_tpu.solver.fast` on three paths:
   deactivations), then the loop in K3;
 - the trajectory carry ``solve_refined_kernel_carry``
   (``solve_refined_pallas_carry``): a cold K1 step, then K4 steps that
-  start from the previous step's operators.
+  start from the previous step's operators;
+- the compact-slot path ``solve_refined_kernel_compact``
+  (``solve_refined_pallas(..., pack=1)``): the torch cold init, then the
+  loop in K9;
+- the rescue ``solve_refined_kernel_rescued``
+  (``solve_refined_pallas_rescued``): the torch cold init and K3, then the
+  f64 J/R engine (:mod:`.dense`) for the lanes that fail.
 
 The kernels (:mod:`jrlqp_tpu_torch.ops.cuda.gi_kernel`) produce the
 explicit operators H = G^-1 (I - N N*) and N*; a few steps of
@@ -30,8 +36,9 @@ shift on removal, not the kernels' hole-based slots. Its cold inits
 (``_init_fast``, ``_init_fast_from_ops``) serve the warm init's fallback
 and the structured layer; its loop (``fast_iteration`` run by
 ``_run_loop`` until no lane is RUNNING) is the GI loop of the structured
-path, whose n is too large for the kernels' shared memory, and of the
-dense engine ``solve_refined``; ``_init_fast_from_carry`` starts the loop
+path, whose n is too large for the kernels' shared memory, of the
+engine ``solve_refined`` and of ``solve_fast`` / ``solve_fast_warm`` (no
+refinement, the problems' dtype); ``_init_fast_from_carry`` starts the loop
 from a carried operator.
 """
 from __future__ import annotations
@@ -40,16 +47,19 @@ import dataclasses
 
 import torch
 
-from ..ops.cuda.gi_kernel import run_loop, run_loop_fused, run_warm_loop
+from ..ops.cuda.gi_kernel import (
+    run_loop,
+    run_loop_compact,
+    run_loop_fused,
+    run_warm_loop,
+)
 from ..problems import QPProblem
 from ..types import (
     EQUALITY,
     FIXED,
-    INACTIVE,
     INCONSISTENT_INPUT,
     INFEASIBLE,
     LINEAR_DEPENDENCY_DETECTED,
-    LOWER,
     LOWER_BOUND,
     MAX_ITER_REACHED,
     NON_POS_HESSIAN,
@@ -60,12 +70,25 @@ from ..types import (
     UPPER_BOUND,
     SolverOptions,
 )
+from ..testing.kkt import kkt_residual
 from ..validation import inconsistent_mask
+from .dense import (
+    _bmtv,
+    _bmv,
+    _constraint_normal,
+    _dot,
+    _safe_cholesky,
+    _select_violated,
+    _selected_bound,
+    _where_state,
+    finalize,
+)
 from .state import GIResult
 
 __all__ = ["FastState", "WarmCarry", "solve_refined_kernel",
            "solve_refined_warm_kernel", "solve_refined_kernel_carry",
-           "fast_iteration", "solve_refined"]
+           "solve_refined_kernel_compact", "solve_refined_kernel_rescued",
+           "fast_iteration", "solve_refined", "solve_fast", "solve_fast_warm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,15 +133,6 @@ def _state_from_kernel_out(out: dict, B: int) -> FastState:
     )
 
 
-def _where_state(mask, a: FastState, b: FastState) -> FastState:
-    """Per lane: ``a`` where ``mask`` (B,), else ``b``."""
-    def sel(x, y):
-        return torch.where(mask.view(-1, *([1] * (x.dim() - 1))), x, y)
-
-    return FastState(**{f.name: sel(getattr(a, f.name), getattr(b, f.name))
-                        for f in dataclasses.fields(FastState)})
-
-
 def _validated(pb: QPProblem, st: FastState, opt: SolverOptions
                ) -> FastState:
     """With ``opt.validate``, INCONSISTENT_INPUT on lanes whose data is
@@ -127,15 +141,6 @@ def _validated(pb: QPProblem, st: FastState, opt: SolverOptions
         return st
     return dataclasses.replace(st, term=torch.where(
         inconsistent_mask(pb), INCONSISTENT_INPUT, st.term).to(torch.int32))
-
-
-def _bmv(A, v):
-    return torch.einsum("bij,bj->bi", A, v)
-
-
-def _bmtv(A, v):
-    """A^T v per lane."""
-    return torch.einsum("bji,bj->bi", A, v)
 
 
 def _refine_batch(pbs: QPProblem, st: FastState, ir_steps: int) -> GIResult:
@@ -224,55 +229,10 @@ def _outer(a, b):
     return a[:, :, None] * b[:, None, :]
 
 
-def _dot(a, b):
-    return (a * b).sum(dim=1)
-
-
 # Relative threshold on delta = n+^T H n+ for declaring the candidate
 # dependent on the active set, times hscale |n+|^2 (fast.py:96-108).
 def _dep_eps(dtype):
     return 2e-12 if dtype == torch.float64 else 2e-7
-
-
-def _constraint_normal(pb: QPProblem, idx, st):
-    """Signed normals n+ = sign (e_{idx-m} | C[idx]) of constraints ``idx``
-    with statuses ``st`` (dense.py:87-101); UPPER / UPPER_BOUND negate.
-    ``idx`` and ``st`` are (B,) or (B, k); the result adds a last axis n."""
-    m, n = pb.m, pb.n
-    shape = idx.shape
-    idx = idx.long().reshape(shape[0], -1)
-    st = st.long().reshape(shape[0], -1)
-    dt = pb.C.dtype
-    sign = torch.where((st == UPPER) | (st == UPPER_BOUND), -1.0, 1.0).to(dt)
-    if m > 0:
-        crow = pb.C.gather(
-            1, idx.clamp(0, m - 1)[:, :, None].expand(-1, -1, n))
-    else:
-        crow = torch.zeros(idx.shape + (n,), dtype=dt, device=idx.device)
-    e = (torch.arange(n, device=idx.device)
-         == (idx - m).clamp(0, n - 1)[:, :, None]).to(dt)
-    out = sign[:, :, None] * torch.where((st >= LOWER_BOUND)[:, :, None], e,
-                                         crow)
-    return out.reshape(*shape, n)
-
-
-def _selected_bound(pb: QPProblem, idx, st):
-    """The unsigned bound b of constraints ``idx`` with statuses ``st``
-    (dense.py:104-115); ``idx`` and ``st`` are (B,) or (B, k)."""
-    m, n = pb.m, pb.n
-    shape = idx.shape
-    idx = idx.long().reshape(shape[0], -1)
-    st = st.long().reshape(shape[0], -1)
-    if m > 0:
-        ci = idx.clamp(0, m - 1)
-        b_gen = torch.where(st == UPPER, pb.u.gather(1, ci),
-                            pb.l.gather(1, ci))
-    else:
-        b_gen = torch.zeros(idx.shape, dtype=pb.G.dtype, device=idx.device)
-    bi = (idx - m).clamp(0, n - 1)
-    b_bnd = torch.where(st == UPPER_BOUND, pb.xu.gather(1, bi),
-                        pb.xl.gather(1, bi))
-    return torch.where(st >= LOWER_BOUND, b_bnd, b_gen).reshape(shape)
 
 
 def _apply_add(state: FastState, nplus, z, r, idx, st) -> FastState:
@@ -339,12 +299,9 @@ def _inverse_cholesky(A):
     """(L^-T L^-1 = A^-1, ok) per lane from ``torch.linalg.cholesky_ex``:
     ok is ``info == 0``, not a finite diagonal, since torch leaves a
     partial, finite factor on failure; a failed lane inverts I."""
-    n = A.shape[-1]
-    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand_as(A)
-    L, info = torch.linalg.cholesky_ex(A)
-    ok = info == 0
-    Linv = torch.linalg.solve_triangular(
-        torch.where(ok[:, None, None], L, eye), eye, upper=False)
+    L, ok = _safe_cholesky(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     return Linv.transpose(1, 2) @ Linv, ok
 
 
@@ -547,29 +504,6 @@ def _init_fast_from_carry(pb: QPProblem, H, Ns, status, aorder, q
     return _deactivate_negative_u(pb, state, b_act)
 
 
-def _select_violated(pb: QPProblem, x, status):
-    """The most violated inactive constraint of each lane (dense.py:56-84):
-    (index into [0, m+n), its ActivationStatus, the violation), which is
-    negative iff a constraint is violated. ``argmin`` takes the first
-    minimum: general constraints before bounds, ties to the lowest index,
-    which is the reference's scan order."""
-    m = pb.m
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
-    cx = _bmv(pb.C, x)
-    sl, su = cx - pb.l, pb.u - cx
-    cand_c = torch.where(status[:, :m] != INACTIVE, inf, torch.minimum(sl, su))
-    st_c = torch.where(sl <= su, LOWER, UPPER)
-    slb, sub = x - pb.xl, pb.xu - x
-    cand_b = torch.where(status[:, m:] != INACTIVE, inf,
-                         torch.minimum(slb, sub))
-    st_b = torch.where(slb <= sub, LOWER_BOUND, UPPER_BOUND)
-    cand = torch.cat([cand_c, cand_b], dim=1)
-    p = cand.argmin(dim=1, keepdim=True)
-    sts = torch.cat([st_c, st_b], dim=1).gather(1, p)
-    return (p[:, 0].to(torch.int32), sts[:, 0].to(torch.int32),
-            cand.gather(1, p)[:, 0])
-
-
 def fast_iteration(pb: QPProblem, state: FastState, opt: SolverOptions
                    ) -> FastState:
     """One explicit-form GI pass on every RUNNING lane (fast.py:167-246);
@@ -651,23 +585,44 @@ def fast_iteration(pb: QPProblem, state: FastState, opt: SolverOptions
                         _where_state(go & ~full_step, removed, held))
 
 
-def _run_loop(pb: QPProblem, state: FastState, opt: SolverOptions
-              ) -> FastState:
+def _run_loop(pb: QPProblem, state: FastState, opt: SolverOptions,
+              on_pass=None) -> FastState:
     """:func:`fast_iteration` until no lane is RUNNING: the XLA engine's
     while loop (fast.py:342-351) over the batch. A lane that reaches
     ``opt.max_iter`` while RUNNING ends MAX_ITER_REACHED there, so it
-    stops where its own loop would."""
+    stops where its own loop would. ``on_pass(before, after)``, if given,
+    sees every pass (the tracer records with it)."""
     while True:
         capped = (state.term == RUNNING) & (state.it >= opt.max_iter)
         state = dataclasses.replace(state, term=torch.where(
             capped, MAX_ITER_REACHED, state.term).to(torch.int32))
         if not bool((state.term == RUNNING).any()):
             return state
-        state = fast_iteration(pb, state, opt)
+        nxt = fast_iteration(pb, state, opt)
+        if on_pass is not None:
+            on_pass(state, nxt)
+        state = nxt
 
 
 def _run_fast(pb: QPProblem, opt: SolverOptions) -> FastState:
     return _run_loop(pb, _init_fast(pb, opt), opt)
+
+
+def solve_fast(pbs: QPProblem, opt: SolverOptions = SolverOptions()
+               ) -> GIResult:
+    """Explicit-form GI solve of a batch in the problems' dtype (counterpart
+    of ``vmap(solve_fast)``, fast.py:365-370): the cold init and the loop
+    in torch, no kernel, no refinement."""
+    return finalize(pbs, _run_fast(pbs, opt))
+
+
+def solve_fast_warm(pbs: QPProblem, as_hints,
+                    opt: SolverOptions = SolverOptions()) -> GIResult:
+    """Warm-started explicit-form solve from (B, m+n) activation hints in
+    the problems' dtype (counterpart of ``vmap(solve_fast_warm)``,
+    fast.py:898-915). Hints count only with ``opt.warm_start``."""
+    return finalize(pbs, _run_loop(pbs, _init_fast_warm(pbs, as_hints, opt),
+                                   opt))
 
 
 def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
@@ -703,6 +658,76 @@ def _solve_refined(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
     pb32 = pbs.with_dtype(torch.float32)
     st = _state_from_kernel_out(run_loop(pb32, opt.max_iter), pbs.batch)
     return _refine_batch(pbs, _validated(pb32, st, opt), ir_steps)
+
+
+def _solve_refined_from_init(pbs: QPProblem, opt: SolverOptions,
+                             ir_steps: int, run) -> GIResult:
+    """The f32 cold init in torch (``_init_fast``), the loop
+    ``run(pb32, state0, max_iter)`` -- K3's or K9's wrapper, or a plain
+    version -- then ``ir_steps`` steps of f64 refinement: the body of
+    ``solve_refined_pallas(..., fused_init=False)`` (fast.py:638-671)."""
+    pb32 = pbs.with_dtype(torch.float32)
+    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+    out = run(pb32, _init_fast(pb32, opt32), opt.max_iter)
+    return _refine_batch(pbs, _state_from_kernel_out(out, pbs.batch),
+                         ir_steps)
+
+
+def solve_refined_kernel_compact(pbs: QPProblem,
+                                 opt: SolverOptions = SolverOptions(),
+                                 ir_steps: int = 3) -> GIResult:
+    """Batched f32 GI with compact slots: the torch cold init, the loop in
+    the kernel K9, then ``ir_steps`` steps of f64 refinement (counterpart
+    of ``solve_refined_pallas(pbs, opt, ir_steps, pack=1)``, whose fused
+    init falls back to the XLA init at pack 1, fast.py:725-734). A CPU
+    batch runs K9's plain version."""
+    return _solve_refined_from_init(pbs, opt, ir_steps, run_loop_compact)
+
+
+def _batch_kkt(pbs: QPProblem, x, multipliers) -> torch.Tensor:
+    """(B,) KKT residuals (fast.py:1171-1175)."""
+    return kkt_residual(x, multipliers, pbs)
+
+
+def _rescue_subbatch(pbs: QPProblem, opt: SolverOptions) -> GIResult:
+    """The f64 J/R solve of a sub-batch (fast.py:1082-1087)."""
+    from .dense import solve_batch
+
+    return solve_batch(pbs.with_dtype(torch.float64), opt)
+
+
+def solve_refined_kernel_rescued(pbs: QPProblem,
+                                 opt: SolverOptions = SolverOptions(),
+                                 ir_steps: int = 3, kkt_tol: float = 1e-8
+                                 ) -> GIResult:
+    """The f32 kernel path plus the f64 rescue of failed lanes (counterpart
+    of ``solve_refined_pallas_rescued``, fast.py:1178-1224). The first
+    stage is the JAX default's: the torch cold init, the loop in K3, the
+    refinement. Lanes with a status other than SUCCESS or a KKT residual
+    above ``kkt_tol`` are then solved again in f64 by the J/R engine
+    (:func:`jrlqp_tpu_torch.solver.dense.solve_batch`) and scattered back,
+    their iterations added to the first stage's. Exactly the failed lanes
+    are gathered: the JAX package's power-of-two bucket only bounds its
+    compiles, and no lane's result depends on it. A batch with no failed
+    lane comes back as the first stage left it."""
+    res = _solve_refined_from_init(pbs, opt, ir_steps, run_loop)
+    resid = _batch_kkt(pbs, res.x, res.multipliers)
+    bad = torch.nonzero((resid > kkt_tol) | (res.status != SUCCESS))[:, 0]
+    if bad.numel() == 0:
+        return res
+    sub = _rescue_subbatch(pbs._map(lambda t: t[bad]), opt)
+
+    def upd(full, part):
+        out = full.clone()
+        out[bad] = part.to(full.dtype)
+        return out
+
+    return GIResult(
+        x=upd(res.x, sub.x), multipliers=upd(res.multipliers, sub.multipliers),
+        f=upd(res.f, sub.f),
+        iterations=upd(res.iterations, res.iterations[bad] + sub.iterations),
+        status=upd(res.status, sub.status),
+        active_set=upd(res.active_set, sub.active_set))
 
 
 def solve_refined_warm_kernel(pbs: QPProblem, as_hints,

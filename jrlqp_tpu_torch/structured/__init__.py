@@ -1,6 +1,6 @@
-"""Structured linear algebra and the structured fast solver, batched
-(counterpart of :mod:`jrlqp_tpu.structured`; ``solve_structured``, the f64
-J/R solve, waits for the dense engine)."""
+"""Structured linear algebra and the structured solvers, batched
+(counterpart of :mod:`jrlqp_tpu.structured`): the fast solver on the block
+kernels and the J/R ``solve_structured`` on the dense engine."""
 from .blocks import (
     block_arrow_l_solve,
     block_arrow_llt,
@@ -19,9 +19,12 @@ from .containers import (
     structured_from_numpy,
 )
 from .solver import (
+    init_state_structured,
+    solve_structured,
     solve_structured_fast,
     solve_structured_fast_batch,
     solve_structured_fast_carry,
+    structured_hooks,
     structured_qp_problem,
 )
 
@@ -31,6 +34,9 @@ __all__ = [
     "StructuredG",
     "StructuredGFactor",
     "structured_from_numpy",
+    "solve_structured",
+    "structured_hooks",
+    "init_state_structured",
     "solve_structured_fast",
     "solve_structured_fast_batch",
     "solve_structured_fast_carry",

@@ -189,10 +189,11 @@ class StructuredC:
         return C
 
 
-def structured_from_numpy(*, diag, off, gtype, blocks, device="cpu"):
+def structured_from_numpy(*, diag, off, gtype, blocks, device="cuda"):
     """(StructuredG, StructuredC) from numpy arrays (a JAX batch's fields
     passed through ``np.asarray``): diag (B, nb, s, s), off (B, nb-1, s,
-    s), blocks (B, nb, mc, s). Values and dtype are kept bitwise."""
+    s), blocks (B, nb, mc, s). Values and dtype are kept bitwise. The
+    tensors go to ``device``, the card unless the caller names another."""
     def t(v):
         return torch.from_numpy(np.array(v, copy=True, order="C")).to(device)
 

@@ -16,8 +16,11 @@ batched torch) and the f64 refinement. ``backend`` picks how H is made:
   by name.
 
 The GI loop stays torch: at IK sizes (n = 387) the kernels' K = [H | N*^T]
-does not fit a thread block's shared memory. The f64 J/R ``solve_structured``
-waits for the dense engine.
+does not fit a thread block's shared memory.
+
+The J/R ``solve_structured`` (solver.py:60-207) runs the dense engine
+(:mod:`jrlqp_tpu_torch.solver.dense`) from the blocked factorization, with
+block-sparse selection and step hooks when C is a StructuredC.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ from ..ops.cuda.block_llt import (
     tri_block_llt,
     tri_block_solve,
 )
+from ..ops.linalg import tri_solve_masked
 from ..problems import QPProblem
+from ..solver import dense
 from ..solver.fast import (
     WarmCarry,
     _bmv,
@@ -42,12 +47,20 @@ from ..solver.fast import (
     _run_loop,
     _validated,
 )
-from ..solver.state import GIResult
-from ..types import SolverOptions
+from ..solver.state import GIResult, GIState, initial_state
+from ..types import (
+    LOWER_BOUND,
+    NON_POS_HESSIAN,
+    RUNNING,
+    UPPER,
+    UPPER_BOUND,
+    SolverOptions,
+)
 from .containers import GType, StructuredC, StructuredG
 
-__all__ = ["solve_structured_fast", "solve_structured_fast_batch",
-           "solve_structured_fast_carry", "structured_qp_problem"]
+__all__ = ["solve_structured", "solve_structured_fast",
+           "solve_structured_fast_batch", "solve_structured_fast_carry",
+           "structured_qp_problem"]
 
 BACKENDS = ("auto", "blocks")
 
@@ -70,6 +83,92 @@ def structured_qp_problem(
                      xl=-inf if xl is None else xl,
                      xu=inf if xu is None else xu,
                      objcst=a.new_zeros((a.shape[0],)))
+
+
+def structured_hooks(sc: StructuredC):
+    """Block-sparse selection and step hooks for the J/R loop
+    (solver.py:60-114; ref: BlockGISolver.cpp:117-118, StructuredJ.cpp:
+    43-57): the selection computes C x by blocks, and since the selected
+    normal is nonzero on one s-wide variable block only, d = J^T n+ reads
+    those s rows of J. Returns ``(select_fn, step_fn)`` for
+    :func:`jrlqp_tpu_torch.solver.dense.gi_iteration`."""
+    nb, mc, s = sc.blocks.shape[1:]
+
+    def select_fn(pb, x, status):
+        return dense._select_violated(pb, x, status, cx=sc.transpose_mult(x))
+
+    def step_fn(pb, J, R, q, idx, st):
+        n, m = pb.n, pb.m
+        dt, dev = J.dtype, J.device
+        idx, st = idx.long(), st.long()
+        sign = torch.where((st == UPPER) | (st == UPPER_BOUND), -1.0,
+                           1.0).to(dt)
+        is_bnd = st >= LOWER_BOUND
+        # a general constraint: row idx % mc of block idx // mc
+        gi = idx.clamp(0, m - 1)
+        seg_g = sc.blocks[torch.arange(idx.shape[0], device=dev),
+                          gi // mc, gi % mc]                     # (B, s)
+        # a bound: one-hot at (idx - m) % s of block (idx - m) // s
+        bi = (idx - m).clamp(0, n - 1)
+        seg_b = (torch.arange(s, device=dev)[None, :]
+                 == (bi % s)[:, None]).to(dt)
+        blk = torch.where(is_bnd, bi // s, gi // mc)
+        seg = sign[:, None] * torch.where(is_bnd[:, None], seg_b, seg_g)
+        rows = blk[:, None] * s + torch.arange(s, device=dev)[None, :]
+        Jrows = J.gather(1, rows[:, :, None].expand(-1, -1, n))  # (B, s, n)
+        d = torch.einsum("bsn,bs->bn", Jrows, seg)
+        nplus = torch.zeros((idx.shape[0], n), dtype=dt,
+                            device=dev).scatter(1, rows, seg)
+        k = torch.arange(n, device=dev)[None, :]
+        z = dense._bmv(J, torch.where(k >= q.long()[:, None], d, 0.0))
+        return nplus, d, z, tri_solve_masked(R, d, q)
+
+    return select_fn, step_fn
+
+
+def init_state_structured(sg: StructuredG, pb: QPProblem,
+                          opt: SolverOptions, step_fn=None) -> GIState:
+    """Cold J/R init from the blocked factorization (solver.py:117-177;
+    ref: BlockGISolver::init_ :62-107): J = L^-T and x = -G^-1 a by block
+    solves, posdef from every block's ``cholesky_ex`` ``info``, then the
+    equality/fixed replay of the dense engine."""
+    B, n = pb.a.shape
+    dt, dev = pb.G.dtype, pb.G.device
+    fac = sg.llt()
+    posdef = fac.posdef
+    eye = torch.eye(n, dtype=dt, device=dev)
+    J = torch.where(posdef[:, None, None], fac.inverse_transpose(), eye)
+    x = torch.where(posdef[:, None], -fac.solve(pb.a), 0.0)
+    state = dataclasses.replace(
+        initial_state(B, n, pb.m, dt, dev), x=x, f=0.5 * (pb.a * x).sum(1),
+        J=J, term=torch.where(posdef, RUNNING, NON_POS_HESSIAN).to(
+            torch.int32))
+    return dense._replay_equalities(pb, state, opt.with_(validate=False),
+                                    step_fn)
+
+
+def solve_structured(
+    sg: StructuredG,
+    a: torch.Tensor,
+    sc: Union[StructuredC, torch.Tensor],
+    l: torch.Tensor,
+    u: torch.Tensor,
+    xl: Optional[torch.Tensor] = None,
+    xu: Optional[torch.Tensor] = None,
+    opt: SolverOptions = SolverOptions(),
+) -> GIResult:
+    """Batched structured J/R solve in the batch's dtype (solver.py:180-207;
+    ref: BlockGISolver::solve :17-60): ``sg.diag`` is (B, nb, s, s), ``a``
+    (B, n), ``l``/``u`` (B, m), ``sc`` a StructuredC or a dense (B, m, n) C.
+    With a StructuredC every iteration uses :func:`structured_hooks`."""
+    pb = structured_qp_problem(sg, a, sc, l, u, xl, xu)
+    if isinstance(sc, StructuredC):
+        select_fn, step_fn = structured_hooks(sc)
+    else:
+        select_fn = step_fn = None
+    state = init_state_structured(sg, pb, opt, step_fn)
+    state = dense.run_loop(pb, state, opt, select_fn, step_fn)
+    return dense.finalize(pb, state)
 
 
 def _structured_inverse_kernel_batch(diag, off, gtype):

@@ -1,6 +1,7 @@
-"""The port's kernels (K1-K8) on a CUDA card, held against their plain
-PyTorch versions on the same card, and the launch counts of the structured
-path; also the numpy batch builders that the CPU tests share.
+"""The port's kernels (K1-K9) on a CUDA card, held against their plain
+PyTorch versions on the same card; the launch counts of the structured
+path, the compact-slot path, the trajectory capture and the rescue; the
+default device; and the numpy batch generators that the CPU tests share.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and no jax:
@@ -9,11 +10,20 @@ with a card and no jax:
 
 Without a card every test here skips.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from jrlqp_tpu_torch import SolverOptions, problem_from_numpy
+from jrlqp_tpu_torch import (
+    SolverOptions,
+    capture_kernel_trajectory,
+    no_retrace,
+    problem_from_numpy,
+    solve_refined_kernel_compact,
+    solve_refined_kernel_rescued,
+)
 from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
 from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.structured import (
@@ -191,7 +201,7 @@ def test_solve_on_card_matches_cpu(cuda_device, name):
     opt = SolverOptions(max_iter=max_iter)
     pb = problem_from_numpy(**d, device=cuda_device)
     res = fast.solve_refined_kernel(pb, opt, ir_steps=1)
-    ref = fast.solve_refined_kernel(problem_from_numpy(**d), opt, ir_steps=1)
+    ref = fast.solve_refined_kernel(problem_from_numpy(**d, device="cpu"), opt, ir_steps=1)
     assert torch.equal(res.status.cpu(), ref.status)
     assert torch.equal(res.iterations.cpu(), ref.iterations)
     torch.testing.assert_close(res.x.cpu(), ref.x, rtol=0, atol=1e-7)
@@ -301,3 +311,140 @@ def test_structured_launch_counts_and_cpu_parity(cuda_device, gtype):
     resid = kkt_residual(res_w.x, res_w.multipliers,
                          structured_qp_problem(*step))
     assert float(resid.max()) <= 1e-8
+
+
+def _assert_close_scaled(ours, ref, keys=("x", "u", "H", "Ns"), tol=1e-4):
+    """Integer state equal; float state within tol * max(1, |lane|)."""
+    for k in ("term", "it", "q", "status", "aorder"):
+        assert torch.equal(ours[k], ref[k]), k
+    for k in keys:
+        err = (ours[k] - ref[k]).abs().flatten(1).amax(dim=1)
+        mag = ref[k].abs().flatten(1).amax(dim=1).clamp_min(1.0)
+        assert float((err / mag).max()) <= tol, k
+
+
+def _opt32(max_iter):
+    return SolverOptions(max_iter=max_iter).with_(dtype=torch.float32,
+                                                  zero_z_threshold=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_gi_compact_kernel_matches_plain(cuda_device, name):
+    # K9 from the torch cold init, on the batch kinds of the Pallas tests
+    d, max_iter = make_case(name)
+    pb = _f32_problem(d, cuda_device)
+    state0 = fast._init_fast(pb, _opt32(max_iter))
+    before = gi_kernel.compact_launches
+    ours = gi_kernel.run_loop_compact(pb, state0, max_iter)
+    torch.cuda.synchronize()
+    assert gi_kernel.compact_launches == before + 1
+    _assert_kernel_matches_plain(
+        ours, gi_kernel.gi_compact_plain(pb, state0, max_iter))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(10, 20), (50, 100)])
+def test_gi_compact_kernel_matches_plain_sized(cuda_device, n, m):
+    # the headline width and a small one; then a capped run resumed from
+    # its state, pending candidate (skip1 = 1) included
+    d = np_qp_batch(n + m, 64, n, m, 0.3)
+    pb = _f32_problem(d, cuda_device)
+    state0 = fast._init_fast(pb, _opt32(150))
+    before = gi_kernel.compact_launches
+    ours = gi_kernel.run_loop_compact(pb, state0, 150)
+    torch.cuda.synchronize()
+    assert gi_kernel.compact_launches == before + 1
+    _assert_close_scaled(ours, gi_kernel.gi_compact_plain(pb, state0, 150))
+    for cap in range(2, 100):     # the first cap that leaves a lane pending
+        capped = fast._state_from_kernel_out(
+            gi_kernel.run_loop_compact(pb, state0, cap), pb.batch)
+        if bool((capped.skip1 & (capped.term == 4)).any()):
+            break
+    assert bool((capped.skip1 & (capped.term == 4)).any())
+    capped = dataclasses.replace(capped, term=torch.where(
+        capped.term == 4, -1, capped.term).to(torch.int32))
+    _assert_close_scaled(gi_kernel.run_loop_compact(pb, capped, 150),
+                         gi_kernel.gi_compact_plain(pb, capped, 150))
+
+
+def _launches():
+    return (gi_kernel.launches, gi_kernel.loop_launches,
+            gi_kernel.warm_launches, gi_kernel.compact_launches)
+
+
+def _assert_same_result(res, ref, x_tol=1e-7):
+    assert torch.equal(res.status.cpu(), ref.status)
+    assert torch.equal(res.iterations.cpu(), ref.iterations)
+    assert torch.equal(res.active_set.cpu(), ref.active_set)
+    torch.testing.assert_close(res.x.cpu(), ref.x, rtol=0, atol=x_tol)
+
+
+@pytest.mark.cuda
+def test_compact_path_launches_k9_once(cuda_device):
+    d, max_iter = make_case("eq_fixed")
+    opt = SolverOptions(max_iter=max_iter)
+    before = _launches()
+    res = solve_refined_kernel_compact(
+        problem_from_numpy(**d, device=cuda_device), opt)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(), before)] == [0, 0, 0, 1]
+    _assert_same_result(res, solve_refined_kernel_compact(
+        problem_from_numpy(**d, device="cpu"), opt))
+
+
+@pytest.mark.cuda
+def test_capture_kernel_trajectory_launches_k9_per_cap(cuda_device):
+    d, _ = make_case("n8_m12")
+    one = {k: v[:1] for k, v in d.items()}
+    opt = SolverOptions(max_iter=30)
+    before = gi_kernel.compact_launches
+    traj = capture_kernel_trajectory(
+        problem_from_numpy(**one, device=cuda_device), opt, n_iters=6)
+    torch.cuda.synchronize()
+    assert gi_kernel.compact_launches == before + 6
+    ref = capture_kernel_trajectory(problem_from_numpy(**one, device="cpu"),
+                                    opt, n_iters=6)
+    for k in ("q", "it", "term"):
+        assert torch.equal(traj[k].cpu(), ref[k]), k
+    torch.testing.assert_close(traj["x"].cpu(), ref["x"], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rescued_batch_on_card(cuda_device):
+    # act_frac 0.95: the f32 first stage (K3) fails some lanes, the f64 J/R
+    # engine on the card solves them again
+    d = np_qp_batch(2, 24, 12, 24, 0.95)
+    opt = SolverOptions(max_iter=120)
+    pb = problem_from_numpy(**d, device=cuda_device)
+    before = _launches()
+    res = solve_refined_kernel_rescued(pb, opt)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(), before)] == [0, 1, 0, 0]
+    assert bool((res.status == 0).all())
+    assert float(kkt_residual(res.x, res.multipliers, pb).max()) <= 1e-8
+    _assert_same_result(res, solve_refined_kernel_rescued(
+        problem_from_numpy(**d, device="cpu"), opt), x_tol=1e-8)
+
+
+@pytest.mark.cuda
+def test_default_device_is_the_card(cuda_device):
+    d, _ = make_case("n8_m12")
+    assert problem_from_numpy(**d).G.device == torch.device("cuda", 0)
+    k = ik_batch(2, nb=2, s=3, mc=1, seed=0)
+    sg, sc = structured_from_numpy(diag=k["diag"], off=k["off"],
+                                   gtype=GType.TRI_BLOCK_DIAGONAL,
+                                   blocks=k["blocks"])
+    assert sg.diag.device == sc.blocks.device == torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_no_retrace_across_shapes_on_card(cuda_device):
+    opt = SolverOptions(max_iter=60)
+    solve_refined_kernel_compact(problem_from_numpy(
+        **make_case("n8_m12")[0], device=cuda_device), opt)
+    with no_retrace():
+        for name in ("n8_m12", "n13_m7", "eq_fixed"):
+            pb = problem_from_numpy(**make_case(name)[0], device=cuda_device)
+            fast.solve_refined_kernel(pb, opt)
+            solve_refined_kernel_compact(pb, opt)

@@ -61,7 +61,7 @@ def test_gi_warm_plain_matches_pallas_interpret(name, scale):
     ref = run_warm_loop_pallas(jax_problem(d2), *carry, max_iter,
                                interpret=True, pack=4)
     ref = {k: np.asarray(v) for k, v in ref.items()}
-    pb2 = problem_from_numpy(**d2)
+    pb2 = problem_from_numpy(**d2, device="cpu")
     tcarry = [torch.from_numpy(np.array(v)) for v in carry]
     ours = gi_kernel.gi_warm_plain(pb2, *tcarry, max_iter)
     ours = {k: v.numpy() for k, v in ours.items()}
@@ -100,7 +100,7 @@ def test_carry_trajectory_matches_pallas_interpret():
     jopt, opt = JOptions(max_iter=max_iter), SolverOptions(max_iter=max_iter)
     ref, jcarry = solve_refined_pallas_carry(jax_problem(d), None, jopt,
                                              interpret=True, pack=4)
-    res, carry = solve_refined_kernel_carry(problem_from_numpy(**d), None,
+    res, carry = solve_refined_kernel_carry(problem_from_numpy(**d, device="cpu"), None,
                                             opt)
     _assert_same_result(result_to_numpy(res), ref)
     warm_its = []
@@ -109,7 +109,7 @@ def test_carry_trajectory_matches_pallas_interpret():
         ref, jcarry = solve_refined_pallas_carry(jax_problem(ds), jcarry,
                                                  jopt, interpret=True,
                                                  pack=4)
-        pb = problem_from_numpy(**ds)
+        pb = problem_from_numpy(**ds, device="cpu")
         res, carry = solve_refined_kernel_carry(pb, carry, opt)
         _assert_same_result(result_to_numpy(res), ref)
         assert bool((res.status == 0).all())
@@ -126,7 +126,7 @@ def test_carry_cold_step_validates():
     d, max_iter = make_case("n8_m12")
     d["l"][1, 4] = d["u"][1, 4] + 1.0          # lane 1: l > u
     res, _ = solve_refined_kernel_carry(
-        problem_from_numpy(**d), None,
+        problem_from_numpy(**d, device="cpu"), None,
         SolverOptions(max_iter=max_iter, validate=True))
     st = res.status.numpy()
     assert st[1] == int(TerminationStatus.INCONSISTENT_INPUT)
@@ -135,8 +135,8 @@ def test_carry_cold_step_validates():
 
 def test_loops_on_cpu_are_the_plain_versions():
     d, max_iter = make_case("eq_lane_mix")
-    pb = problem_from_numpy(**_f32(d))
-    cold, carry = solve_refined_kernel_carry(problem_from_numpy(**d), None,
+    pb = problem_from_numpy(**_f32(d), device="cpu")
+    cold, carry = solve_refined_kernel_carry(problem_from_numpy(**d, device="cpu"), None,
                                              SolverOptions(max_iter=max_iter))
     hints = cold.active_set.clone()
     hints[:, ::2] = 0
@@ -145,7 +145,7 @@ def test_loops_on_cpu_are_the_plain_versions():
     state0 = fast._init_fast_warm(pb, hints, opt32)
     pairs = [(gi_kernel.run_loop(pb, state0, max_iter),
               gi_kernel.gi_loop_plain(pb, state0, max_iter))]
-    pb2 = problem_from_numpy(**_f32(drifted(d, 0.02, 1)))
+    pb2 = problem_from_numpy(**_f32(drifted(d, 0.02, 1)), device="cpu")
     co = (carry.H, carry.Ns, carry.status, carry.aorder, carry.q)
     pairs.append((gi_kernel.run_warm_loop(pb2, *co, max_iter),
                   gi_kernel.gi_warm_plain(pb2, *co, max_iter)))

@@ -31,7 +31,7 @@ def test_plain_matches_pallas_interpret(name):
     ref = run_loop_pallas(jax_problem(d32), None, max_iter, interpret=True,
                           pack=4, fused_init=True)
     ref = {k: np.asarray(v) for k, v in ref.items()}
-    ours = gi_kernel.run_loop_fused(problem_from_numpy(**d32), max_iter)
+    ours = gi_kernel.run_loop_fused(problem_from_numpy(**d32, device="cpu"), max_iter)
     ours = {k: v.numpy() for k, v in ours.items()}
     for k in ("term", "it", "q", "status", "aorder", "skip1", "sc_idx",
               "sc_status"):
@@ -49,7 +49,8 @@ def test_plain_matches_pallas_interpret(name):
 
 def test_run_loop_fused_on_cpu_is_the_plain_version():
     d, max_iter = make_case("n8_m12")
-    pb = problem_from_numpy(**{k: v.astype(np.float32) for k, v in d.items()})
+    pb = problem_from_numpy(**{k: v.astype(np.float32) for k, v in d.items()},
+                            device="cpu")
     a = gi_kernel.run_loop_fused(pb, max_iter)
     b = gi_kernel.gi_fused_plain(pb, max_iter)
     assert a.keys() == b.keys()
@@ -66,7 +67,7 @@ def test_overconstrained_by_equalities():
     d32 = {k: v.astype(np.float32) for k, v in d.items()}
     ref = run_loop_pallas(jax_problem(d32), None, 30, interpret=True, pack=4,
                           fused_init=True)
-    ours = gi_kernel.gi_fused_plain(problem_from_numpy(**d32), 30)
+    ours = gi_kernel.gi_fused_plain(problem_from_numpy(**d32, device="cpu"), 30)
     np.testing.assert_array_equal(ours["term"].numpy(),
                                   np.asarray(ref["term"]))
     assert set(ours["term"].tolist()) <= {5, 6}

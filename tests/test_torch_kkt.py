@@ -49,7 +49,7 @@ def test_kkt_residual_matches_jax(seed, B, n, m, bounded):
     arrs, x, mult = _case(seed, B, n, m, bounded)
     ref = np.asarray(jax.vmap(jkkt.kkt_residual)(
         jnp.asarray(x), jnp.asarray(mult), _jax_problem(arrs)))
-    pb = problem_from_numpy(**arrs)
+    pb = problem_from_numpy(**arrs, device="cpu")
     ours = tkkt.kkt_residual(torch.from_numpy(x), torch.from_numpy(mult),
                              pb).numpy()
     assert ours.dtype == np.float64
@@ -68,5 +68,5 @@ def test_check_kkt_matches_jax(fn):
     ref = np.asarray(jax.vmap(getattr(jkkt, fn))(
         jnp.asarray(x), jnp.asarray(mult), _jax_problem(arrs)))
     ours = getattr(tkkt, fn)(torch.from_numpy(x), torch.from_numpy(mult),
-                             problem_from_numpy(**arrs)).numpy()
+                             problem_from_numpy(**arrs, device="cpu")).numpy()
     np.testing.assert_array_equal(ours, ref)

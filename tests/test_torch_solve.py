@@ -28,7 +28,7 @@ def _solve_both(d, max_iter, validate=False):
     ref = solve_refined_pallas(
         jax_problem(d), JOptions(max_iter=max_iter, validate=validate),
         ir_steps=1, interpret=True, pack=4, fused_init=True)
-    pb = problem_from_numpy(**d)
+    pb = problem_from_numpy(**d, device="cpu")
     res = solve_refined_kernel(
         pb, SolverOptions(max_iter=max_iter, validate=validate), ir_steps=1)
     return ref, res, pb
@@ -67,7 +67,7 @@ def test_validate_flags_inverted_bounds():
 
 def test_fixed_variable_is_honored():
     d, max_iter = make_case("eq_fixed")
-    res = solve_refined_kernel(problem_from_numpy(**d),
+    res = solve_refined_kernel(problem_from_numpy(**d, device="cpu"),
                                SolverOptions(max_iter=max_iter))
     np.testing.assert_allclose(res.x[:, 2].numpy(), 0.41, atol=1e-6)
 
@@ -94,7 +94,7 @@ def test_default_ir_steps_match_pallas():
     d, max_iter = make_case("n8_m12")
     ref = solve_refined_pallas(jax_problem(d), JOptions(max_iter=max_iter),
                                interpret=True, pack=4, fused_init=True)
-    pb = problem_from_numpy(**d)
+    pb = problem_from_numpy(**d, device="cpu")
     res = solve_refined_kernel(pb, SolverOptions(max_iter=max_iter))
     ours = result_to_numpy(res)
     np.testing.assert_array_equal(ours["status"], np.asarray(ref.status))

@@ -43,7 +43,7 @@ def _jax_args(d, gtype):
 
 def _args(d, gtype):
     sg, sc = structured_from_numpy(diag=d["diag"], off=d["off"], gtype=gtype,
-                                   blocks=d["blocks"])
+                                   blocks=d["blocks"], device="cpu")
     return sg, torch.from_numpy(d["a"]), sc, torch.from_numpy(d["l"]), \
         torch.from_numpy(d["u"])
 

@@ -220,7 +220,7 @@ def test_containers_round_trip_and_match_jax():
     d = ik_batch(2, nb=3, s=4, mc=2, seed=9)
     sg, sc = structured_from_numpy(diag=d["diag"], off=d["off"],
                                    gtype=GType.BLOCK_ARROW_UP,
-                                   blocks=d["blocks"])
+                                   blocks=d["blocks"], device="cpu")
     for t, k in ((sg.diag, "diag"), (sg.off, "off"), (sc.blocks, "blocks")):
         assert t.numpy().dtype == d[k].dtype
         assert t.numpy().tobytes() == d[k].tobytes(), k

@@ -62,7 +62,7 @@ def test_solve_refined_matches_jax_vmap(name):
     d, max_iter = _batch(name)
     ref = jax.vmap(lambda p: jfast.solve_refined(
         p, JOptions(max_iter=max_iter)))(jax_problem(d))
-    pb = problem_from_numpy(**d)
+    pb = problem_from_numpy(**d, device="cpu")
     res = fast.solve_refined(pb, SolverOptions(max_iter=max_iter))
     np.testing.assert_array_equal(res.status.numpy(), np.asarray(ref.status))
     np.testing.assert_array_equal(res.iterations.numpy(),
@@ -88,7 +88,7 @@ def test_loop_caps_at_max_iter_as_jax():
     d, _ = _batch("n10_m20")
     ref = jax.vmap(lambda p: jfast.solve_refined(p, JOptions(max_iter=3)))(
         jax_problem(d))
-    res = fast.solve_refined(problem_from_numpy(**d),
+    res = fast.solve_refined(problem_from_numpy(**d, device="cpu"),
                              SolverOptions(max_iter=3))
     np.testing.assert_array_equal(res.status.numpy(), np.asarray(ref.status))
     np.testing.assert_array_equal(res.iterations.numpy(),
@@ -111,7 +111,7 @@ def test_select_violated_ties_go_to_the_lowest_index():
     d["xu"][2, 0] = -0.5                 # bound 0 (upper): general first
     x = np.zeros((B, n))
     status = np.zeros((B, m + n), np.int32)
-    pb = problem_from_numpy(**d)
+    pb = problem_from_numpy(**d, device="cpu")
     idx, st, viol = fast._select_violated(pb, torch.from_numpy(x),
                                           torch.from_numpy(status))
     assert idx.tolist() == [1, m + 2, 2]
@@ -136,7 +136,7 @@ def test_refine_batch_on_a_compact_state():
     # so the hole-aware refinement equals the JAX package's refinement of
     # the same state, and the per-problem one that reads k < q
     d, max_iter = _batch("eq_bounds")
-    pb = problem_from_numpy(**d)
+    pb = problem_from_numpy(**d, device="cpu")
     pb32 = pb.with_dtype(torch.float32)
     opt32 = SolverOptions(max_iter=max_iter).with_(dtype=torch.float32,
                                                    zero_z_threshold=1e-6)
@@ -171,13 +171,13 @@ HOLES = {"holes_n8": (0, 16, 8, 16, 0.9), "holes_n10": (2, 16, 10, 20, 0.5)}
 def test_init_fast_from_carry_matches_jax(name, scale):
     seed, B, n, m, act_frac = HOLES[name]
     d = np_qp_batch(seed, B, n, m, act_frac)
-    _, carry = solve_refined_kernel_carry(problem_from_numpy(**d), None,
+    _, carry = solve_refined_kernel_carry(problem_from_numpy(**d, device="cpu"), None,
                                           SolverOptions(max_iter=100))
     ao = carry.aorder.numpy()
     assert ((ao[:, :-1] < 0) & (ao[:, 1:] >= 0)).any()
     co = [getattr(carry, k) for k in ("H", "Ns", "status", "aorder", "q")]
     d2 = {k: v.astype(np.float32) for k, v in drifted(d, scale, 3).items()}
-    st = fast._init_fast_from_carry(problem_from_numpy(**d2), *co)
+    st = fast._init_fast_from_carry(problem_from_numpy(**d2, device="cpu"), *co)
     ref = jax.vmap(jfast._init_fast_from_carry)(
         jax_problem(d2), *[jnp.asarray(c.numpy()) for c in co])
     ref = _state_np(ref)

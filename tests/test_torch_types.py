@@ -47,7 +47,7 @@ def test_numpy_round_trip_is_bitwise(dtype):
     arrs["u"][1, 2] = np.inf
     arrs["xl"][0, 1] = -0.5
     arrs = {k: v.astype(dtype) for k, v in arrs.items()}
-    pb = problem_from_numpy(**arrs)
+    pb = problem_from_numpy(**arrs, device="cpu")
     assert pb.batch == B and pb.n == n and pb.m == m
     back = result_to_numpy(pb)
     for k, v in arrs.items():
@@ -68,7 +68,9 @@ def test_no_jax_import_in_port_sources():
 def test_importing_port_loads_no_jax():
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import jrlqp_tpu_torch.solver.fast, jrlqp_tpu_torch.testing.kkt, "
-            "jrlqp_tpu_torch.testing.batch_gen; "
+            "jrlqp_tpu_torch.testing.batch_gen, jrlqp_tpu_torch.utils, "
+            "jrlqp_tpu_torch.solver.dense, jrlqp_tpu_torch.solver.warm_start, "
+            "jrlqp_tpu_torch.structured, jrlqp_tpu_torch.ops.linalg; "
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jrlqp_tpu')))")
     out = subprocess.run([sys.executable, "-c", code, str(PKG.parent)],
@@ -95,3 +97,25 @@ def test_wrappers_check_dtype():
         block_llt.chol_inv_b(torch.eye(4, dtype=torch.float64)[None])
     with pytest.raises(ValueError):
         block_llt.chol_inv_b(torch.zeros((2, 3, 4)))
+
+
+def test_default_device_is_the_card():
+    # without a device argument a problem goes to the card: here, with no
+    # card, that raises instead of landing on the CPU (tests/
+    # test_torch_card.py checks cuda:0 on a machine with one)
+    from jrlqp_tpu_torch.structured import GType, structured_from_numpy
+
+    arrs = dict(G=np.eye(2)[None], a=np.zeros((1, 2)), C=np.ones((1, 1, 2)),
+                l=np.zeros((1, 1)), u=np.ones((1, 1)), xl=np.zeros((1, 2)),
+                xu=np.ones((1, 2)))
+    blocks = dict(diag=np.eye(2)[None, None], off=np.zeros((1, 0, 2, 2)),
+                  gtype=GType.TRI_BLOCK_DIAGONAL, blocks=np.ones((1, 1, 1, 2)))
+    if torch.cuda.is_available():
+        assert problem_from_numpy(**arrs).G.device.type == "cuda"
+        assert structured_from_numpy(**blocks)[0].diag.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        problem_from_numpy(**arrs)
+    with pytest.raises((AssertionError, RuntimeError)):
+        structured_from_numpy(**blocks)
+    assert problem_from_numpy(**arrs, device="cpu").G.device.type == "cpu"

@@ -54,7 +54,7 @@ def _f32(d):
 def _cold_hints(d, max_iter):
     """The active set of a cold solve of batch ``d`` (the port's, which
     equals the JAX package's: tests/test_torch_solve.py)."""
-    res = solve_refined_kernel(problem_from_numpy(**d),
+    res = solve_refined_kernel(problem_from_numpy(**d, device="cpu"),
                                SolverOptions(max_iter=max_iter))
     return res.active_set.numpy()
 
@@ -138,7 +138,7 @@ def test_process_initial_active_set_matches_jax(name, kind, warm_start):
     ref = jax.vmap(lambda p, h: j_process_initial_active_set(p, h, jopt))(
         jax_problem(d), hints)
     ours = _process_initial_active_set(
-        problem_from_numpy(**d), torch.from_numpy(hints),
+        problem_from_numpy(**d, device="cpu"), torch.from_numpy(hints),
         SolverOptions(max_iter=max_iter, warm_start=warm_start))
     for a, b, what in zip(ours, ref, ("status", "aorder", "q", "over")):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=what)
@@ -159,7 +159,7 @@ def test_init_fast_warm_matches_jax(name, kind):
     d32 = _f32(d)
     jopt, opt = _opt32(max_iter)
     ref = _jax_init(d32, hints, jopt)
-    ours = fast._init_fast_warm(problem_from_numpy(**d32),
+    ours = fast._init_fast_warm(problem_from_numpy(**d32, device="cpu"),
                                 torch.from_numpy(hints), opt)
     for k in STATE_INT:
         np.testing.assert_array_equal(getattr(ours, k).numpy(), ref[k],
@@ -188,7 +188,7 @@ def test_gi_loop_plain_matches_pallas_interpret(name, kind):
     ref = run_loop_pallas(jax_problem(d32), _jax_state(state0), max_iter,
                           interpret=True, pack=4, presort=False)
     ref = {k: np.asarray(v) for k, v in ref.items()}
-    ours = gi_kernel.gi_loop_plain(problem_from_numpy(**d32),
+    ours = gi_kernel.gi_loop_plain(problem_from_numpy(**d32, device="cpu"),
                                    _torch_state(state0), max_iter)
     ours = {k: v.numpy() for k, v in ours.items()}
     assert ours.keys() == ref.keys()
@@ -208,7 +208,7 @@ def test_solve_refined_warm_matches_pallas_interpret(name, kind):
     jopt = JOptions(max_iter=max_iter, warm_start=True)
     ref = solve_refined_warm_pallas(jax_problem(d), hints, jopt,
                                     interpret=True, pack=4)
-    pb = problem_from_numpy(**d)
+    pb = problem_from_numpy(**d, device="cpu")
     res = solve_refined_warm_kernel(
         pb, torch.from_numpy(hints),
         SolverOptions(max_iter=max_iter, warm_start=True))
@@ -235,7 +235,7 @@ def test_gi_loop_resumes_capped_run(name):
     K1 run, also on lanes capped right after a removal (skip1 = 1), whose
     pending candidate's normal K3 rebuilds from (sc_idx, sc_status)."""
     d, max_iter = make_case(name)
-    pb = problem_from_numpy(**_f32(d))
+    pb = problem_from_numpy(**_f32(d), device="cpu")
     full = gi_kernel.gi_fused_plain(pb, max_iter)
     pending = 0
     for cap in range(1, int(full["it"].max()) + 1):
