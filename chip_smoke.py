@@ -59,7 +59,12 @@ this run's iteration and active counts, with triangular factors counted as
 triangles, by ``_gi_flops``, ``_gi_bytes`` and the phase 4 and 8 blocks.
 ``library_ms`` is the time of one PyTorch call that computes the same
 function where there is one (``torch.cholesky_solve`` with the dense factor
-beside K6 and K8), else null.
+beside K6 and K8), else null. The four GI kernels' lines also carry their
+threads per block and resident blocks per SM, and the run prints their
+µs per GI iteration per resident block (ms x SMs x blocks per SM / the
+iterations of the timed launch; for K3 and K4, whose launches run about
+two iterations, the figure is mostly their state load and closed form, and
+is printed as such).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is nonzero. The last
@@ -317,6 +322,21 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def residency(entry, ms, iters, prologue=""):
+        """Threads per block and blocks per SM of a GI kernel at (N, M),
+        printed with its µs per GI iteration per resident block; K3's and
+        K4's few iterations leave their entry (``prologue``) in that
+        figure, so it is labelled with it."""
+        threads, blocks = gi_kernel.residency(entry, N, M)
+        us = 1e3 * ms * sms * blocks / max(iters, 1)
+        incl = f", {prologue} included" if prologue else ""
+        print(f"{entry}: {threads} threads per block, {blocks} blocks per "
+              f"SM ({sms} SMs), {us!r} µs per GI iteration per resident "
+              f"block{incl} ({card})")
+        return {"threads": threads, "blocks_per_sm": blocks}
+
     print(f"shared memory per block (gi_fused, gi_loop, gi_warm and "
           f"gi_compact share one "
           f"layout): {lib.jrlqp_gi_smem_bytes(np_, gi_kernel._round_up(M, 8))}"
@@ -418,6 +438,7 @@ def main() -> int:
     k2_bound = _bound(BATCH * 2 / 3 * N ** 3,
                       4 * BATCH * 3 * N * (N + 1) // 2)
     print(f"bounds ({card}): K1 {k1_bound} ({it1} iterations), K2 {k2_bound}")
+    res_k1 = residency("jrlqp_gi_fused", k1_ms, it1)
     del inputs, G_main, outs1
 
     # ---- phase 5: K3 (loop from a given state) vs plain ----
@@ -577,6 +598,9 @@ def main() -> int:
                       _gi_bytes(BATCH, N, M, 2 * N * N + 5 * N + M + 1))
     print(f"bounds ({card}): K3 {k3_bound} ({it3} iterations), K4 "
           f"{k4_bound} ({it4} iterations)")
+    res_k3 = residency("jrlqp_gi_loop", k3_ms, it3, "the state load")
+    res_k4 = residency("jrlqp_gi_warm", k4_ms, it4,
+                       "the state load and closed form")
     del outs3, outs4
 
     del pbs, base7, steps, warm, carry, carry_in, co, state0, ins3, ins4
@@ -934,6 +958,7 @@ def main() -> int:
                       _gi_bytes(BATCH, N, M, 2 * N * N + 5 * N + M + 9))
     print(f"device ms at batch {BATCH} ({card}): K9 {k9_ms!r} (plain "
           f"{k9_plain_ms!r}); bound {k9_bound} ({it9} iterations)")
+    res_k9 = residency("jrlqp_gi_compact", k9_ms, it9)
     del ins9, outs9, pb12_32
 
     # ---- phase 13: the rescue at the headline batch ----
@@ -1129,7 +1154,7 @@ def main() -> int:
          "replaces": f"{pallas}:674",
          "launches": main_counts["gi_fused"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None, **res_k1},
         {"name": "chol_inv_b", "route": "cuda",
          "source": "jrlqp_tpu_torch/csrc/block_llt.cuh",
          "replaces": "jrlqp_tpu/ops/pallas/block_llt.py:89",
@@ -1141,17 +1166,17 @@ def main() -> int:
          "replaces": f"{pallas}:628",
          "launches": hint_counts["gi_loop"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": None},
+         "bound_by": k3_bound[1], "library_ms": None, **res_k3},
         {"name": "gi_warm", "route": "cuda", "source": src,
          "replaces": f"{pallas}:836",
          "launches": traj_counts["gi_warm"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
-         "bound_by": k4_bound[1], "library_ms": None},
+         "bound_by": k4_bound[1], "library_ms": None, **res_k4},
         {"name": "gi_compact", "route": "cuda", "source": src,
          "replaces": f"{pallas}:104",
          "launches": compact_counts["gi_compact"], "max_abs_err": k9_err,
          "ms": k9_ms, "plain_ms": k9_plain_ms, "bound_ms": k9_bound[0],
-         "bound_by": k9_bound[1], "library_ms": None},
+         "bound_by": k9_bound[1], "library_ms": None, **res_k9},
     ]
     struct_src = "jrlqp_tpu_torch/csrc/struct_llt.cu"
     struct_pallas = "jrlqp_tpu/ops/pallas/block_llt.py"

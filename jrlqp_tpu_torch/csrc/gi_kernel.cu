@@ -31,13 +31,9 @@
 //      removal deletes slot l and shifts N* columns np+l+1..np+q-1, aorder,
 //      statk and u one slot down (u up to the candidate's slot q), where
 //      the hole layout zeroes slot l's column and moves the candidate's
-//      multiplier into it. The w mask is "slot < q and slot != l". The
-//      shifts overlap source and destination, so each thread moves whole
-//      rows of K in order, and the vectors are read into registers, a
-//      barrier passes, then they are written. A pending candidate's normal
-//      is rebuilt at entry as in K3; the Pallas kernel starts it at zero
-//      (:336-339). Like K3 it is latency-bound: its bound is K3's
-//      per-iteration work, about 1% of its time.
+//      multiplier into it. The w mask is "slot < q and slot != l". A
+//      pending candidate's normal is rebuilt at entry as in K3; the Pallas
+//      kernel starts it at zero (:336-339).
 //   The loop: most-violated selection (skipped after a removal),
 //   [z | r] = n+ K with K = [H | N*^T], step lengths, one rank-one update
 //   of K per iteration (add or remove), hole-based active slots.
@@ -47,28 +43,57 @@
 // of the real ones (constraints first, then bounds) and every
 // lowest-index tie break are those of the reference.
 //
-// What bounds them here: each problem is a latency-bound chain of
-// dependent iterations (~60-100 cold at n = 50, m = 100; a few warm), each
-// doing ~n * 2n FMAs between block-wide barriers; the device's FLOP rate
-// and bandwidth are far from the limit. The design keeps the whole state
-// (G, C^T, K and the row vectors, ~66 KB at the headline) in shared memory
-// for the entire solve, so nothing leaves the SM between iterations;
-// spreads each matvec and the rank-one update over 128 threads (one column
-// or element per thread); does every reduction (argmin with lowest-index
-// ties, the four dot products) as one warp-shuffle pass plus one barrier;
-// and keeps the per-problem scalars in registers, computed identically by
-// every thread, so branches are uniform and need no broadcast. A problem
-// stops on its own when its term leaves RUNNING, which gives each lane the
-// result a frozen lane of the TPU's packs gets. Several problems share an
-// SM (3 blocks at the headline), which hides part of the barrier latency.
+// What bounds them here: each problem is a chain of ~60-100 dependent
+// iterations (cold, n = 50, m = 100; a few warm) of ~2mn + 4n^2 + 4nq
+// FLOPs between block-wide barriers, about 1% of the card's f32 rate; the
+// bytes (the problem in, K out) are under 1% of the time. What is left is
+// the instructions the loop issues around the arithmetic, the length of
+// its serial chains, and how many warps each SM has to hide them. The
+// state (C^T, K and the row vectors) stays in shared memory for the
+// entire solve; G, read only by removals and K4's closed form, is read
+// from device memory (it stays in L2), which leaves room for a fourth
+// block per SM. The design cuts each of the three:
+// - the rank-one update of K (add, removal, equality replay) walks K with
+//   a fixed 2-D map, warps over rows and lanes over float4 column groups,
+//   with no index division; each lane divides its four columns of the
+//   update's row by the pivot once per update, so the per-element work is
+//   a rounded multiply and subtract (no FMA contraction, as the plain
+//   version rounds);
+// - every dot product (C x, n+ K, G n_l*, N*^T v) is one thread's chain in
+//   k order, one output per thread, the order of the plain version's
+//   matrix products; the directions of a candidate selected in the same
+//   iteration read its normal from C directly, so no barrier waits for
+//   n+ to be written. Dot products split over warps were slower on the
+//   H100, and their other rounding flipped a near-tie that the plain
+//   version's order does not (PERF.md, section 6);
+// - the reductions carry only what they reduce (an argmin with ties to
+//   the lowest index, an integer min, up to four sums), each one shuffle
+//   pass and one barrier;
+// - K9's compaction shifts each row of N* in warp-wide chunks, left to
+//   right, with no block barrier; the slot vectors are read into
+//   registers, a barrier passes, then they are written;
+// - K1's prologue factors G in K's left half and inverts the factor into
+//   the right half while C^T, the bounds and a arrive by cp.async.
+// The launch configuration is 128 threads per block with __launch_bounds__
+// asking for 4 resident blocks per SM, and G read from device memory: on
+// an H100 at n = 50, m = 100 it was faster than 256 threads, 3 blocks, or
+// G in shared memory (PERF.md, section 6). The per-problem scalars stay in
+// registers, computed alike by every thread, so branches are uniform and
+// need no broadcast. A
+// problem stops on its own when its term leaves RUNNING, which gives each
+// lane the result a frozen lane of the TPU's packs gets.
 #include <cuda_runtime.h>
 
 #include "block_llt.cuh"
 
 namespace {
 
+// 4 blocks of 128 threads fill the SM's registers at 128 per thread; the
+// layout without G leaves room for them in shared memory.
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;
 constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float BIG = 1e30f;
 constexpr int kNone = 0x7fffffff;
 
@@ -79,60 +104,78 @@ constexpr int RUNNING = -1, SUCCESS = 0, NON_POS_HESSIAN = 2, INFEASIBLE = 3,
               MAX_ITER_REACHED = 4, LINEAR_DEPENDENCY_DETECTED = 5,
               OVERCONSTRAINED_PROBLEM = 6;
 
-// One block-wide reduction: (min, argmin) with ties to the lowest index,
-// a min over a second index, and four sums.
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+__device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
+
+// A block-wide reduction's operands and result: (min v, argmin i) with ties
+// to the lowest i, a min over j, and sums s. Each reduction names the
+// fields it carries; the others are neither shuffled nor posted.
 struct Red {
   float v;
-  int i, i2;
-  float s0, s1, s2, s3;
+  int i, j;
+  float s[4];
 };
 
 __device__ __forceinline__ Red red_identity() {
   Red r;
   r.v = __int_as_float(0x7f800000);  // +inf
   r.i = kNone;
-  r.i2 = kNone;
-  r.s0 = r.s1 = r.s2 = r.s3 = 0.0f;
+  r.j = kNone;
+  r.s[0] = r.s[1] = r.s[2] = r.s[3] = 0.0f;
   return r;
 }
 
-__device__ __forceinline__ void red_min(Red& a, float v, int i) {
-  if (v < a.v || (v == a.v && i < a.i)) {
-    a.v = v;
-    a.i = i;
+__device__ __forceinline__ void argmin_in(float& v, int& i, float v2,
+                                          int i2) {
+  if (v2 < v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
   }
 }
 
-__device__ __forceinline__ void red_combine(Red& a, const Red& b) {
-  red_min(a, b.v, b.i);
-  a.i2 = min(a.i2, b.i2);
-  a.s0 += b.s0;
-  a.s1 += b.s1;
-  a.s2 += b.s2;
-  a.s3 += b.s3;
-}
-
-// Every thread returns the same value. `scratch` holds 2 * kWarps entries
-// used alternately, so back-to-back reductions need one barrier each.
-__device__ __forceinline__ Red block_reduce(Red r, Red* scratch, int& parity) {
-  const unsigned full = 0xffffffffu;
+// kArg: the argmin over (v, i); kMin: the min over j; kSums: sums s[0..).
+// Every thread returns the same value. Each warp reduces with shuffles and
+// its lane 0 posts to `scratch`, which holds 2 * kWarps slots used
+// alternately, so back-to-back reductions need one barrier each; then
+// every thread combines the slots in warp order.
+template <bool kArg, bool kMin, int kSums>
+__device__ __forceinline__ Red block_reduce(Red r, Red* scratch,
+                                            int& parity) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    Red b;
-    b.v = __shfl_xor_sync(full, r.v, o);
-    b.i = __shfl_xor_sync(full, r.i, o);
-    b.i2 = __shfl_xor_sync(full, r.i2, o);
-    b.s0 = __shfl_xor_sync(full, r.s0, o);
-    b.s1 = __shfl_xor_sync(full, r.s1, o);
-    b.s2 = __shfl_xor_sync(full, r.s2, o);
-    b.s3 = __shfl_xor_sync(full, r.s3, o);
-    red_combine(r, b);
+    if constexpr (kArg) {
+      const float v2 = __shfl_xor_sync(kFull, r.v, o);
+      const int i2 = __shfl_xor_sync(kFull, r.i, o);
+      argmin_in(r.v, r.i, v2, i2);
+    }
+#pragma unroll
+    for (int q = 0; q < kSums; ++q)
+      r.s[q] += __shfl_xor_sync(kFull, r.s[q], o);
   }
+  if constexpr (kMin) r.j = __reduce_min_sync(kFull, r.j);
   Red* buf = scratch + parity * kWarps;
   parity ^= 1;
-  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = r;
+  if (lane_id() == 0) {
+    Red& p = buf[warp_id()];
+    if constexpr (kArg) {
+      p.v = r.v;
+      p.i = r.i;
+    }
+    if constexpr (kMin) p.j = r.j;
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) p.s[q] = r.s[q];
+  }
   __syncthreads();
-  Red out = buf[0];
-  for (int w = 1; w < kWarps; ++w) red_combine(out, buf[w]);
+  Red out = red_identity();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const Red& p = buf[w];
+    if constexpr (kArg) argmin_in(out.v, out.i, p.v, p.i);
+    if constexpr (kMin) out.j = min(out.j, p.j);
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) out.s[q] = w == 0 ? p.s[q]
+                                                      : out.s[q] + p.s[q];
+  }
   return out;
 }
 
@@ -146,18 +189,40 @@ __device__ __forceinline__ float sub_mul(float a, float b, float c) {
   return __fsub_rn(a, __fmul_rn(b, c));
 }
 
+// cp.async of nwords floats (a multiple of 4; both ends 16-byte aligned)
+// by the whole block, 16 bytes a thread at a time. The caller commits,
+// waits and passes a barrier before reading.
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int nwords) {
+  for (int e = 4 * threadIdx.x; e < nwords; e += 4 * kThreads) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + e);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src + e)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 struct Smem {
   Red* red;
-  float *G, *C, *K, *x, *u, *npl, *nl, *v, *w, *xlo, *xup, *zr, *lo, *up,
-      *a, *bact;
-  int *statk, *aorder, *status, *sts;
+  const float* G;  // the problem's G in device memory (row stride np)
+  float *C, *K, *x, *u, *npl, *nl, *v, *w, *xlo, *xup, *zr, *lo,
+      *up, *a, *bact;
+  int *statk, *aorder, *status;
 };
 
-// One layout for the three kernels; `a` and `bact` are K4's alone.
+// One layout for the four kernels; `a` and `bact` are K1's and K4's alone.
+// S.G is not in it: each kernel points it at its problem's G.
 __host__ __device__ inline size_t smem_layout(int np, int mp, char* base,
                                               Smem* s) {
   const int np2 = 2 * np, mtp = mp + np;
-  const size_t cwords = (size_t)np * (mp > np ? mp : np);
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base + off;
@@ -165,8 +230,7 @@ __host__ __device__ inline size_t smem_layout(int np, int mp, char* base,
     return p;
   };
   Red* red = (Red*)take(2 * kWarps * sizeof(Red));
-  float* G = (float*)take((size_t)np * (np + 1) * 4);
-  float* C = (float*)take(cwords * 4);
+  float* C = (float*)take((size_t)np * mp * 4);
   float* K = (float*)take((size_t)np * np2 * 4);
   float* x = (float*)take(np * 4);
   float* u = (float*)take(np * 4);
@@ -184,9 +248,8 @@ __host__ __device__ inline size_t smem_layout(int np, int mp, char* base,
   int* statk = (int*)take(np * 4);
   int* aorder = (int*)take(np * 4);
   int* status = (int*)take(mtp * 4);
-  int* sts = (int*)take(mtp * 4);
-  if (s) *s = Smem{red, G, C, K, x, u, npl, nl, v, w, xlo, xup, zr, lo, up,
-                   a, bact, statk, aorder, status, sts};
+  if (s) *s = Smem{red, nullptr, C, K, x, u, npl, nl, v, w, xlo, xup, zr,
+                   lo, up, a, bact, statk, aorder, status};
   return off;
 }
 
@@ -195,23 +258,74 @@ struct Scal {
   int q, it, term, skip1, sc_idx, sc_st, sc_slot;
 };
 
-// G (row stride np + 1), C^T and the four bound rows of problem b.
+// C^T and the four bound rows of problem b.
 __device__ __forceinline__ void load_problem(
-    const Smem& S, long b, const float* G_in, const float* Ct_in,
-    const float* l_in, const float* u_in, const float* xl_in,
-    const float* xu_in, int np, int mp) {
-  const int tid = threadIdx.x, nt = blockDim.x, ldg = np + 1;
-  const float* Gb = G_in + b * np * np;
+    const Smem& S, long b, const float* Ct_in, const float* l_in,
+    const float* u_in, const float* xl_in, const float* xu_in, int np,
+    int mp) {
+  const int tid = threadIdx.x;
   const float* Cb = Ct_in + b * np * mp;
-  for (int e = tid; e < np * np; e += nt) S.G[(e / np) * ldg + e % np] = Gb[e];
-  for (int e = tid; e < np * mp; e += nt) S.C[e] = Cb[e];
-  for (int i = tid; i < mp; i += nt) {
+  for (int e = tid; e < np * mp; e += kThreads) S.C[e] = Cb[e];
+  for (int i = tid; i < mp; i += kThreads) {
     S.lo[i] = l_in[b * mp + i];
     S.up[i] = u_in[b * mp + i];
   }
-  for (int k = tid; k < np; k += nt) {
+  for (int k = tid; k < np; k += kThreads) {
     S.xlo[k] = xl_in[b * np + k];
     S.xup[k] = xu_in[b * np + k];
+  }
+}
+
+// A[:nk, j] . vec, k ascending, one chain (the plain version's order);
+// vec(k) gives the vector's entries.
+template <typename Vec>
+__device__ __forceinline__ float col_dot(Vec vec, const float* A, int lda,
+                                         int nk, int j) {
+  float acc = 0.0f;
+  for (int k = 0; k < nk; ++k) acc += vec(k) * A[k * lda + j];
+  return acc;
+}
+
+// A[i, :ncols] . vec, j ascending, one chain.
+__device__ __forceinline__ float row_dot(const float* A, int lda,
+                                         const float* vec, int ncols, int i) {
+  float acc = 0.0f;
+  for (int j = 0; j < ncols; ++j) acc += A[i * lda + j] * vec[j];
+  return acc;
+}
+
+// K -= ucol vrow^T on the np x 2np operator, except column spec (none when
+// spec < 0 or >= 2np), which becomes sval(i). Warps take rows, lanes take
+// float4 column groups; each lane evaluates vrow(j) for its four columns
+// once per update, so the pivot division is made per column, not per
+// element.
+template <typename VRow, typename SVal>
+__device__ __forceinline__ void rank_one(float* K, const float* ucol,
+                                         int np, int spec, VRow vrow,
+                                         SVal sval) {
+  const int lane = lane_id(), warp = warp_id(), np2 = 2 * np;
+  for (int c4 = lane; c4 < (np2 >> 2); c4 += 32) {
+    const int j0 = 4 * c4;
+    const float v0 = vrow(j0), v1 = vrow(j0 + 1), v2 = vrow(j0 + 2),
+                v3 = vrow(j0 + 3);
+    const int sq = (spec >= j0 && spec < j0 + 4) ? spec - j0 : -1;
+    for (int i = warp; i < np; i += kWarps) {
+      float4* p = reinterpret_cast<float4*>(K + i * np2 + j0);
+      float4 k = *p;
+      const float ui = ucol[i];
+      k.x = sub_mul(k.x, ui, v0);
+      k.y = sub_mul(k.y, ui, v1);
+      k.z = sub_mul(k.z, ui, v2);
+      k.w = sub_mul(k.w, ui, v3);
+      if (sq >= 0) {
+        const float s = sval(i);
+        if (sq == 0) k.x = s;
+        else if (sq == 1) k.y = s;
+        else if (sq == 2) k.z = s;
+        else k.w = s;
+      }
+      *p = k;
+    }
   }
 }
 
@@ -221,63 +335,53 @@ __device__ __forceinline__ void candidate_normal(const Smem& S, int sc_idx,
   const float sgn = (sc_st == UPPER || sc_st == UPPER_BOUND) ? -1.0f : 1.0f;
   const bool bnd = sc_st >= LOWER_BOUND;
   const int cidx = clampi(sc_idx, 0, mp - 1);
-  for (int k = threadIdx.x; k < np; k += blockDim.x)
+  for (int k = threadIdx.x; k < np; k += kThreads)
     S.npl[k] = sgn * (bnd ? (k == sc_idx - mp ? 1.0f : 0.0f)
                           : S.C[k * mp + cidx]);
 }
 
-// Removal of active slot lpos, hole-based: n_l* = K[:, np + lpos],
-// v = G n_l*, w = N* v, K -= n_l* [-n_l* | w_masked]^T / w_l, the slot's
-// N* column := 0, then the slot's status, aorder and statk cleared. The
-// loop's remove step and K4's deactivations both run it. Returns after the
-// barrier that publishes K, with the bookkeeping written by thread 0 and
-// not yet published.
 // The removal's vectors for active slot lpos: n_l* = K[:, np + lpos] into
-// nl, v = G n_l*, w = N* v. Returns w_l made safe (1 where it is 0), after
-// the barrier that publishes w.
+// nl, v = G n_l* and w = N* v. Returns w_l made safe (1 where it is 0),
+// after the barrier that publishes w.
 __device__ __forceinline__ float removal_vectors(const Smem& S, int lpos,
                                                  int np) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int np2 = 2 * np, ldg = np + 1;
-  const float* K = S.K;
-  for (int i = tid; i < np; i += nt) S.nl[i] = K[i * np2 + np + lpos];
+  const int np2 = 2 * np;
+  for (int i = threadIdx.x; i < np; i += kThreads)
+    S.nl[i] = S.K[i * np2 + np + lpos];
   __syncthreads();
-  for (int i = tid; i < np; i += nt) {
-    float acc = 0.0f;
-    for (int j = 0; j < np; ++j) acc += S.G[i * ldg + j] * S.nl[j];
-    S.v[i] = acc;
-  }
+  for (int i = threadIdx.x; i < np; i += kThreads)
+    S.v[i] = row_dot(S.G, np, S.nl, np, i);
   __syncthreads();
-  for (int k = tid; k < np; k += nt) {
-    float acc = 0.0f;
-    for (int i = 0; i < np; ++i) acc += S.v[i] * K[i * np2 + np + k];
-    S.w[k] = acc;
-  }
+  for (int k = threadIdx.x; k < np; k += kThreads)
+    S.w[k] = col_dot([&](int i) { return S.v[i]; }, S.K + np, np2, np, k);
   __syncthreads();
   const float wl = S.w[lpos];
   return fabsf(wl) > 0.0f ? wl : 1.0f;
 }
 
+// Removal of active slot lpos, hole-based: K -= n_l* [-n_l* | w_masked]^T
+// / w_l with w masked to active slots other than lpos, the slot's N*
+// column := 0, then the slot's status, aorder and statk cleared. The
+// loop's remove step and K4's deactivations both run it. Returns after the
+// barrier that publishes K, with the bookkeeping written by thread 0 and
+// not yet published.
 __device__ __forceinline__ void remove_slot(const Smem& S, int lpos, int np,
                                             int mtp) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int np2 = 2 * np;
-  float* K = S.K;
-  const float wl_safe = removal_vectors(S, lpos, np);
-  for (int e = tid; e < np * np2; e += nt) {
-    const int i = e / np2, j = e % np2;
-    if (j == np + lpos) {
-      K[e] = 0.0f;
-    } else {
-      const int k = j - np;
-      const float vj =
-          j < np ? -S.nl[j]
-                 : ((S.statk[k] != 0 && k != lpos) ? S.w[k] : 0.0f);
-      K[e] = sub_mul(K[e], S.nl[i], __fdiv_rn(vj, wl_safe));
-    }
-  }
+  const float wl = removal_vectors(S, lpos, np);
+  rank_one(
+      S.K, S.nl, np, np + lpos,
+      [&](int j) {
+        const int k = j - np;
+        const float vj =
+            j < np ? -S.nl[j]
+                   : ((S.statk[k] != 0 && k != lpos)
+                          ? S.w[k]
+                          : 0.0f);
+        return __fdiv_rn(vj, wl);
+      },
+      [](int) { return 0.0f; });
   __syncthreads();
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     const int rem_idx = clampi(S.aorder[lpos], 0, mtp - 1);
     S.status[rem_idx] = 0;
     S.aorder[lpos] = -1;
@@ -297,33 +401,43 @@ __device__ __forceinline__ void remove_slot(const Smem& S, int lpos, int np,
 __device__ __forceinline__ void compact_remove(const Smem& S, int lpos, int q,
                                                float t, bool dual_step,
                                                int np, int mtp) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, lane = lane_id(), warp = warp_id();
   const int np2 = 2 * np;
   float* K = S.K;
   const int rem_idx = clampi(S.aorder[lpos], 0, mtp - 1);
-  const float wl_safe = removal_vectors(S, lpos, np);
-  for (int e = tid; e < np * np2; e += nt) {
-    const int i = e / np2, j = e % np2;
-    const int k = j - np;
-    const float vj =
-        j < np ? -S.nl[j] : ((k < q && k != lpos) ? S.w[k] : 0.0f);
-    K[e] = sub_mul(K[e], S.nl[i], __fdiv_rn(vj, wl_safe));
-  }
-  for (int k = tid; k < np; k += nt) {
+  const float wl = removal_vectors(S, lpos, np);
+  rank_one(
+      K, S.nl, np, -1,
+      [&](int j) {
+        const int k = j - np;
+        const float vj =
+            j < np ? -S.nl[j]
+                   : ((k < q && k != lpos) ? S.w[k] : 0.0f);
+        return __fdiv_rn(vj, wl);
+      },
+      [](int) { return 0.0f; });
+  for (int k = tid; k < np; k += kThreads) {
     float uk = sub_mul(S.u[k], t, S.zr[np + k]);
     if (k == q) uk = __fadd_rn(uk, t);
     S.u[k] = uk;
     if (!dual_step) S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
   }
   __syncthreads();
-  // N* columns: each thread shifts whole rows, in order, so no element is
-  // read after another thread has overwritten it
-  for (int i = tid; i < np; i += nt) {
+  // N* columns: each warp shifts its rows in chunks of 32 columns, left to
+  // right, each chunk read into registers before it is written, so no
+  // element is read after it was overwritten
+  for (int i = warp; i < np; i += kWarps) {
     float* row = K + i * np2 + np;
-    for (int k = lpos; k < np; ++k) row[k] = k < q - 1 ? row[k + 1] : 0.0f;
+    for (int k0 = lpos; k0 < np; k0 += 32) {
+      const int k = k0 + lane;
+      const float val = (k < np && k < q - 1) ? row[k + 1] : 0.0f;
+      __syncwarp();
+      if (k < np) row[k] = val;
+      __syncwarp();
+    }
   }
   // the slot vectors: read into registers, barrier, write
-  for (int base = 0; base < np; base += nt) {
+  for (int base = 0; base < np; base += kThreads) {
     const int k = base + tid;
     float uk = 0.0f;
     int ak = -1, sk = 0;
@@ -345,6 +459,46 @@ __device__ __forceinline__ void compact_remove(const Smem& S, int lpos, int q,
   if (tid == 0) S.status[rem_idx] = 0;
 }
 
+// Directions [z | r] = n+ K into zr, one column per thread in k order. A
+// candidate cand_idx >= 0 of status cand_st, whose npl is being written in
+// the same phase, is read from its own normal instead (C's column or e_j,
+// unsigned; the sign is applied to the sum, which is exact).
+// finish_directions masks r.
+__device__ __forceinline__ void directions(const Smem& S, int np, int mp,
+                                           int cand_idx, int cand_st) {
+  const int np2 = 2 * np;
+  const bool neg =
+      cand_idx >= 0 && (cand_st == UPPER || cand_st == UPPER_BOUND);
+  const int c = clampi(cand_idx, 0, mp - 1), e = cand_idx - mp;
+  for (int j = threadIdx.x; j < np2; j += kThreads) {
+    float z;
+    if (cand_idx < 0)
+      z = col_dot([&](int k) { return S.npl[k]; }, S.K, np2, np, j);
+    else if (cand_st < LOWER_BOUND)
+      z = col_dot([&](int k) { return S.C[k * mp + c]; }, S.K, np2, np, j);
+    else
+      z = col_dot([&](int k) { return k == e ? 1.0f : 0.0f; }, S.K, np2, np,
+                  j);
+    S.zr[j] = neg ? -z : z;
+  }
+}
+
+// Slot k's part of the directions, by thread k: r_k := 0 off the active
+// slots (`act`), and the four dot products z.z, n+.z, n+.x, n+.n+
+// accumulate into s. Returns r_k.
+__device__ __forceinline__ float finish_directions(const Smem& S, int k,
+                                                   int np, bool act, Red& s) {
+  const float z = S.zr[k];
+  const float r = act ? S.zr[np + k] : 0.0f;
+  S.zr[np + k] = r;
+  const float p = S.npl[k];
+  s.s[0] += z * z;
+  s.s[1] += p * z;
+  s.s[2] += p * S.x[k];
+  s.s[3] += p * p;
+  return r;
+}
+
 // The GI loop (_packed_iterate) on the state in shared memory, until the
 // problem leaves RUNNING or has run max_iter iterations; RUNNING then
 // becomes MAX_ITER_REACHED. Enters and returns with the state published.
@@ -355,9 +509,8 @@ template <bool kCompact>
 __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
                                         int mp, int max_iter, float tr0,
                                         Scal& sc, int& parity) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int np2 = 2 * np, mtp = mp + np;
-  const float* C = S.C;
+  const int tid = threadIdx.x;
+  const int mtp = mp + np;
   float* K = S.K;
   const float dep_thr = __fmul_rn(2e-7f, tr0);
   const float inv_n = (float)(1.0 / (double)n);
@@ -366,15 +519,17 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
   int sc_idx = sc.sc_idx, sc_st = sc.sc_st, sc_slot = sc.sc_slot;
   while (term == RUNNING && it < max_iter) {
     bool success = false;
-    if (skip1 == 0) {
-      // step 1: most-violated inactive constraint or bound
+    const bool fresh = skip1 == 0;  // a candidate is selected here
+    if (fresh) {
+      // step 1: most-violated inactive constraint or bound; the argmin's
+      // index carries the side (8 idx + st)
       Red r = red_identity();
-      for (int idx = tid; idx < mtp; idx += nt) {
+      for (int idx = tid; idx < mtp; idx += kThreads) {
         float val;
         int st;
         if (idx < mp) {
-          float cx = 0.0f;
-          for (int k = 0; k < np; ++k) cx += C[k * mp + idx] * S.x[k];
+          const float cx =
+              col_dot([&](int k) { return S.x[k]; }, S.C, mp, np, idx);
           const float sl = __fsub_rn(cx, S.lo[idx]);
           const float su = __fsub_rn(S.up[idx], cx);
           val = (S.status[idx] != 0 || idx >= m) ? BIG : fminf(sl, su);
@@ -386,54 +541,39 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
           val = (S.status[idx] != 0 || j >= n) ? BIG : fminf(sl, su);
           st = sl <= su ? LOWER_BOUND : UPPER_BOUND;
         }
-        S.sts[idx] = st;
-        red_min(r, val, idx);
+        argmin_in(r.v, r.i, val, 8 * idx + st);
       }
       // the candidate's slot: the first free one, pinned while it lives
       if (!kCompact)
-        for (int k = tid; k < np; k += nt)
-          if (S.statk[k] == 0) r.i2 = min(r.i2, k);
-      r = block_reduce(r, S.red, parity);
+        for (int k = tid; k < np; k += kThreads)
+          if (S.statk[k] == 0) r.j = min(r.j, k);
+      r = block_reduce<true, !kCompact, 0>(r, S.red, parity);
       success = r.v >= 0.0f;
-      sc_idx = r.i;
-      sc_st = S.sts[r.i];
-      sc_slot = r.i2 == kNone ? 0 : r.i2;
+      sc_idx = r.i >> 3;
+      sc_st = r.i & 7;
+      sc_slot = r.j == kNone ? 0 : r.j;
       candidate_normal(S, sc_idx, sc_st, np, mp);
-      __syncthreads();
     }
     const float sign = (sc_st == UPPER || sc_st == UPPER_BOUND) ? -1.0f : 1.0f;
     const bool is_bnd = sc_st >= LOWER_BOUND;
     const int slot = kCompact ? q : sc_slot;  // the candidate's slot
 
-    // directions [z | r] = n+ K; r kept on active slots only (r_head)
-    for (int j = tid; j < np2; j += nt) {
-      float acc = 0.0f;
-      for (int k = 0; k < np; ++k) acc += S.npl[k] * K[k * np2 + j];
-      S.zr[j] = (j >= np && (kCompact ? j - np >= q : S.statk[j - np] == 0))
-                    ? 0.0f
-                    : acc;
-    }
+    // directions [z | r] = n+ K, then the step lengths: t1 over eligible
+    // slots, and the four dot products
+    directions(S, np, mp, fresh ? sc_idx : -1, sc_st);
     __syncthreads();
-
-    // step lengths: t1 over eligible slots, and the four dot products
     Red s = red_identity();
-    for (int k = tid; k < np; k += nt) {
-      const float r = S.zr[np + k];
+    for (int k = tid; k < np; k += kThreads) {
       const int sk = S.statk[k];
       const bool act = kCompact ? k < q : sk != 0;
-      const bool elig =
-          act && sk != EQUALITY && sk != FIXED && r > 0.0f;
-      red_min(s, elig ? __fdiv_rn(S.u[k], r) : BIG, k);
-      const float z = S.zr[k], p = S.npl[k];
-      s.s0 += z * z;
-      s.s1 += p * z;
-      s.s2 += p * S.x[k];
-      s.s3 += p * p;
+      const float r = finish_directions(S, k, np, act, s);
+      const bool elig = act && sk != EQUALITY && sk != FIXED && r > 0.0f;
+      argmin_in(s.v, s.i, elig ? __fdiv_rn(S.u[k], r) : BIG, k);
     }
-    s = block_reduce(s, S.red, parity);
+    s = block_reduce<true, false, 4>(s, S.red, parity);
     const float t1 = fminf(s.v, BIG);
     const int lpos = clampi(s.i, 0, np - 1);
-    const float znorm2 = s.s0, nz = s.s1, nx = s.s2, nn = s.s3;
+    const float znorm2 = s.s[0], nz = s.s[1], nx = s.s[2], nn = s.s[3];
     float bsel;
     if (is_bnd) {
       const int bidx = clampi(sc_idx - mp, 0, np - 1);
@@ -459,18 +599,14 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
       // add: K -= z [z | r_head]^T / delta; slot column := z / delta
       const bool dependent = nz <= __fmul_rn(dep_thr, nn);
       const float dsafe = dependent ? 1.0f : nz;
-      for (int k = tid; k < np; k += nt) {
+      for (int k = tid; k < np; k += kThreads) {
         float uk = sub_mul(S.u[k], t, S.zr[np + k]);
         if (k == slot) uk = __fadd_rn(uk, t);
         S.u[k] = uk;
         S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
       }
-      for (int e = tid; e < np * np2; e += nt) {
-        const int i = e / np2, j = e % np2;
-        K[e] = (j == np + slot)
-                   ? __fdiv_rn(S.zr[i], dsafe)
-                   : sub_mul(K[e], S.zr[i], __fdiv_rn(S.zr[j], dsafe));
-      }
+      const auto scaled = [&](int j) { return __fdiv_rn(S.zr[j], dsafe); };
+      rank_one(K, S.zr, np, np + slot, scaled, scaled);
       __syncthreads();
       if (tid == 0) {
         S.status[sc_idx] = sc_st;
@@ -489,7 +625,7 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
       const float cand_val = __fadd_rn(
           sub_mul(S.u[sc_slot], t, S.zr[np + sc_slot]), t);
       remove_slot(S, lpos, np, mtp);
-      for (int k = tid; k < np; k += nt) {
+      for (int k = tid; k < np; k += kThreads) {
         float uk = sub_mul(S.u[k], t, S.zr[np + k]);
         if (k == sc_slot) uk = __fadd_rn(uk, t);
         S.u[k] = (k == lpos) ? cand_val : (k == sc_slot ? 0.0f : uk);
@@ -511,15 +647,17 @@ __device__ __forceinline__ void write_out(
     const Smem& S, long b, int np, int mp, const Scal& sc, float hscale,
     float* x_out, float* u_out, int* status_out, int* aorder_out,
     int* scal_out, float* K_out, float* hscale_out) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
   const int np2 = 2 * np, mtp = mp + np;
-  for (int k = tid; k < np; k += nt) {
+  for (int k = tid; k < np; k += kThreads) {
     x_out[b * np + k] = S.x[k];
     u_out[b * np + k] = S.u[k];
     aorder_out[b * np + k] = S.aorder[k];
   }
-  for (int i = tid; i < mtp; i += nt) status_out[b * mtp + i] = S.status[i];
-  for (int e = tid; e < np * np2; e += nt) K_out[b * np * np2 + e] = S.K[e];
+  for (int i = tid; i < mtp; i += kThreads)
+    status_out[b * mtp + i] = S.status[i];
+  for (int e = tid; e < np * np2; e += kThreads)
+    K_out[b * np * np2 + e] = S.K[e];
   if (tid == 0) {
     int* o = scal_out + b * 8;
     o[0] = sc.q;
@@ -538,23 +676,23 @@ __device__ __forceinline__ void write_out(
 // u = ((a + G x)^T K)[np:] on active slots, 0 elsewhere (v is scratch).
 // Returns with x and u published.
 __device__ __forceinline__ void closed_form(const Smem& S, int np) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int np2 = 2 * np, ldg = np + 1;
+  const int tid = threadIdx.x;
+  const int np2 = 2 * np;
   const float* K = S.K;
-  for (int i = tid; i < np; i += nt) {
+  for (int i = tid; i < np; i += kThreads) {
     float acc = 0.0f;
     for (int j = 0; j < np; ++j) acc += K[i * np2 + j] * -S.a[j];
     for (int j = 0; j < np; ++j) acc += K[i * np2 + np + j] * S.bact[j];
     S.x[i] = acc;
   }
   __syncthreads();
-  for (int i = tid; i < np; i += nt) {
+  for (int i = tid; i < np; i += kThreads) {
     float acc = 0.0f;
-    for (int j = 0; j < np; ++j) acc += S.G[i * ldg + j] * S.x[j];
+    for (int j = 0; j < np; ++j) acc += S.G[i * np + j] * S.x[j];
     S.v[i] = S.a[i] + acc;
   }
   __syncthreads();
-  for (int k = tid; k < np; k += nt) {
+  for (int k = tid; k < np; k += kThreads) {
     float acc = 0.0f;
     for (int i = 0; i < np; ++i) acc += S.v[i] * K[i * np2 + np + k];
     S.u[k] = S.statk[k] != 0 ? acc : 0.0f;
@@ -562,7 +700,7 @@ __device__ __forceinline__ void closed_form(const Smem& S, int np) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
                 const float* __restrict__ l_in, const float* __restrict__ u_in,
                 const float* __restrict__ xl_in,
@@ -575,52 +713,62 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   extern __shared__ __align__(16) char smem_raw[];
   Smem S;
   smem_layout(np, mp, smem_raw, &S);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int np2 = 2 * np, mtp = mp + np, ldg = np + 1;
   const long b = blockIdx.x;
+  const int tid = threadIdx.x, lane = lane_id(), warp = warp_id();
+  const int np2 = 2 * np, mtp = mp + np;
   const float* Gb = G_in + b * np * np;
-  float* G = S.G;
-  float* C = S.C;
+  S.G = Gb;
   float* K = S.K;
   int parity = 0;
 
   // ---------------- prologue: H0 = G^-1, x0, tr0, non-SPD flag ----------
-  for (int e = tid; e < np * np; e += nt) G[(e / np) * ldg + e % np] = Gb[e];
-  jrlqp::chol_block(G, np, ldg);            // G := L (lower)
-  float* Li = C;                            // C^T's room is scratch here
-  jrlqp::tri_inv_block(G, ldg, Li, np, np);
-  const bool posdef = jrlqp::posdef_from_diag(G, ldg, np);
-  for (int e = tid; e < np * np2; e += nt) {
-    const int i = e / np2, j = e % np2;
-    float h = 0.0f;
-    if (j < np) {
+  // C^T, the bounds and a are in flight while G is factored in K's left
+  // half and L^-1 formed in its right half
+  copy_async(S.C, Ct_in + b * np * mp, np * mp);
+  copy_async(S.lo, l_in + b * mp, mp);
+  copy_async(S.up, u_in + b * mp, mp);
+  copy_async(S.xlo, xl_in + b * np, np);
+  copy_async(S.xup, xu_in + b * np, np);
+  copy_async(S.a, a_in + b * np, np);
+  copy_async_commit();
+  for (int i = warp; i < np; i += kWarps)
+    for (int c4 = lane; c4 < (np >> 2); c4 += 32)
+      *reinterpret_cast<float4*>(K + i * np2 + 4 * c4) =
+          *reinterpret_cast<const float4*>(Gb + i * np + 4 * c4);
+  jrlqp::chol_block(K, np, np2);                // K's left half := L
+  const float* Li = K + np;
+  jrlqp::tri_inv_block(K, np2, K + np, np2, np);  // right half := L^-1
+  const bool posdef = jrlqp::posdef_from_diag(K, np2, np);
+  __syncthreads();  // diag(L) is read before H0 overwrites it
+  // H0 = L^-T L^-1 into the left half, each thread its (row, column) pairs
+  for (int i = warp; i < np; i += kWarps)
+    for (int j = lane; j < np; j += 32) {
+      float h = (i == j) ? 1.0f : 0.0f;
       if (posdef) {
+        h = 0.0f;
         for (int k = max(i, j); k < np; ++k)
-          h = __fadd_rn(h, __fmul_rn(Li[k * np + i], Li[k * np + j]));
-      } else {
-        h = (i == j) ? 1.0f : 0.0f;
+          h = __fadd_rn(h, __fmul_rn(Li[k * np2 + i], Li[k * np2 + j]));
       }
+      K[i * np2 + j] = h;
     }
-    K[e] = h;
-  }
+  copy_async_wait();
   __syncthreads();
-  float tr = 0.0f;
-  for (int k = 0; k < np; ++k) tr += K[k * np2 + k];
-  const float tr0 = fmaxf(tr, 1e-30f);
-  const float dep_thr = __fmul_rn(2e-7f, tr0);
-  for (int i = tid; i < np; i += nt) {
-    float acc = 0.0f;
-    for (int j = 0; j < np; ++j) acc += K[i * np2 + j] * a_in[b * np + j];
-    S.x[i] = posdef ? -acc : 0.0f;
+  for (int i = warp; i < np; i += kWarps)
+    for (int c4 = lane; c4 < (np >> 2); c4 += 32)
+      *reinterpret_cast<float4*>(K + i * np2 + np + 4 * c4) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = tid; i < np; i += kThreads) {
+    S.x[i] = posdef ? -row_dot(K, np2, S.a, np, i) : 0.0f;
     S.u[i] = 0.0f;
     S.npl[i] = 0.0f;
     S.statk[i] = 0;
     S.aorder[i] = -1;
   }
-  for (int i = tid; i < mtp; i += nt) S.status[i] = 0;
-  // G and C^T from device memory again (the factor and L^-1 are done),
-  // and the bounds
-  load_problem(S, b, G_in, Ct_in, l_in, u_in, xl_in, xu_in, np, mp);
+  for (int i = tid; i < mtp; i += kThreads) S.status[i] = 0;
+  float tr = 0.0f;
+  for (int k = 0; k < np; ++k) tr += K[k * np2 + k];
+  const float tr0 = fmaxf(tr, 1e-30f);
+  const float dep_thr = __fmul_rn(2e-7f, tr0);
   __syncthreads();
 
   // ---------------- equality / fixed replay, ascending -----------------
@@ -632,58 +780,45 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   int q = 0;
   {
     Red r = red_identity();
-    for (int idx = tid; idx < mtp; idx += nt)
-      if (is_eq(idx)) r.s0 += 1.0f;
-    r = block_reduce(r, S.red, parity);
-    const bool over = r.s0 > (float)n;
+    for (int idx = tid; idx < mtp; idx += kThreads)
+      if (is_eq(idx)) r.s[0] += 1.0f;
+    r = block_reduce<false, false, 1>(r, S.red, parity);
+    const bool over = r.s[0] > (float)n;
     int prev = -1;
     while (term == RUNNING) {
       Red f = red_identity();
-      for (int idx = tid; idx < mtp; idx += nt)
-        if (idx > prev && is_eq(idx)) f.i2 = min(f.i2, idx);
-      f = block_reduce(f, S.red, parity);
-      const int idx = f.i2;
+      for (int idx = tid; idx < mtp; idx += kThreads)
+        if (idx > prev && is_eq(idx)) f.j = min(f.j, idx);
+      f = block_reduce<false, true, 0>(f, S.red, parity);
+      const int idx = f.j;
       if (idx == kNone) break;
       const bool is_bnd = idx >= mp;
       const int st = is_bnd ? FIXED : EQUALITY;
       const int cidx = clampi(idx, 0, mp - 1);
-      for (int k = tid; k < np; k += nt)
-        S.npl[k] = is_bnd ? (k == idx - mp ? 1.0f : 0.0f) : C[k * mp + cidx];
-      __syncthreads();
-      for (int j = tid; j < np2; j += nt) {
-        float acc = 0.0f;
-        for (int k = 0; k < np; ++k) acc += S.npl[k] * K[k * np2 + j];
-        S.zr[j] = (j >= np && j - np >= q) ? 0.0f : acc;  // r_head
-      }
+      for (int k = tid; k < np; k += kThreads)
+        S.npl[k] = is_bnd ? (k == idx - mp ? 1.0f : 0.0f)
+                          : S.C[k * mp + cidx];
+      directions(S, np, mp, idx, st);
       __syncthreads();
       Red s = red_identity();
-      for (int k = tid; k < np; k += nt) {
-        const float z = S.zr[k], p = S.npl[k];
-        s.s0 += p * z;
-        s.s1 += p * p;
-        s.s2 += p * S.x[k];
-        s.s3 += z * z;
-      }
-      s = block_reduce(s, S.red, parity);
-      const float nz = s.s0, nn = s.s1, nx = s.s2, zz = s.s3;
+      for (int k = tid; k < np; k += kThreads)
+        finish_directions(S, k, np, k < q, s);  // r_head
+      s = block_reduce<false, false, 4>(s, S.red, parity);
+      const float zz = s.s[0], nz = s.s[1], nx = s.s[2], nn = s.s[3];
       const float bsel = is_bnd ? S.xlo[idx - mp] : S.lo[cidx];
       const float nz_safe = nz != 0.0f ? nz : 1.0f;
       const float t =
           zz > 0.0f ? __fdiv_rn(__fsub_rn(bsel, nx), nz_safe) : 0.0f;
       const bool dependent = nz <= __fmul_rn(dep_thr, nn);
       const float dsafe = dependent ? 1.0f : nz;
-      for (int k = tid; k < np; k += nt) {
+      for (int k = tid; k < np; k += kThreads) {
         float uk = sub_mul(S.u[k], t, S.zr[np + k]);
         if (k == q) uk = __fadd_rn(uk, t);
         S.u[k] = uk;
         S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
       }
-      for (int e = tid; e < np * np2; e += nt) {
-        const int i = e / np2, j = e % np2;
-        K[e] = (j == np + q) ? __fdiv_rn(S.zr[i], dsafe)
-                             : sub_mul(K[e], S.zr[i],
-                                       __fdiv_rn(S.zr[j], dsafe));
-      }
+      const auto scaled = [&](int j) { return __fdiv_rn(S.zr[j], dsafe); };
+      rank_one(K, S.zr, np, np + q, scaled, scaled);
       __syncthreads();
       if (tid == 0) {
         S.status[idx] = st;
@@ -730,18 +865,21 @@ state_loop(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   extern __shared__ __align__(16) char smem_raw[];
   Smem S;
   smem_layout(np, mp, smem_raw, &S);
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
   const int np2 = 2 * np, mtp = mp + np;
   const long b = blockIdx.x;
-  load_problem(S, b, G_in, Ct_in, l_in, u_in, xl_in, xu_in, np, mp);
-  for (int e = tid; e < np * np2; e += nt) S.K[e] = K0_in[b * np * np2 + e];
-  for (int k = tid; k < np; k += nt) {
+  S.G = G_in + b * np * np;
+  load_problem(S, b, Ct_in, l_in, u_in, xl_in, xu_in, np, mp);
+  for (int e = tid; e < np * np2; e += kThreads)
+    S.K[e] = K0_in[b * np * np2 + e];
+  for (int k = tid; k < np; k += kThreads) {
     S.x[k] = x0_in[b * np + k];
     S.u[k] = u0_in[b * np + k];
     S.aorder[k] = aorder0_in[b * np + k];
     S.statk[k] = statk0_in[b * np + k];
   }
-  for (int i = tid; i < mtp; i += nt) S.status[i] = status0_in[b * mtp + i];
+  for (int i = tid; i < mtp; i += kThreads)
+    S.status[i] = status0_in[b * mtp + i];
   const int* s0 = scal0_in + b * 8;
   Scal sc{s0[0], s0[1], s0[2], s0[3], s0[4], s0[5], s0[6]};
   const float hscale = hscale0_in[b];
@@ -758,7 +896,7 @@ state_loop(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
 }
 
 // K3: hole slots.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 gi_loop_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
                const float* __restrict__ l_in, const float* __restrict__ u_in,
                const float* __restrict__ xl_in,
@@ -783,7 +921,7 @@ gi_loop_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
 }
 
 // K9: compact slots.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 gi_compact_kernel(const float* __restrict__ G_in,
                   const float* __restrict__ Ct_in,
                   const float* __restrict__ l_in,
@@ -809,7 +947,7 @@ gi_compact_kernel(const float* __restrict__ G_in,
                     scal_out, K_out, hscale_out, n, m, np, mp, max_iter);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
                const float* __restrict__ l_in, const float* __restrict__ u_in,
                const float* __restrict__ xl_in,
@@ -828,18 +966,21 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   extern __shared__ __align__(16) char smem_raw[];
   Smem S;
   smem_layout(np, mp, smem_raw, &S);
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
   const int np2 = 2 * np, mtp = mp + np;
   const long b = blockIdx.x;
-  load_problem(S, b, G_in, Ct_in, l_in, u_in, xl_in, xu_in, np, mp);
-  for (int e = tid; e < np * np2; e += nt) S.K[e] = K0_in[b * np * np2 + e];
-  for (int k = tid; k < np; k += nt) {
+  S.G = G_in + b * np * np;
+  load_problem(S, b, Ct_in, l_in, u_in, xl_in, xu_in, np, mp);
+  for (int e = tid; e < np * np2; e += kThreads)
+    S.K[e] = K0_in[b * np * np2 + e];
+  for (int k = tid; k < np; k += kThreads) {
     S.a[k] = a_in[b * np + k];
     S.bact[k] = b0_in[b * np + k];
     S.aorder[k] = aorder0_in[b * np + k];
     S.statk[k] = statk0_in[b * np + k];
   }
-  for (int i = tid; i < mtp; i += nt) S.status[i] = status0_in[b * mtp + i];
+  for (int i = tid; i < mtp; i += kThreads)
+    S.status[i] = status0_in[b * mtp + i];
   int q = q0_in[b];
   __syncthreads();
   // tr0 from the carried H, not from trace(G^-1)
@@ -852,12 +993,12 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   int it = 0, parity = 0;
   while (true) {
     Red r = red_identity();
-    for (int k = tid; k < np; k += nt) {
+    for (int k = tid; k < np; k += kThreads) {
       const int sk = S.statk[k];
       const bool elig = sk != 0 && sk != EQUALITY && sk != FIXED;
-      red_min(r, elig ? S.u[k] : 0.0f, k);
+      argmin_in(r.v, r.i, elig ? S.u[k] : 0.0f, k);
     }
-    r = block_reduce(r, S.red, parity);
+    r = block_reduce<true, false, 0>(r, S.red, parity);
     if (!(r.v < -1e-5f)) break;
     const int lpos = r.i;
     remove_slot(S, lpos, np, mtp);
@@ -879,6 +1020,16 @@ template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, size_t smem) {
+  cudaError_t err = set_smem(kernel, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // namespace
@@ -991,4 +1142,20 @@ extern "C" int jrlqp_gi_warm(const void* G, const void* Ct, const void* l,
 // Dynamic shared memory per block of each of the four GI kernels.
 extern "C" size_t jrlqp_gi_smem_bytes(int np, int mp) {
   return smem_layout(np, mp, nullptr, nullptr);
+}
+
+// Threads per block of the four GI kernels.
+extern "C" int jrlqp_gi_threads(void) { return kThreads; }
+
+// Resident blocks per SM of GI kernel `which` (0 K1, 1 K3, 2 K4, 3 K9) at
+// the padded sizes (np, mp), or minus the CUDA error code.
+extern "C" int jrlqp_gi_blocks_per_sm(int which, int np, int mp) {
+  const size_t smem = smem_layout(np, mp, nullptr, nullptr);
+  switch (which) {
+    case 0: return blocks_per_sm(gi_fused_kernel, smem);
+    case 1: return blocks_per_sm(gi_loop_kernel, smem);
+    case 2: return blocks_per_sm(gi_warm_kernel, smem);
+    case 3: return blocks_per_sm(gi_compact_kernel, smem);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }

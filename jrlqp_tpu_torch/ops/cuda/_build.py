@@ -142,6 +142,10 @@ def library() -> ctypes.CDLL:
             lib.jrlqp_error_string.restype = ctypes.c_char_p
             lib.jrlqp_gi_smem_bytes.argtypes = [_I, _I]
             lib.jrlqp_gi_smem_bytes.restype = ctypes.c_size_t
+            lib.jrlqp_gi_threads.argtypes = []
+            lib.jrlqp_gi_threads.restype = _I
+            lib.jrlqp_gi_blocks_per_sm.argtypes = [_I, _I, _I]
+            lib.jrlqp_gi_blocks_per_sm.restype = _I
             _lib = lib
     return _lib
 

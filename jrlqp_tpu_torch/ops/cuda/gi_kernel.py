@@ -51,7 +51,7 @@ from .block_llt import chol_b_plain, posdef_plain, tri_inv_b_plain
 __all__ = ["run_loop_fused", "gi_fused_plain", "run_loop", "gi_loop_plain",
            "run_warm_loop", "gi_warm_plain", "run_loop_compact",
            "gi_compact_plain", "prepare", "prepare_state", "prepare_warm",
-           "postprocess"]
+           "postprocess", "residency"]
 
 BIG = 1e30           # f32 infinity proxy inside the loop
 INF_BOUND = 1e31     # infinite bounds in the padded f32 inputs
@@ -626,9 +626,28 @@ def _gi_warm_plain_raw(G, Ct, lo, up, xlo, xup, a, K0, status0, aorder0,
                                           init, n, m, max_iter), tr0[:, 0])
 
 
+# the GI kernels' numbers in jrlqp_gi_blocks_per_sm
+_KERNEL_IDS = {"jrlqp_gi_fused": 0, "jrlqp_gi_loop": 1, "jrlqp_gi_warm": 2,
+               "jrlqp_gi_compact": 3}
+
+
+def residency(entry: str, n: int, m: int) -> tuple[int, int]:
+    """(threads per block, resident blocks per SM) of the GI kernel behind
+    the C entry point ``entry`` at (n, m), on the current card."""
+    lib = _build.library()
+    blocks = lib.jrlqp_gi_blocks_per_sm(_KERNEL_IDS[entry],
+                                        _round_up(n + 1, 8),
+                                        _round_up(max(m, 1), 8))
+    if blocks < 0:
+        _build.check(-blocks, entry)
+    return lib.jrlqp_gi_threads(), blocks
+
+
 def _launch(entry, dtypes, ins, n, m, max_iter):
     """Run the C entry point ``entry`` on the padded inputs ``ins`` (G and
-    C^T first) and return the seven raw outputs."""
+    C^T first) and return the seven raw outputs. K1 copies its inputs with
+    16-byte cp.async and float4 loads, so each must start 16-byte aligned,
+    as every fresh tensor of the caching allocator does."""
     G, Ct = ins[0], ins[1]
     B, np_, _ = G.shape
     mp_ = Ct.shape[2]
@@ -651,6 +670,11 @@ def _launch(entry, dtypes, ins, n, m, max_iter):
             torch.empty((B, np_, 2 * np_), dtype=_F, device=dev),
             torch.empty((B,), dtype=_F, device=dev))
     ins = [t.contiguous() for t in ins]
+    if entry == "jrlqp_gi_fused":
+        for i, t in enumerate(ins):
+            if t.data_ptr() % 16 != 0:
+                raise ValueError(f"{entry}: input {i} does not start 16-byte "
+                                 f"aligned")
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = getattr(lib, entry)(*[t.data_ptr() for t in ins],
                                *[t.data_ptr() for t in outs],

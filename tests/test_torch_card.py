@@ -368,6 +368,53 @@ def test_gi_compact_kernel_matches_plain_sized(cuda_device, n, m):
                          gi_kernel.gi_compact_plain(pb, capped, 150))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,n,m", [
+    ("K1", 5, 3), ("K1", 31, 7), ("K1", 64, 200), ("K1", 100, 60),
+    ("K9", 5, 3), ("K9", 31, 7), ("K9", 64, 200), ("K9", 100, 60),
+    ("K3", 31, 7), ("K4", 31, 7)])
+def test_gi_kernels_match_plain_ragged(cuda_device, kernel, n, m):
+    # where the kernels' 2-D thread maps have edges: a row of K narrower
+    # than a warp's float4 groups (n=5), m < n, more float4 column groups
+    # than lanes (np2 = 144 and 208, mp = 200), and n=100, near the largest
+    # layout one block holds
+    d = np_qp_batch(n * m + 3, 64, n, m, 0.3)
+    max_iter = 300
+    pb = _f32_problem(d, cuda_device)
+    if kernel == "K1":
+        args, count = (pb, max_iter), "launches"
+        run, plain = gi_kernel.run_loop_fused, gi_kernel.gi_fused_plain
+    elif kernel == "K9":
+        args = (pb, fast._init_fast(pb, _opt32(max_iter)), max_iter)
+        count = "compact_launches"
+        run, plain = gi_kernel.run_loop_compact, gi_kernel.gi_compact_plain
+    elif kernel == "K3":
+        cold = fast.solve_refined_kernel(
+            problem_from_numpy(**d, device=cuda_device),
+            SolverOptions(max_iter=max_iter))
+        hints = cold.active_set.clone()
+        hints[:, ::2] = 0
+        opt32 = SolverOptions(max_iter=max_iter, warm_start=True).with_(
+            dtype=torch.float32, zero_z_threshold=1e-6)
+        args = (pb, fast._init_fast_warm(pb, hints, opt32), max_iter)
+        count = "loop_launches"
+        run, plain = gi_kernel.run_loop, gi_kernel.gi_loop_plain
+    else:
+        _, carry = fast.solve_refined_kernel_carry(
+            problem_from_numpy(**d, device=cuda_device), None,
+            SolverOptions(max_iter=max_iter))
+        pb = _f32_problem(drifted(d, 0.02, 7), cuda_device)
+        args = (pb, carry.H, carry.Ns, carry.status, carry.aorder, carry.q,
+                max_iter)
+        count = "warm_launches"
+        run, plain = gi_kernel.run_warm_loop, gi_kernel.gi_warm_plain
+    before = getattr(gi_kernel, count)
+    ours = run(*args)
+    torch.cuda.synchronize()
+    assert getattr(gi_kernel, count) == before + 1
+    _assert_close_scaled(ours, plain(*args))
+
+
 def _launches():
     return (gi_kernel.launches, gi_kernel.loop_launches,
             gi_kernel.warm_launches, gi_kernel.compact_launches)
