@@ -16,14 +16,20 @@ width (9 robots x 43 dof, n=387, m=36):
 5. K3 (the loop from a given state) against its plain version, 1024 lanes,
    from the warm init of two kinds of hints;
 6. K4 (the loop from a carried operator) against its plain version, 1024
-   lanes, at bound drifts 0.02 and 0.5;
+   lanes, at bound drifts 0.02 and 0.5, from the carry in the kernels' own
+   layout as the entry point returns it, and the same step from a carry of
+   plain tensors;
 7. the control-loop warm paths at batch 16384: a cold step and 10 warm K4
-   steps of ``solve_refined_kernel_carry`` at bound drift 0.02, each held
-   against a cold solve, and one ``solve_refined_warm_kernel`` hint step
-   (K3), each gated like the main path, with solves/s and device times;
+   steps of ``solve_refined_kernel_carry`` at bound drift 0.02, each on the
+   carry the step before returned and held against a cold solve, and one
+   ``solve_refined_warm_kernel`` hint step (K3), each gated like the main
+   path, with solves/s, device times and the split of a warm step
+   (preparation, K4, remap, refinement; beside it the step from a carry of
+   plain tensors, which casts and pads G and C again);
 8. K5-K8 (the structured block-LLT chains) against their plain versions at
    the IK shape, batch 1024: tri-block-diagonal (with lower_only) and
-   block-arrow down and up, with device times;
+   block-arrow down and up, with device times (lower_only and the up arrow
+   too), and K6's and K8's rhs tile width and resident blocks per SM;
 9. the structured cold batch ``solve_structured_fast_batch`` at batch 1024
    (K5 + K6, the torch GI loop, f64 refinement), gated like the main path
    and held against the port's dense engine ``solve_refined``; the two
@@ -466,13 +472,25 @@ def main() -> int:
     k4_err = 0.0
     for scale in (DRIFT, 0.5):
         pb6 = drifted(base5, scale)
-        pb6_32 = pb6.with_dtype(f32)
-        ok_k = gi_kernel.run_warm_loop(pb6_32, *co6, MAX_ITER)
-        ok_p = gi_kernel.gi_warm_plain(pb6_32, *co6, MAX_ITER)
+        ins6, (n, m) = gi_kernel.prepare_warm_carry(pb6, carry6.raw,
+                                                    carry6.q)
+        ok_k = gi_kernel.postprocess(
+            gi_kernel._gi_warm_cuda_raw(*ins6, n, m, MAX_ITER), n, m)
+        ok_p = gi_kernel.postprocess(
+            gi_kernel._gi_warm_plain_raw(*ins6, n, m, MAX_ITER), n, m)
         torch.cuda.synchronize()
         k4_err = max(k4_err, against_plain(f"K4 (drift {scale})", ok_k,
                                            ok_p, pb6))
-    del base5, pb5, pb5_32, carry6, co6, ok_k, ok_p
+        # the same step from the five plain tensors: K0 is then packed
+        # anew, with zeros where K1 left the identity on H's padded
+        # diagonal, which no output may feel
+        ok_t = gi_kernel.run_warm_loop(pb6.with_dtype(f32), *co6, MAX_ITER)
+        _require(all(torch.equal(ok_k[k], ok_t[k]) for k in ok_k),
+                 f"K4 (drift {scale}): the carry of plain tensors gives "
+                 f"another step than the kernel-layout carry")
+    print("K4: the carry of plain tensors gives the kernel-layout carry's "
+          "step, bit for bit")
+    del base5, pb5, pb5_32, carry6, co6, ok_k, ok_p, ok_t, ins6
 
     # ---- phase 7: the warm paths at full width ----
     base7 = problems(WARM_ACT_FRAC)
@@ -550,10 +568,14 @@ def main() -> int:
     pb10_32 = pb10.with_dtype(f32)
     co = (carry_in.H, carry_in.Ns, carry_in.status, carry_in.aorder,
           carry_in.q)
+    carry_plain = fast.WarmCarry(*co)   # no kernel layout: packed each step
     state0 = fast._init_fast_warm(pb10_32, hints9, opt32_w)
     wall = {
         "warm K4 step": _wall_s(lambda: solve_refined_kernel_carry(
             pb10, carry_in, opt, ir_steps=IR_STEPS)),
+        "warm K4 step from a carry of plain tensors": _wall_s(
+            lambda: solve_refined_kernel_carry(pb10, carry_plain, opt,
+                                               ir_steps=IR_STEPS)),
         "cold K1 step": _wall_s(lambda: solve_refined_kernel(
             pb10, opt, ir_steps=IR_STEPS)),
         "hint step": _wall_s(lambda: solve_refined_warm_kernel(
@@ -564,16 +586,46 @@ def main() -> int:
             pb10_32, state0, MAX_ITER)),
         "K3 plain": _wall_s(lambda: gi_kernel.gi_loop_plain(
             pb10_32, state0, MAX_ITER)),
-        "K4": _wall_s(lambda: gi_kernel.run_warm_loop(
-            pb10_32, *co, MAX_ITER)),
+        "K4 with its packing from plain tensors": _wall_s(
+            lambda: gi_kernel.run_warm_loop(pb10_32, *co, MAX_ITER)),
         "K4 plain": _wall_s(lambda: gi_kernel.gi_warm_plain(
             pb10_32, *co, MAX_ITER)),
     }
     for k, s in wall.items():
         print(f"solves/s (best of 3, batch {BATCH}, {card}): {k} "
               f"{BATCH / s!r} ({s * 1e3!r} ms)")
+
+    def split7():
+        """Wall ms of a warm step's stages, each closed by a sync."""
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        ins, (n_, m_) = gi_kernel.prepare_warm_carry(pb10, carry_in.raw,
+                                                     carry_in.q)
+        mark()
+        raw = gi_kernel._gi_warm_cuda_raw(*ins, n_, m_, MAX_ITER)
+        mark()
+        out = gi_kernel.postprocess(raw, n_, m_)
+        mark()
+        fast._refine_batch(pb10, fast._state_from_kernel_out(out, BATCH),
+                           IR_STEPS)
+        mark()
+        return [1e3 * (b - a_) for a_, b in zip(marks, marks[1:])]
+
+    split7()
+    parts7 = min((split7() for _ in range(3)), key=sum)
+    pack_ms = 1e3 * _wall_s(lambda: gi_kernel.prepare_warm(
+        pb10.with_dtype(f32), *co))
+    print(f"warm K4 step split, wall ms ({card}): preparation (a and the "
+          f"bounds padded) {parts7[0]!r}, K4 {parts7[1]!r}, remap "
+          f"{parts7[2]!r}, refinement {parts7[3]!r}; the preparation from a "
+          f"carry of plain tensors (cast to f32, G, C, K, status and aorder "
+          f"packed) {pack_ms!r}")
     ins3, (n, m) = gi_kernel.prepare_state(pb10_32, state0)
-    ins4, _ = gi_kernel.prepare_warm(pb10_32, *co)
+    ins4, _ = gi_kernel.prepare_warm_carry(pb10, carry_in.raw, carry_in.q)
     k3_ms = _cuda_ms(lambda: gi_kernel._gi_loop_cuda_raw(*ins3, n, m,
                                                          MAX_ITER))
     k3_plain_ms = _cuda_ms(lambda: gi_kernel._gi_loop_plain_raw(
@@ -591,11 +643,11 @@ def main() -> int:
     # K3 starts from K0, x0, u0, status, aorder, statk, scalars and tr0
     k3_bound = _bound(_gi_flops(it3_l, ins3[12][:, 0], outs3[4][:, 0], N, M),
                       _gi_bytes(BATCH, N, M, 2 * N * N + 5 * N + M + 9))
-    # K4 from a, K, status, aorder, statk, b_act and q; its closed form
-    # x = K [-a; b] and u = (a + G x)^T K, ~6n^2
+    # K4 from a, K, status, aorder and q; its closed form x = K [-a; b] and
+    # u = (a + G x)^T K, ~6n^2
     k4_bound = _bound(_gi_flops(outs4[4][:, 1], co[4], outs4[4][:, 0], N, M)
                       + BATCH * 6 * N * N,
-                      _gi_bytes(BATCH, N, M, 2 * N * N + 5 * N + M + 1))
+                      _gi_bytes(BATCH, N, M, 2 * N * N + 3 * N + M + 1))
     print(f"bounds ({card}): K3 {k3_bound} ({it3} iterations), K4 "
           f"{k4_bound} ({it4} iterations)")
     res_k3 = residency("jrlqp_gi_loop", k3_ms, it3, "the state load")
@@ -603,7 +655,8 @@ def main() -> int:
                        "the state load and closed form")
     del outs3, outs4
 
-    del pbs, base7, steps, warm, carry, carry_in, co, state0, ins3, ins4
+    del pbs, base7, steps, warm, carry, carry_in, carry_plain, co, state0
+    del ins3, ins4
 
     # ---- phase 8: K5-K8 (structured block-LLT chains) vs plain ----
     ik = ik_batch(IK_BATCH, IK_NB, IK_S, IK_MC, seed=SEED)
@@ -658,6 +711,7 @@ def main() -> int:
     del pairs
     Ld, Lo, Li = block_llt.tri_block_llt(diag32, off32)
     aLd, aLo, aLi = block_llt.block_arrow_llt(diag32, off32)
+    _, uLo, uLi = block_llt.block_arrow_llt(diag32, off32, up=True)
     struct_ms = {
         "K5": (_cuda_ms(lambda: block_llt.tri_block_llt(diag32, off32)),
                _cuda_ms(lambda: block_llt.tri_block_llt_plain(diag32, off32),
@@ -665,6 +719,11 @@ def main() -> int:
         "K6": (_cuda_ms(lambda: block_llt.tri_block_solve(Lo, Li, eye_ik)),
                _cuda_ms(lambda: block_llt.tri_block_solve_plain(
                    Lo, Li, eye_ik), reps=1)),
+        "K6 lower_only": (
+            _cuda_ms(lambda: block_llt.tri_block_solve(Lo, Li, eye_ik,
+                                                       True)),
+            _cuda_ms(lambda: block_llt.tri_block_solve_plain(
+                Lo, Li, eye_ik, True), reps=1)),
         "K7": (_cuda_ms(lambda: block_llt.block_arrow_llt(diag32, off32)),
                _cuda_ms(lambda: block_llt.block_arrow_llt_plain(
                    diag32, off32), reps=1)),
@@ -672,7 +731,16 @@ def main() -> int:
                                                             eye_ik)),
                _cuda_ms(lambda: block_llt.block_arrow_solve_plain(
                    aLo, aLi, eye_ik), reps=1)),
+        "K8 up": (
+            _cuda_ms(lambda: block_llt.block_arrow_solve(uLo, uLi, eye_ik,
+                                                         up=True)),
+            _cuda_ms(lambda: block_llt.block_arrow_solve_plain(
+                uLo, uLi, eye_ik, up=True), reps=1)),
     }
+    for key, entry in (("K6", "jrlqp_tri_block_solve"),
+                       ("K8", "jrlqp_block_arrow_solve")):
+        print(f"{key} launch configuration at s={IK_S}, k={n_ik} ({card}): "
+              f"{block_llt.solve_config(entry, IK_S, n_ik)}")
     print(f"device ms at batch {IK_BATCH}, nb={IK_NB}, s={IK_S} ({card}): "
           + ", ".join(f"{k} {v[0]!r} (plain {v[1]!r})"
                       for k, v in struct_ms.items()))
@@ -708,7 +776,7 @@ def main() -> int:
         del G_d, L_d
     print(f"bounds ({card}): {struct_bound}; library ms "
           f"(torch.cholesky_solve, dense factor): {lib_ms}")
-    del Ld, Lo, Li, aLd, aLo, aLi, eye_ik, eye_d
+    del Ld, Lo, Li, aLd, aLo, aLi, uLo, uLi, eye_ik, eye_d
 
     # ---- phase 9: the structured cold batch ----
     opt_ik = SolverOptions(max_iter=IK_MAX_ITER)

@@ -55,17 +55,22 @@
 // block per SM. The design cuts each of the three:
 // - the rank-one update of K (add, removal, equality replay) walks K with
 //   a fixed 2-D map, warps over rows and lanes over float4 column groups,
-//   with no index division; each lane divides its four columns of the
-//   update's row by the pivot once per update, so the per-element work is
-//   a rounded multiply and subtract (no FMA contraction, as the plain
-//   version rounds);
+//   with no index division; the update's row is divided by the pivot once,
+//   one column per thread, into shared memory (vq), so the per-element work
+//   is a rounded multiply and subtract (no FMA contraction, as the plain
+//   version rounds) and no division can reach the row loop;
 // - every dot product (C x, n+ K, G n_l*, N*^T v) is one thread's chain in
 //   k order, one output per thread, the order of the plain version's
 //   matrix products; the directions of a candidate selected in the same
 //   iteration read its normal from C directly, so no barrier waits for
 //   n+ to be written. Dot products split over warps were slower on the
 //   H100, and their other rounding flipped a near-tie that the plain
-//   version's order does not (PERF.md, section 6);
+//   version's order does not (PERF.md, section 6). Each chain is unrolled
+//   so that 8 (col_dot) or 16 (row_dot) steps of shared-memory loads are in
+//   flight ahead of their FMAs: the chains are bound by that latency;
+// - K3's, K4's and K9's state and every problem arrive by 16-byte
+//   cp.async; K's rows lie at a pitch of 2 np + 4 floats in shared memory
+//   (kPad), which spreads a warp's float4 row reads over the banks;
 // - the reductions carry only what they reduce (an argmin with ties to
 //   the lowest index, an integer min, up to four sums), each one shuffle
 //   pass and one barrier;
@@ -79,9 +84,9 @@
 // an H100 at n = 50, m = 100 it was faster than 256 threads, 3 blocks, or
 // G in shared memory (PERF.md, section 6). The per-problem scalars stay in
 // registers, computed alike by every thread, so branches are uniform and
-// need no broadcast. A
-// problem stops on its own when its term leaves RUNNING, which gives each
-// lane the result a frozen lane of the TPU's packs gets.
+// need no broadcast. A problem stops on its own when its term leaves
+// RUNNING, which gives each lane the result a frozen lane of the TPU's
+// packs gets.
 #include <cuda_runtime.h>
 
 #include "block_llt.cuh"
@@ -93,6 +98,13 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;
 constexpr int kWarps = kThreads / 32;
+// Row pitch of K in shared memory is 2 np + kPad floats: np is a multiple
+// of 8, so the pitch is an odd number of float4 groups, and the float4 row
+// reads of a warp (thread i reads row i: the closed form, K1's x0) fall on
+// distinct bank groups where a pitch of 2 np puts them on two. Reads by
+// column (thread j reads column j) and the rank-one update's float4 row
+// walk are conflict-free at any pitch.
+constexpr int kPad = 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float BIG = 1e30f;
 constexpr int kNone = 0x7fffffff;
@@ -103,6 +115,8 @@ constexpr int LOWER = 1, UPPER = 2, EQUALITY = 3, LOWER_BOUND = 4,
 constexpr int RUNNING = -1, SUCCESS = 0, NON_POS_HESSIAN = 2, INFEASIBLE = 3,
               MAX_ITER_REACHED = 4, LINEAR_DEPENDENCY_DETECTED = 5,
               OVERCONSTRAINED_PROBLEM = 6;
+
+__host__ __device__ constexpr int k_pitch(int np) { return 2 * np + kPad; }
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 __device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
@@ -192,14 +206,39 @@ __device__ __forceinline__ float sub_mul(float a, float b, float c) {
 // cp.async of nwords floats (a multiple of 4; both ends 16-byte aligned)
 // by the whole block, 16 bytes a thread at a time. The caller commits,
 // waits and passes a barrier before reading.
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           int nwords) {
-  for (int e = 4 * threadIdx.x; e < nwords; e += 4 * kThreads) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + e);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src + e)
-                 : "memory");
-  }
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int nwords) {
+  static_assert(sizeof(T) == 4, "copy_async moves 4-byte words");
+  for (int e = 4 * threadIdx.x; e < nwords; e += 4 * kThreads)
+    copy_async16(dst + e, src + e);
+}
+
+// cp.async of the np x np G (row pitch np in device memory) to row pitch
+// ldd: half a warp per row, lanes 16-byte groups.
+__device__ __forceinline__ void copy_async_G(float* dst, int ldd,
+                                             const float* src, int np) {
+  const int lane = lane_id();
+  for (int i = 2 * warp_id() + (lane >> 4); i < np; i += 2 * kWarps)
+    for (int c4 = lane & 15; c4 < (np >> 2); c4 += 16)
+      copy_async16(dst + i * ldd + 4 * c4, src + i * np + 4 * c4);
+}
+
+// cp.async of the np x 2np operator K from device memory (row pitch 2np)
+// into shared memory (row pitch k_pitch(np)): warps take rows, lanes
+// 16-byte groups.
+__device__ __forceinline__ void copy_async_K(float* K, const float* src,
+                                             int np) {
+  const int np2 = 2 * np, ldk = k_pitch(np);
+  for (int i = warp_id(); i < np; i += kWarps)
+    for (int c4 = lane_id(); c4 < (np2 >> 2); c4 += 32)
+      copy_async16(K + i * ldk + 4 * c4, src + i * np2 + 4 * c4);
 }
 
 __device__ __forceinline__ void copy_async_commit() {
@@ -210,19 +249,30 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Waits until at most kPending of this thread's committed groups are
+// still in flight.
+template <int kPending>
+__device__ __forceinline__ void copy_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 struct Smem {
   Red* red;
-  const float* G;  // the problem's G in device memory (row stride np)
-  float *C, *K, *x, *u, *npl, *nl, *v, *w, *xlo, *xup, *zr, *lo,
-      *up, *a, *bact;
+  // the problem's G and its row pitch: in device memory (pitch np), or,
+  // during K4's prologue, staged in C^T's room
+  const float* G;
+  int ldg;
+  float *C, *K, *x, *u, *npl, *nl, *v, *w, *xlo, *xup, *zr, *vq,
+      *lo, *up, *a, *bact;
   int *statk, *aorder, *status;
 };
 
 // One layout for the four kernels; `a` and `bact` are K1's and K4's alone.
-// S.G is not in it: each kernel points it at its problem's G.
+// S.G is not in it: each kernel points it at its problem's G (row pitch
+// S.ldg, np in device memory).
 __host__ __device__ inline size_t smem_layout(int np, int mp, char* base,
                                               Smem* s) {
-  const int np2 = 2 * np, mtp = mp + np;
+  const int mtp = mp + np;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base + off;
@@ -231,7 +281,7 @@ __host__ __device__ inline size_t smem_layout(int np, int mp, char* base,
   };
   Red* red = (Red*)take(2 * kWarps * sizeof(Red));
   float* C = (float*)take((size_t)np * mp * 4);
-  float* K = (float*)take((size_t)np * np2 * 4);
+  float* K = (float*)take((size_t)np * k_pitch(np) * 4);
   float* x = (float*)take(np * 4);
   float* u = (float*)take(np * 4);
   float* npl = (float*)take(np * 4);
@@ -240,7 +290,8 @@ __host__ __device__ inline size_t smem_layout(int np, int mp, char* base,
   float* w = (float*)take(np * 4);
   float* xlo = (float*)take(np * 4);
   float* xup = (float*)take(np * 4);
-  float* zr = (float*)take(np2 * 4);
+  float* zr = (float*)take(2 * np * 4);
+  float* vq = (float*)take(2 * np * 4);
   float* lo = (float*)take(mp * 4);
   float* up = (float*)take(mp * 4);
   float* a = (float*)take(np * 4);
@@ -248,8 +299,8 @@ __host__ __device__ inline size_t smem_layout(int np, int mp, char* base,
   int* statk = (int*)take(np * 4);
   int* aorder = (int*)take(np * 4);
   int* status = (int*)take(mtp * 4);
-  if (s) *s = Smem{red, nullptr, C, K, x, u, npl, nl, v, w, xlo, xup, zr,
-                   lo, up, a, bact, statk, aorder, status};
+  if (s) *s = Smem{red, nullptr, np, C, K, x, u, npl, nl, v, w, xlo, xup,
+                   zr, vq, lo, up, a, bact, statk, aorder, status};
   return off;
 }
 
@@ -258,65 +309,82 @@ struct Scal {
   int q, it, term, skip1, sc_idx, sc_st, sc_slot;
 };
 
-// C^T and the four bound rows of problem b.
-__device__ __forceinline__ void load_problem(
-    const Smem& S, long b, const float* Ct_in, const float* l_in,
-    const float* u_in, const float* xl_in, const float* xu_in, int np,
-    int mp) {
-  const int tid = threadIdx.x;
-  const float* Cb = Ct_in + b * np * mp;
-  for (int e = tid; e < np * mp; e += kThreads) S.C[e] = Cb[e];
-  for (int i = tid; i < mp; i += kThreads) {
-    S.lo[i] = l_in[b * mp + i];
-    S.up[i] = u_in[b * mp + i];
-  }
-  for (int k = tid; k < np; k += kThreads) {
-    S.xlo[k] = xl_in[b * np + k];
-    S.xup[k] = xu_in[b * np + k];
-  }
+// cp.async of C^T of problem b; the caller commits and waits.
+__device__ __forceinline__ void load_C_async(const Smem& S, long b,
+                                             const float* Ct_in, int np,
+                                             int mp) {
+  copy_async(S.C, Ct_in + b * np * mp, np * mp);
+}
+
+// cp.async of the four bound rows of problem b.
+__device__ __forceinline__ void load_bounds_async(
+    const Smem& S, long b, const float* l_in, const float* u_in,
+    const float* xl_in, const float* xu_in, int np, int mp) {
+  copy_async(S.lo, l_in + b * mp, mp);
+  copy_async(S.up, u_in + b * mp, mp);
+  copy_async(S.xlo, xl_in + b * np, np);
+  copy_async(S.xup, xu_in + b * np, np);
 }
 
 // A[:nk, j] . vec, k ascending, one chain (the plain version's order);
-// vec(k) gives the vector's entries.
+// vec(k) gives the vector's entries. Unrolled by 8 so that the loads of
+// eight steps are in flight ahead of their chained FMAs: the chain waits
+// for shared memory once per eight steps, not once per four.
 template <typename Vec>
 __device__ __forceinline__ float col_dot(Vec vec, const float* A, int lda,
                                          int nk, int j) {
   float acc = 0.0f;
+#pragma unroll 8
   for (int k = 0; k < nk; ++k) acc += vec(k) * A[k * lda + j];
   return acc;
 }
 
-// A[i, :ncols] . vec, j ascending, one chain.
+// acc + A[i, :ncols] . vec, j ascending, one chain. Row i and vec are read
+// four floats at a time: lda and ncols are multiples of 4 and both start
+// 16-byte aligned. Unrolled by 4 (16 steps of loads in flight), as col_dot.
 __device__ __forceinline__ float row_dot(const float* A, int lda,
-                                         const float* vec, int ncols, int i) {
-  float acc = 0.0f;
-  for (int j = 0; j < ncols; ++j) acc += A[i * lda + j] * vec[j];
+                                         const float* vec, int ncols, int i,
+                                         float acc = 0.0f) {
+  const float4* row = reinterpret_cast<const float4*>(A + (size_t)i * lda);
+  const float4* v4 = reinterpret_cast<const float4*>(vec);
+#pragma unroll 4
+  for (int j4 = 0; j4 < (ncols >> 2); ++j4) {
+    const float4 r = row[j4], v = v4[j4];
+    acc += r.x * v.x;
+    acc += r.y * v.y;
+    acc += r.z * v.z;
+    acc += r.w * v.w;
+  }
   return acc;
 }
 
-// K -= ucol vrow^T on the np x 2np operator, except column spec (none when
-// spec < 0 or >= 2np), which becomes sval(i). Warps take rows, lanes take
-// float4 column groups; each lane evaluates vrow(j) for its four columns
-// once per update, so the pivot division is made per column, not per
-// element.
-template <typename VRow, typename SVal>
+// K -= ucol vq^T on the np x 2np operator, except column spec (none when
+// spec < 0 or >= 2np), which becomes sval(i). vq is the update's row
+// already divided by the pivot, in shared memory, written by the whole
+// block one column per thread (scaled_row, and the removals) with a barrier
+// before this: one IEEE division per column and update. Quotients formed in
+// registers ahead of the row loop were recomputed inside it by ptxas, four
+// divisions per row and lane, most through the slow path of a zero
+// numerator: 20,000 cycles of a removal (PERF.md, section 6). Warps take
+// rows, lanes take float4 column groups.
+template <typename SVal>
 __device__ __forceinline__ void rank_one(float* K, const float* ucol,
-                                         int np, int spec, VRow vrow,
+                                         const float* vq, int np, int spec,
                                          SVal sval) {
   const int lane = lane_id(), warp = warp_id(), np2 = 2 * np;
+  const int ldk = k_pitch(np);
   for (int c4 = lane; c4 < (np2 >> 2); c4 += 32) {
     const int j0 = 4 * c4;
-    const float v0 = vrow(j0), v1 = vrow(j0 + 1), v2 = vrow(j0 + 2),
-                v3 = vrow(j0 + 3);
+    const float4 v = *reinterpret_cast<const float4*>(vq + j0);
     const int sq = (spec >= j0 && spec < j0 + 4) ? spec - j0 : -1;
     for (int i = warp; i < np; i += kWarps) {
-      float4* p = reinterpret_cast<float4*>(K + i * np2 + j0);
+      float4* p = reinterpret_cast<float4*>(K + i * ldk + j0);
       float4 k = *p;
       const float ui = ucol[i];
-      k.x = sub_mul(k.x, ui, v0);
-      k.y = sub_mul(k.y, ui, v1);
-      k.z = sub_mul(k.z, ui, v2);
-      k.w = sub_mul(k.w, ui, v3);
+      k.x = sub_mul(k.x, ui, v.x);
+      k.y = sub_mul(k.y, ui, v.y);
+      k.z = sub_mul(k.z, ui, v.z);
+      k.w = sub_mul(k.w, ui, v.w);
       if (sq >= 0) {
         const float s = sval(i);
         if (sq == 0) k.x = s;
@@ -327,6 +395,29 @@ __device__ __forceinline__ void rank_one(float* K, const float* ucol,
       *p = k;
     }
   }
+}
+
+// vq = [z | r] / dsafe: the row of an add's (or an equality replay's)
+// rank-one update, and, in its first half, the new N* column z / dsafe.
+// Returns after the barrier that publishes it.
+__device__ __forceinline__ void scaled_row(const Smem& S, int np,
+                                           float dsafe) {
+  for (int j = threadIdx.x; j < 2 * np; j += kThreads)
+    S.vq[j] = __fdiv_rn(S.zr[j], dsafe);
+  __syncthreads();
+}
+
+// vq = [-n_l* | w masked to the slots `keep`(k)] / wl: the row of a
+// removal's rank-one update. Returns after the barrier that publishes it.
+template <typename Keep>
+__device__ __forceinline__ void removal_row(const Smem& S, int np, float wl,
+                                            Keep keep) {
+  for (int j = threadIdx.x; j < 2 * np; j += kThreads) {
+    const int k = j - np;
+    const float vj = j < np ? -S.nl[j] : (keep(k) ? S.w[k] : 0.0f);
+    S.vq[j] = __fdiv_rn(vj, wl);
+  }
+  __syncthreads();
 }
 
 // n+ = sign (e_j | C[sc_idx]) of the candidate (sc_idx, sc_st) into npl.
@@ -345,15 +436,15 @@ __device__ __forceinline__ void candidate_normal(const Smem& S, int sc_idx,
 // after the barrier that publishes w.
 __device__ __forceinline__ float removal_vectors(const Smem& S, int lpos,
                                                  int np) {
-  const int np2 = 2 * np;
+  const int ldk = k_pitch(np);
   for (int i = threadIdx.x; i < np; i += kThreads)
-    S.nl[i] = S.K[i * np2 + np + lpos];
+    S.nl[i] = S.K[i * ldk + np + lpos];
   __syncthreads();
   for (int i = threadIdx.x; i < np; i += kThreads)
-    S.v[i] = row_dot(S.G, np, S.nl, np, i);
+    S.v[i] = row_dot(S.G, S.ldg, S.nl, np, i);
   __syncthreads();
   for (int k = threadIdx.x; k < np; k += kThreads)
-    S.w[k] = col_dot([&](int i) { return S.v[i]; }, S.K + np, np2, np, k);
+    S.w[k] = col_dot([&](int i) { return S.v[i]; }, S.K + np, ldk, np, k);
   __syncthreads();
   const float wl = S.w[lpos];
   return fabsf(wl) > 0.0f ? wl : 1.0f;
@@ -368,18 +459,9 @@ __device__ __forceinline__ float removal_vectors(const Smem& S, int lpos,
 __device__ __forceinline__ void remove_slot(const Smem& S, int lpos, int np,
                                             int mtp) {
   const float wl = removal_vectors(S, lpos, np);
-  rank_one(
-      S.K, S.nl, np, np + lpos,
-      [&](int j) {
-        const int k = j - np;
-        const float vj =
-            j < np ? -S.nl[j]
-                   : ((S.statk[k] != 0 && k != lpos)
-                          ? S.w[k]
-                          : 0.0f);
-        return __fdiv_rn(vj, wl);
-      },
-      [](int) { return 0.0f; });
+  removal_row(S, np, wl,
+              [&](int k) { return S.statk[k] != 0 && k != lpos; });
+  rank_one(S.K, S.nl, S.vq, np, np + lpos, [](int) { return 0.0f; });
   __syncthreads();
   if (threadIdx.x == 0) {
     const int rem_idx = clampi(S.aorder[lpos], 0, mtp - 1);
@@ -402,20 +484,12 @@ __device__ __forceinline__ void compact_remove(const Smem& S, int lpos, int q,
                                                float t, bool dual_step,
                                                int np, int mtp) {
   const int tid = threadIdx.x, lane = lane_id(), warp = warp_id();
-  const int np2 = 2 * np;
+  const int ldk = k_pitch(np);
   float* K = S.K;
   const int rem_idx = clampi(S.aorder[lpos], 0, mtp - 1);
   const float wl = removal_vectors(S, lpos, np);
-  rank_one(
-      K, S.nl, np, -1,
-      [&](int j) {
-        const int k = j - np;
-        const float vj =
-            j < np ? -S.nl[j]
-                   : ((k < q && k != lpos) ? S.w[k] : 0.0f);
-        return __fdiv_rn(vj, wl);
-      },
-      [](int) { return 0.0f; });
+  removal_row(S, np, wl, [&](int k) { return k < q && k != lpos; });
+  rank_one(K, S.nl, S.vq, np, -1, [](int) { return 0.0f; });
   for (int k = tid; k < np; k += kThreads) {
     float uk = sub_mul(S.u[k], t, S.zr[np + k]);
     if (k == q) uk = __fadd_rn(uk, t);
@@ -427,7 +501,7 @@ __device__ __forceinline__ void compact_remove(const Smem& S, int lpos, int q,
   // right, each chunk read into registers before it is written, so no
   // element is read after it was overwritten
   for (int i = warp; i < np; i += kWarps) {
-    float* row = K + i * np2 + np;
+    float* row = K + i * ldk + np;
     for (int k0 = lpos; k0 < np; k0 += 32) {
       const int k = k0 + lane;
       const float val = (k < np && k < q - 1) ? row[k + 1] : 0.0f;
@@ -466,18 +540,18 @@ __device__ __forceinline__ void compact_remove(const Smem& S, int lpos, int q,
 // finish_directions masks r.
 __device__ __forceinline__ void directions(const Smem& S, int np, int mp,
                                            int cand_idx, int cand_st) {
-  const int np2 = 2 * np;
+  const int np2 = 2 * np, ldk = k_pitch(np);
   const bool neg =
       cand_idx >= 0 && (cand_st == UPPER || cand_st == UPPER_BOUND);
   const int c = clampi(cand_idx, 0, mp - 1), e = cand_idx - mp;
   for (int j = threadIdx.x; j < np2; j += kThreads) {
     float z;
     if (cand_idx < 0)
-      z = col_dot([&](int k) { return S.npl[k]; }, S.K, np2, np, j);
+      z = col_dot([&](int k) { return S.npl[k]; }, S.K, ldk, np, j);
     else if (cand_st < LOWER_BOUND)
-      z = col_dot([&](int k) { return S.C[k * mp + c]; }, S.K, np2, np, j);
+      z = col_dot([&](int k) { return S.C[k * mp + c]; }, S.K, ldk, np, j);
     else
-      z = col_dot([&](int k) { return k == e ? 1.0f : 0.0f; }, S.K, np2, np,
+      z = col_dot([&](int k) { return k == e ? 1.0f : 0.0f; }, S.K, ldk, np,
                   j);
     S.zr[j] = neg ? -z : z;
   }
@@ -605,8 +679,9 @@ __device__ __forceinline__ void gi_loop(const Smem& S, int n, int m, int np,
         S.u[k] = uk;
         S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
       }
-      const auto scaled = [&](int j) { return __fdiv_rn(S.zr[j], dsafe); };
-      rank_one(K, S.zr, np, np + slot, scaled, scaled);
+      scaled_row(S, np, dsafe);
+      rank_one(K, S.zr, S.vq, np, np + slot,
+               [&](int i) { return S.vq[i]; });
       __syncthreads();
       if (tid == 0) {
         S.status[sc_idx] = sc_st;
@@ -648,7 +723,7 @@ __device__ __forceinline__ void write_out(
     float* x_out, float* u_out, int* status_out, int* aorder_out,
     int* scal_out, float* K_out, float* hscale_out) {
   const int tid = threadIdx.x;
-  const int np2 = 2 * np, mtp = mp + np;
+  const int np2 = 2 * np, ldk = k_pitch(np), mtp = mp + np;
   for (int k = tid; k < np; k += kThreads) {
     x_out[b * np + k] = S.x[k];
     u_out[b * np + k] = S.u[k];
@@ -656,8 +731,13 @@ __device__ __forceinline__ void write_out(
   }
   for (int i = tid; i < mtp; i += kThreads)
     status_out[b * mtp + i] = S.status[i];
-  for (int e = tid; e < np * np2; e += kThreads)
-    K_out[b * np * np2 + e] = S.K[e];
+  // K leaves its pitched rows as 16-byte stores: warps take rows, lanes
+  // float4 groups
+  float* Kb = K_out + b * np * np2;
+  for (int i = warp_id(); i < np; i += kWarps)
+    for (int c4 = lane_id(); c4 < (np2 >> 2); c4 += 32)
+      *reinterpret_cast<float4*>(Kb + i * np2 + 4 * c4) =
+          *reinterpret_cast<const float4*>(S.K + i * ldk + 4 * c4);
   if (tid == 0) {
     int* o = scal_out + b * 8;
     o[0] = sc.q;
@@ -674,27 +754,30 @@ __device__ __forceinline__ void write_out(
 
 // K4's closed form through the carried operator: x = K [-a; b_act],
 // u = ((a + G x)^T K)[np:] on active slots, 0 elsewhere (v is scratch).
-// Returns with x and u published.
-__device__ __forceinline__ void closed_form(const Smem& S, int np) {
+// Thread i owns output i, one chain in j order. Rows of K (pitch
+// k_pitch(np), conflict-free as float4) and of G (S.G at pitch S.ldg:
+// staged in shared memory by K4's prologue when it fits, else device
+// memory) are read four floats at a time; the last pass reads K by column.
+// The negated first half is exact: -(sum K a) has the bits of sum K (-a).
+// With wait_g, G is the second of three cp.async groups still in flight: it
+// is awaited behind the first pass, which does not read it. Returns with x
+// and u published.
+__device__ __forceinline__ void closed_form(const Smem& S, int np,
+                                            bool wait_g = false) {
   const int tid = threadIdx.x;
-  const int np2 = 2 * np;
+  const int ldk = k_pitch(np);
   const float* K = S.K;
-  for (int i = tid; i < np; i += kThreads) {
-    float acc = 0.0f;
-    for (int j = 0; j < np; ++j) acc += K[i * np2 + j] * -S.a[j];
-    for (int j = 0; j < np; ++j) acc += K[i * np2 + np + j] * S.bact[j];
-    S.x[i] = acc;
-  }
+  for (int i = tid; i < np; i += kThreads)
+    S.x[i] = row_dot(K + np, ldk, S.bact, np, i,
+                     -row_dot(K, ldk, S.a, np, i));
+  if (wait_g) copy_async_wait_group<1>();
   __syncthreads();
-  for (int i = tid; i < np; i += kThreads) {
-    float acc = 0.0f;
-    for (int j = 0; j < np; ++j) acc += S.G[i * np + j] * S.x[j];
-    S.v[i] = S.a[i] + acc;
-  }
+  for (int i = tid; i < np; i += kThreads)
+    S.v[i] = S.a[i] + row_dot(S.G, S.ldg, S.x, np, i);
   __syncthreads();
   for (int k = tid; k < np; k += kThreads) {
-    float acc = 0.0f;
-    for (int i = 0; i < np; ++i) acc += S.v[i] * K[i * np2 + np + k];
+    const float acc =
+        col_dot([&](int i) { return S.v[i]; }, K + np, ldk, np, k);
     S.u[k] = S.statk[k] != 0 ? acc : 0.0f;
   }
   __syncthreads();
@@ -715,7 +798,7 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   smem_layout(np, mp, smem_raw, &S);
   const long b = blockIdx.x;
   const int tid = threadIdx.x, lane = lane_id(), warp = warp_id();
-  const int np2 = 2 * np, mtp = mp + np;
+  const int ldk = k_pitch(np), mtp = mp + np;
   const float* Gb = G_in + b * np * np;
   S.G = Gb;
   float* K = S.K;
@@ -733,12 +816,12 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   copy_async_commit();
   for (int i = warp; i < np; i += kWarps)
     for (int c4 = lane; c4 < (np >> 2); c4 += 32)
-      *reinterpret_cast<float4*>(K + i * np2 + 4 * c4) =
+      *reinterpret_cast<float4*>(K + i * ldk + 4 * c4) =
           *reinterpret_cast<const float4*>(Gb + i * np + 4 * c4);
-  jrlqp::chol_block(K, np, np2);                // K's left half := L
+  jrlqp::chol_block(K, np, ldk);                // K's left half := L
   const float* Li = K + np;
-  jrlqp::tri_inv_block(K, np2, K + np, np2, np);  // right half := L^-1
-  const bool posdef = jrlqp::posdef_from_diag(K, np2, np);
+  jrlqp::tri_inv_block(K, ldk, K + np, ldk, np);  // right half := L^-1
+  const bool posdef = jrlqp::posdef_from_diag(K, ldk, np);
   __syncthreads();  // diag(L) is read before H0 overwrites it
   // H0 = L^-T L^-1 into the left half, each thread its (row, column) pairs
   for (int i = warp; i < np; i += kWarps)
@@ -747,18 +830,18 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
       if (posdef) {
         h = 0.0f;
         for (int k = max(i, j); k < np; ++k)
-          h = __fadd_rn(h, __fmul_rn(Li[k * np2 + i], Li[k * np2 + j]));
+          h = __fadd_rn(h, __fmul_rn(Li[k * ldk + i], Li[k * ldk + j]));
       }
-      K[i * np2 + j] = h;
+      K[i * ldk + j] = h;
     }
   copy_async_wait();
   __syncthreads();
   for (int i = warp; i < np; i += kWarps)
     for (int c4 = lane; c4 < (np >> 2); c4 += 32)
-      *reinterpret_cast<float4*>(K + i * np2 + np + 4 * c4) =
+      *reinterpret_cast<float4*>(K + i * ldk + np + 4 * c4) =
           make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int i = tid; i < np; i += kThreads) {
-    S.x[i] = posdef ? -row_dot(K, np2, S.a, np, i) : 0.0f;
+    S.x[i] = posdef ? -row_dot(K, ldk, S.a, np, i) : 0.0f;
     S.u[i] = 0.0f;
     S.npl[i] = 0.0f;
     S.statk[i] = 0;
@@ -766,7 +849,7 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   }
   for (int i = tid; i < mtp; i += kThreads) S.status[i] = 0;
   float tr = 0.0f;
-  for (int k = 0; k < np; ++k) tr += K[k * np2 + k];
+  for (int k = 0; k < np; ++k) tr += K[k * ldk + k];
   const float tr0 = fmaxf(tr, 1e-30f);
   const float dep_thr = __fmul_rn(2e-7f, tr0);
   __syncthreads();
@@ -817,8 +900,8 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
         S.u[k] = uk;
         S.x[k] = __fadd_rn(S.x[k], __fmul_rn(t, S.zr[k]));
       }
-      const auto scaled = [&](int j) { return __fdiv_rn(S.zr[j], dsafe); };
-      rank_one(K, S.zr, np, np + q, scaled, scaled);
+      scaled_row(S, np, dsafe);
+      rank_one(K, S.zr, S.vq, np, np + q, [&](int i) { return S.vq[i]; });
       __syncthreads();
       if (tid == 0) {
         S.status[idx] = st;
@@ -865,24 +948,24 @@ state_loop(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   extern __shared__ __align__(16) char smem_raw[];
   Smem S;
   smem_layout(np, mp, smem_raw, &S);
-  const int tid = threadIdx.x;
-  const int np2 = 2 * np, mtp = mp + np;
+  const int mtp = mp + np;
   const long b = blockIdx.x;
   S.G = G_in + b * np * np;
-  load_problem(S, b, Ct_in, l_in, u_in, xl_in, xu_in, np, mp);
-  for (int e = tid; e < np * np2; e += kThreads)
-    S.K[e] = K0_in[b * np * np2 + e];
-  for (int k = tid; k < np; k += kThreads) {
-    S.x[k] = x0_in[b * np + k];
-    S.u[k] = u0_in[b * np + k];
-    S.aorder[k] = aorder0_in[b * np + k];
-    S.statk[k] = statk0_in[b * np + k];
-  }
-  for (int i = tid; i < mtp; i += kThreads)
-    S.status[i] = status0_in[b * mtp + i];
+  // the whole state arrives by 16-byte cp.async (the loop's first step
+  // reads all of it); K takes its pitched rows (k_pitch)
+  load_C_async(S, b, Ct_in, np, mp);
+  load_bounds_async(S, b, l_in, u_in, xl_in, xu_in, np, mp);
+  copy_async_K(S.K, K0_in + b * np * 2 * np, np);
+  copy_async(S.x, x0_in + b * np, np);
+  copy_async(S.u, u0_in + b * np, np);
+  copy_async(S.aorder, aorder0_in + b * np, np);
+  copy_async(S.statk, statk0_in + b * np, np);
+  copy_async(S.status, status0_in + b * mtp, mtp);
+  copy_async_commit();
   const int* s0 = scal0_in + b * 8;
   Scal sc{s0[0], s0[1], s0[2], s0[3], s0[4], s0[5], s0[6]};
   const float hscale = hscale0_in[b];
+  copy_async_wait();
   __syncthreads();
   if (sc.skip1 != 0) {  // the pending candidate's normal, not zero
     candidate_normal(S, sc.sc_idx, sc.sc_st, np, mp);
@@ -947,6 +1030,29 @@ gi_compact_kernel(const float* __restrict__ G_in,
                     scal_out, K_out, hscale_out, n, m, np, mp, max_iter);
 }
 
+// K4. What bounds it: a warm step runs one or two loop iterations, so the
+// kernel is its entry and exit: 85 KB per problem through the SM (K in and
+// out, C^T, G) and a prologue of chained matrix-vector passes, each bound
+// by the latency of what it reads. Stamped with clock64 (PERF.md, section
+// 6), the first design spent a third of its life in the deactivations'
+// rank-one updates (divisions recomputed per row: see rank_one), a quarter
+// waiting for its inputs through scalar loads, and the rest in the chains.
+// The design: the inputs arrive by 16-byte cp.async in three groups -- K,
+// a, the bounds and the carried status and aorder, which the slots and the
+// closed form's first pass read; then G, into C^T's room at a pitch of
+// np + 4 (conflict-free float4 rows) when that room holds it (mp >= np +
+// 4), so the closed form and every deactivation read it from shared
+// memory; then the part of C^T behind that room. The head of C^T, which
+// only the loop reads, follows when the deactivations are done (where G
+// stays in device memory, all of C^T is the third group). The per-slot
+// statuses and signed active bounds are formed here from status, aorder
+// and the new bounds, so the host packs nothing; the closed form reads its
+// rows as conflict-free float4 with 16 steps of loads in flight
+// (closed_form, row_dot); one thread sums tr0 while the others run the
+// closed form; K leaves as float4 stores (write_out).
+// K0 may be K1's output, whose H carries the identity on its padded
+// diagonal: tr0 sums the n real entries (adding the zeros of a zero-padded
+// H changes no bit), and every other read of the padding meets a zero.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
                const float* __restrict__ l_in, const float* __restrict__ u_in,
@@ -956,8 +1062,6 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
                const float* __restrict__ K0_in,
                const int* __restrict__ status0_in,
                const int* __restrict__ aorder0_in,
-               const int* __restrict__ statk0_in,
-               const float* __restrict__ b0_in,
                const int* __restrict__ q0_in, float* __restrict__ x_out,
                float* __restrict__ u_out, int* __restrict__ status_out,
                int* __restrict__ aorder_out, int* __restrict__ scal_out,
@@ -967,27 +1071,63 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   Smem S;
   smem_layout(np, mp, smem_raw, &S);
   const int tid = threadIdx.x;
-  const int np2 = 2 * np, mtp = mp + np;
+  const int ldk = k_pitch(np), mtp = mp + np;
   const long b = blockIdx.x;
-  S.G = G_in + b * np * np;
-  load_problem(S, b, Ct_in, l_in, u_in, xl_in, xu_in, np, mp);
-  for (int e = tid; e < np * np2; e += kThreads)
-    S.K[e] = K0_in[b * np * np2 + e];
-  for (int k = tid; k < np; k += kThreads) {
-    S.a[k] = a_in[b * np + k];
-    S.bact[k] = b0_in[b * np + k];
-    S.aorder[k] = aorder0_in[b * np + k];
-    S.statk[k] = statk0_in[b * np + k];
-  }
-  for (int i = tid; i < mtp; i += kThreads)
-    S.status[i] = status0_in[b * mtp + i];
+  const float* Gb = G_in + b * np * np;
+  const bool stage_g = mp >= np + 4;  // G fits C^T's room at pitch np + 4
+  // three groups: what the slots and the closed form's first pass read;
+  // G; and C^T, or the part of it behind the staged G's room
+  const int g_room = stage_g ? np * (np + 4) : 0;
+  const float* Ctb = Ct_in + b * np * mp;
+  copy_async_K(S.K, K0_in + b * np * 2 * np, np);
+  copy_async(S.a, a_in + b * np, np);
+  load_bounds_async(S, b, l_in, u_in, xl_in, xu_in, np, mp);
+  copy_async(S.aorder, aorder0_in + b * np, np);
+  copy_async(S.status, status0_in + b * mtp, mtp);
+  copy_async_commit();
+  if (stage_g) copy_async_G(S.C, np + 4, Gb, np);
+  copy_async_commit();
+  copy_async(S.C + g_room, Ctb + g_room, np * mp - g_room);
+  copy_async_commit();
+  S.G = stage_g ? S.C : Gb;
+  S.ldg = stage_g ? np + 4 : np;
   int q = q0_in[b];
+  copy_async_wait_group<2>();  // K, a, the bounds, status and aorder
   __syncthreads();
-  // tr0 from the carried H, not from trace(G^-1)
-  float tr = 0.0f;
-  for (int k = 0; k < np; ++k) tr += S.K[k * np2 + k];
-  const float tr0 = fmaxf(tr, 1e-30f);
-  closed_form(S, np);
+  // The carry holds n slots, as the library's does: a padded slot that the
+  // last kernel left occupied (a lane that ended LINEAR_DEPENDENCY_DETECTED
+  // at q > n) comes in free, its N* column zero.
+  for (int e = tid; e < np * (np - n); e += kThreads)
+    S.K[(e / (np - n)) * ldk + np + n + e % (np - n)] = 0.0f;
+  // slot k: its status, and its signed active bound from the new bounds
+  // (LOWER / EQUALITY -> l, UPPER -> -u, LOWER_BOUND / FIXED -> xl,
+  // UPPER_BOUND -> -xu, clamped to +/-1e30; 0 on a free slot)
+  for (int k = tid; k < np; k += kThreads) {
+    int idx = S.aorder[k];
+    if (k >= n) S.aorder[k] = idx = -1;
+    int st = 0;
+    float bk = 0.0f;
+    if (idx >= 0) {
+      st = S.status[idx];
+      const float v = idx < mp ? (st == UPPER ? -S.up[idx] : S.lo[idx])
+                               : (st == UPPER_BOUND ? -S.xup[idx - mp]
+                                                    : S.xlo[idx - mp]);
+      bk = fminf(fmaxf(v, -BIG), BIG);
+    }
+    S.statk[k] = st;
+    S.bact[k] = bk;
+  }
+  __syncthreads();
+  // tr0 from the carried H, not from trace(G^-1): one chain in k order,
+  // by a thread that is idle in the closed form when np < kThreads; the
+  // closed form's barriers publish it
+  if (tid == kThreads - 1) {
+    float tr = 0.0f;
+    for (int k = 0; k < n; ++k) tr += S.K[k * ldk + k];
+    S.zr[0] = tr;
+  }
+  closed_form(S, np, true);
+  const float tr0 = fmaxf(S.zr[0], 1e-30f);
 
   // u < -1e-5 deactivations, one slot at a time, lowest slot on ties
   int it = 0, parity = 0;
@@ -1009,6 +1149,16 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
     ++it;
   }
 
+  if (stage_g) {
+    // every read of the staged G lies before the last barrier: the head of
+    // C^T takes its room
+    copy_async(S.C, Ctb, g_room);
+    copy_async_commit();
+    S.G = Gb;
+    S.ldg = np;
+  }
+  copy_async_wait();  // C^T
+  __syncthreads();
   Scal sc{q, it, RUNNING, 0, -1, 0, q};
   gi_loop<false>(S, n, m, np, mp, max_iter, tr0, sc, parity);
   write_out(S, b, np, mp, sc, tr0, x_out, u_out, status_out, aorder_out,
@@ -1119,7 +1269,6 @@ extern "C" int jrlqp_gi_warm(const void* G, const void* Ct, const void* l,
                              const void* u, const void* xl, const void* xu,
                              const void* a, const void* K0,
                              const void* status0, const void* aorder0,
-                             const void* statk0, const void* b0,
                              const void* q0, void* x_out, void* u_out,
                              void* status_out, void* aorder_out,
                              void* scal_out, void* K_out, void* hscale_out,
@@ -1133,7 +1282,7 @@ extern "C" int jrlqp_gi_warm(const void* G, const void* Ct, const void* l,
         (const float*)G, (const float*)Ct, (const float*)l, (const float*)u,
         (const float*)xl, (const float*)xu, (const float*)a,
         (const float*)K0, (const int*)status0, (const int*)aorder0,
-        (const int*)statk0, (const float*)b0, (const int*)q0, (float*)x_out,
+        (const int*)q0, (float*)x_out,
         (float*)u_out, (int*)status_out, (int*)aorder_out, (int*)scal_out,
         (float*)K_out, (float*)hscale_out, n, m, np, mp, max_iter);
   return (int)cudaGetLastError();

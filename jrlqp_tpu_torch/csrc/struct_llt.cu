@@ -19,13 +19,31 @@
 // running Schur term) in shared memory: 4-5 s x s floats, ~30-37 KB at
 // s = 43, so several problems share an SM and hide each other's barriers.
 // They reuse K2's device functions chol_block and tri_inv_block.
-// A solve (K6, K8) runs 2 nb dependent block gemms, but its rhs columns are
-// independent and, on the structured path, the rhs is the identity
+// A solve (K6, K8) runs 2 nb dependent block products, but its rhs columns
+// are independent and, on the structured path, the rhs is the identity
 // (k = n = 387): one problem's rhs is 600 KB, too much for one block. So
-// the grid is (problem, tile of kTile rhs columns); each block runs the
-// forward and the backward chain on its tile with the factor blocks staged
-// in shared memory, and keeps the forward results in the output buffer in
-// device memory, which only that block reads back. Nothing crosses blocks.
+// the grid is (problem, tile of T rhs columns); each block runs the forward
+// and the backward chain on its tile and keeps the forward results in the
+// output buffer in device memory, which only that block reads back.
+// Nothing crosses blocks. By the count, a solve is bound by its operations:
+// (6 nb - 4) s^2 f32 FMAs per rhs column, 36.6 GFLOP at the IK shape, to
+// the bytes' 1.3 GB. The products are IEEE f32 (the port keeps TF32 off,
+// and wgmma has no IEEE f32 mode), so the unit to fill is the FMA pipe, and
+// the design feeds it from registers: each thread owns a 4 x 4 unit of a
+// product and does 16 FMAs per two 16-byte shared loads (the tile products
+// below); T is chosen from k so that the tiles are few and even (387 =
+// 3 x 129 in tiles of 132, no tile of 3 columns that would stage every
+// block and pass every barrier, and each block staged 3 times, not 7);
+// the next step's operand blocks and rhs tile arrive by cp.async while
+// this step's products run; and a tile that is exactly zero, with nothing
+// coupled into it, is not multiplied (its result is zero for finite
+// factors): with the identity as rhs that is most of K8's forward heads
+// and K6's forward chain above the tile's own block row.
+// What bounds them now, measured on an H100 (PERF.md, section 6): of K8's
+// 2.4 ms at the IK shape the FMAs are ~0.5, and ~1 ms is the staging: an
+// s x s block of odd s starts at no 16-byte boundary, so operands and
+// tiles come in by 4-byte cp.async, the forward operands transposed on the
+// way. The rest is barriers, the zero tests and the stores.
 //
 // Up arrows: the Pallas wrappers roll the diagonal blocks (and the rhs) by
 // -1 before the kernel and the solution by +1 after it; here the kernels
@@ -38,8 +56,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;  // rhs columns per thread block in K6 and K8
+constexpr int kThreads = 256;  // K5 and K7
 
 // Y[r][c] = sum_{k < kend} P[r][k] Q[c][k] (+ Y[r][c] when accumulate),
 // for s x s blocks; kend = c + 1 when Q is lower triangular, else s.
@@ -54,56 +71,224 @@ __device__ void mm_nt(const float* P, const float* Q, float* Y, int s,
   }
 }
 
-// Y = R + alpha op(A) X for an s x s lower-triangular block A and s x tk
-// tiles X, R, Y of row stride kTile; op(A) is A or A^T. The zero half of A
-// is skipped. R may be Y; X may not.
-__device__ void tri_mm(const float* A, bool trans, const float* X,
-                       const float* R, float alpha, float* Y, int s, int tk) {
-  for (int e = threadIdx.x; e < s * tk; e += blockDim.x) {
-    const int r = e / tk, c = e % tk;
-    float acc = 0.0f;
-    if (trans) {
-      for (int k = r; k < s; ++k) acc = fmaf(A[k * s + r], X[k * kTile + c], acc);
-    } else {
-      for (int k = 0; k <= r; ++k) acc = fmaf(A[r * s + k], X[k * kTile + c], acc);
-    }
-    const float base = R ? R[r * kTile + c] : 0.0f;
-    Y[r * kTile + c] = base + alpha * acc;
-  }
-}
-
-// Y = R - op(A) X for a full s x s block A (as tri_mm without the skip).
-__device__ void full_mm_sub(const float* A, bool trans, const float* X,
-                            const float* R, float* Y, int s, int tk) {
-  for (int e = threadIdx.x; e < s * tk; e += blockDim.x) {
-    const int r = e / tk, c = e % tk;
-    float acc = 0.0f;
-    for (int k = 0; k < s; ++k) {
-      const float a = trans ? A[k * s + r] : A[r * s + k];
-      acc = fmaf(a, X[k * kTile + c], acc);
-    }
-    Y[r * kTile + c] = R[r * kTile + c] - acc;
-  }
-}
-
 __device__ void load_block(const float* src, float* dst, int n) {
   for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
 }
 
-// rhs tile (rows of block i, columns c0 .. c0 + tk) <-> shared s x kTile
-__device__ void load_tile(const float* src, float* dst, int s, int k, int tk) {
-  for (int e = threadIdx.x; e < s * tk; e += blockDim.x) {
-    const int r = e / tk, c = e % tk;
-    dst[r * kTile + c] = src[(long)r * k + c];
+// ---------------------------------------------------------------------------
+// The solves' tile products (K6, K8). A thread block owns a tile of T rhs
+// columns of one problem; a thread owns a 4 x 4 unit of each s x T product:
+// rows r0 .. r0 + 3, columns c0 .. c0 + 3. The left operand op(A) is staged
+// k-major (At[k][r] = op(A)[r][k], row pitch sp = s rounded up to 4), so one
+// float4 holds op(A) for the unit's four rows at depth k, broadcast to the
+// lanes that share the rows, and one float4 of the tile holds its four
+// columns: 16 FMAs per two 16-byte shared loads. The zero half of a
+// triangular block is skipped as a range of k per row group.
+// ---------------------------------------------------------------------------
+
+// The widest rhs tile. Every tile of a problem stages all of its operand
+// blocks, so wide tiles stage less: at the IK shape 3 tiles of 132 columns
+// in one block of 384 threads per SM were 12-14% faster than 7 tiles of 56
+// in three blocks of 160 (PERF.md, section 6), and 2 tiles do not fit.
+constexpr int kSolveTileMax = 132;
+// A solve block has at most this many threads; __launch_bounds__ of it
+// holds the kernels to 128 registers.
+constexpr int kSolveBoundThreads = 512;
+constexpr int kSmemLimit = 232448;    // dynamic shared memory per block
+
+__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+
+// Floats of shared memory of a solve block: two stages of two s x sp
+// operand blocks, two staged tiles and two working tiles of s x T.
+__host__ __device__ inline size_t solve_smem_floats(int s, int T) {
+  return 4 * (size_t)s * round4(s) + 4 * (size_t)s * T;
+}
+
+// Tile width for k rhs columns: the fewest tiles no wider than
+// kSolveTileMax (or than shared memory and the thread bound allow at this
+// s), made even (387 -> 3 x 132, not 2 x 132 + 123), rounded up to a
+// multiple of 4.
+__host__ __device__ inline int solve_tile(int k, int s) {
+  int tmax = kSolveTileMax;
+  while (tmax > 4 &&
+         (solve_smem_floats(s, tmax) * 4 > (size_t)kSmemLimit ||
+          (round4(s) / 4) * (tmax / 4) > kSolveBoundThreads))
+    tmax -= 4;
+  const int nt = (k + tmax - 1) / tmax;
+  return round4((k + nt - 1) / nt);
+}
+
+// Threads of a solve block: one per unit, a whole number of warps.
+__host__ __device__ inline int solve_threads(int s, int T) {
+  return ((round4(s) / 4) * (T / 4) + 31) / 32 * 32;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Stage the s x s row-major block A of device memory k-major for
+// op(A) = A (At[k][r] = A[r][k], a transposing copy) or, with trans,
+// op(A) = A^T (At[k][r] = A[k][r], a straight copy), by 4-byte cp.async (a
+// block of odd s starts at no 16-byte boundary). With lower, what lies
+// above A's diagonal is staged as zero whatever the source holds. Warps
+// take rows of A, lanes its columns.
+__device__ __forceinline__ void stage_block(float* At, const float* A, int s,
+                                            int sp, bool trans, bool lower) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int i = warp; i < s; i += nwarps)
+    for (int j = lane; j < s; j += 32) {
+      float* dst = trans ? At + i * sp + j : At + j * sp + i;
+      if (lower && j > i) *dst = 0.0f;
+      else cp_async4(dst, A + i * s + j);
+    }
+}
+
+// Stage s rows of tk columns of the rhs (row stride k in device memory)
+// into a tile of row pitch T.
+__device__ __forceinline__ void stage_tile(float* tile, const float* src,
+                                           int s, int k, int tk, int T) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < s; r += nwarps)
+    for (int c = lane; c < tk; c += 32)
+      cp_async4(tile + r * T + c, src + (long)r * k + c);
+}
+
+// Block-uniform: does the staged tile hold a nonzero (or NaN) entry? A
+// barrier.
+__device__ __forceinline__ bool tile_nonzero(const float* tile, int s, int tk,
+                                             int T) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int nz = 0;
+  for (int r = warp; r < s; r += nwarps)
+    for (int c = lane; c < tk; c += 32) nz |= !(tile[r * T + c] == 0.0f);
+  return __syncthreads_or(nz) != 0;
+}
+
+struct Unit {
+  float v[4][4];
+};
+
+__device__ __forceinline__ void unit_zero(Unit& u) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) u.v[i][j] = 0.0f;
+}
+
+// acc += sum over k in [k0, k1) of At[k][r0 ..] X[k][c0 ..]^T.
+__device__ __forceinline__ void unit_mac(Unit& acc, const float* At, int sp,
+                                         const float* X, int T, int r0,
+                                         int c0, int k0, int k1) {
+  const float* ap = At + k0 * sp + r0;
+  const float* xp = X + k0 * T + c0;
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k, ap += sp, xp += T) {
+    const float4 a = *reinterpret_cast<const float4*>(ap);
+    const float4 x = *reinterpret_cast<const float4*>(xp);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc.v[i][j] = fmaf(av[i], xv[j], acc.v[i][j]);
   }
 }
 
-__device__ void store_tile(const float* src, float* dst, int s, int k,
-                           int tk) {
-  for (int e = threadIdx.x; e < s * tk; e += blockDim.x) {
-    const int r = e / tk, c = e % tk;
-    dst[(long)r * k + c] = src[r * kTile + c];
+// The unit's rows of a shared tile; rows at or beyond s are not touched.
+__device__ __forceinline__ void unit_get(Unit& u, const float* tile, int T,
+                                         int r0, int c0, int s) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r0 + i < s) t = *reinterpret_cast<const float4*>(tile + (r0 + i) * T + c0);
+    u.v[i][0] = t.x;
+    u.v[i][1] = t.y;
+    u.v[i][2] = t.z;
+    u.v[i][3] = t.w;
   }
+}
+
+__device__ __forceinline__ void unit_put(const Unit& u, float* tile, int T,
+                                         int r0, int c0, int s) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (r0 + i < s)
+      *reinterpret_cast<float4*>(tile + (r0 + i) * T + c0) =
+          make_float4(u.v[i][0], u.v[i][1], u.v[i][2], u.v[i][3]);
+}
+
+// The unit's valid entries to the output in device memory (row stride k).
+__device__ __forceinline__ void unit_store(const Unit& u, float* dst, int k,
+                                           int r0, int c0, int s, int tk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (r0 + i < s && c0 + j < tk) dst[(long)(r0 + i) * k + c0 + j] = u.v[i][j];
+}
+
+// a := b - a
+__device__ __forceinline__ void unit_rsub(Unit& a, const Unit& b) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a.v[i][j] = b.v[i][j] - a.v[i][j];
+}
+
+// The shared memory of a solve block and this thread's unit.
+struct SolveCtx {
+  float* A0;       // operand blocks, k-major, s x sp each: see A()
+  float* X0;       // the staged rhs (or forward-result) tiles: see X()
+  float *U, *V;    // working tiles
+  int s, sp, T, tk, k;
+  int r0, c0;      // this thread's unit
+  bool live;       // the unit lies inside the tile
+  // k ranges of the unit's products with a staged lower block L: [0, kn)
+  // for L, [kt, s) for L^T
+  int kn, kt;
+  // stage st (0 or 1), slot sl (0 or 1); computed, not looked up, so the
+  // struct stays in registers
+  __device__ __forceinline__ float* A(int st, int sl) const {
+    return A0 + (2 * st + sl) * s * sp;
+  }
+  __device__ __forceinline__ float* X(int st) const {
+    return X0 + st * s * T;
+  }
+};
+
+__device__ __forceinline__ SolveCtx solve_ctx(float* smem, int s, int k) {
+  SolveCtx c;
+  c.s = s;
+  c.sp = round4(s);
+  c.k = k;
+  c.T = solve_tile(k, s);
+  c.tk = min(c.T, k - (int)blockIdx.y * c.T);
+  c.A0 = smem;
+  c.X0 = smem + 4 * s * c.sp;
+  c.U = c.X0 + 2 * s * c.T;
+  c.V = c.U + s * c.T;
+  const int cgs = c.T / 4;
+  c.r0 = 4 * ((int)threadIdx.x / cgs);
+  c.c0 = 4 * ((int)threadIdx.x % cgs);
+  c.live = c.r0 < s;
+  c.kn = min(c.r0 + 4, s);
+  c.kt = min(c.r0, s);
+  return c;
 }
 
 // K5: L_i = chol(D_i - S'_{i-1} S'_{i-1}^T), S'_i = S_i L_i^-T, and L_i^-1.
@@ -111,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
 tri_llt_kernel(const float* __restrict__ diag, const float* __restrict__ off,
                float* __restrict__ Ld, float* __restrict__ Lo,
                float* __restrict__ Li, int nb, int s) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int ss = s * s;
   float* a = smem;       // the block being factored, then L_i
   float* x = a + ss;     // L_i^-1
@@ -153,7 +338,7 @@ __global__ void __launch_bounds__(kThreads)
 arrow_llt_kernel(const float* __restrict__ diag, const float* __restrict__ side,
                  float* __restrict__ Ld, float* __restrict__ Lo,
                  float* __restrict__ Li, int nb, int s, int up) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int ss = s * s;
   float* a = smem;       // the block being factored, then L_i
   float* x = a + ss;     // L_i^-1
@@ -194,53 +379,98 @@ arrow_llt_kernel(const float* __restrict__ diag, const float* __restrict__ side,
 // K6: y = G^-1 r by the forward chain y_i = L_i^-1 (r_i - S'_{i-1} y_{i-1})
 // and the backward chain w_i = L_i^-T (y_i - S'_i^T w_{i+1}); with
 // lower_only, y = L^-1 r (the forward chain alone). One thread block per
-// (problem, tile of kTile rhs columns).
-__global__ void __launch_bounds__(kThreads)
+// (problem, tile of T rhs columns). Step t's operand blocks and tile are
+// staged by cp.async while step t - 1's products run. A step whose rhs
+// tile and incoming chain tile are both exactly zero is skipped, its
+// result being zero (exact for finite factors): with the identity as rhs
+// the forward chain is zero above the tile's own block row. The forward
+// results go to the output buffer and come back for the backward chain;
+// only this block reads them.
+__global__ void __launch_bounds__(kSolveBoundThreads)
 tri_solve_kernel(const float* __restrict__ Lo, const float* __restrict__ Li,
                  const float* __restrict__ r, float* y, int nb, int s, int k,
                  int lower_only) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  const SolveCtx c = solve_ctx(smem, s, k);
   const int ss = s * s;
-  float* li = smem;        // L_i^-1
-  float* lo = li + ss;     // S'_{i-1} (forward) or S'_i (backward)
-  float* t1 = lo + ss;     // rhs tile
-  float* t2 = t1 + s * kTile;  // y_{i-1} (forward) or w_{i+1} (backward)
   const long b = blockIdx.x;
-  const int c0 = blockIdx.y * kTile;
-  const int tk = min(kTile, k - c0);
+  const long col0 = (long)blockIdx.y * c.T;
   const float* LO = Lo + b * (nb - 1) * ss;
   const float* LI = Li + b * nb * ss;
   const long bs = (long)s * k;  // one block row of the rhs
-  const float* R = r + b * nb * bs + c0;
-  float* Y = y + b * nb * bs + c0;
-  for (int i = 0; i < nb; ++i) {
-    __syncthreads();
-    load_block(LI + (long)i * ss, li, ss);
-    if (i > 0) load_block(LO + (long)(i - 1) * ss, lo, ss);
-    load_tile(R + i * bs, t1, s, k, tk);
-    __syncthreads();
-    if (i > 0) {
-      full_mm_sub(lo, false, t2, t1, t1, s, tk);
-      __syncthreads();
+  const float* R = r + b * nb * bs + col0;
+  float* Y = y + b * nb * bs + col0;
+  const int nsteps = lower_only ? nb : 2 * nb;
+  unsigned long long zero = 0;  // forward results known to be zero (i < 64)
+  auto is_zero = [&](int i) { return i < 64 && ((zero >> i) & 1ull); };
+  // step t < nb: forward block t; else backward block 2 nb - 1 - t
+  auto prefetch = [&](int t) {
+    const int st = t & 1;
+    if (t < nb) {
+      stage_block(c.A(st, 0), LI + (long)t * ss, s, c.sp, false, true);
+      if (t > 0)
+        stage_block(c.A(st, 1), LO + (long)(t - 1) * ss, s, c.sp, false,
+                    false);
+      stage_tile(c.X(st), R + t * bs, s, k, c.tk, c.T);
+    } else {
+      const int i = 2 * nb - 1 - t;
+      stage_block(c.A(st, 0), LI + (long)i * ss, s, c.sp, true, true);
+      if (i < nb - 1)
+        stage_block(c.A(st, 1), LO + (long)i * ss, s, c.sp, true, false);
+      // block nb - 1's forward result is still in U when its backward
+      // step runs (and not yet in Y when that step is staged)
+      if (i < nb - 1 && !is_zero(i))
+        stage_tile(c.X(st), Y + i * bs, s, k, c.tk, c.T);
     }
-    tri_mm(li, false, t1, nullptr, 1.0f, t2, s, tk);
+    cp_async_commit();
+  };
+  prefetch(0);
+  bool chain_zero = true;  // the incoming chain tile (in U) is zero
+  Unit acc;
+  for (int t = 0; t < nsteps; ++t) {
+    cp_async_wait();
     __syncthreads();
-    store_tile(t2, Y + i * bs, s, k, tk);
-  }
-  if (lower_only) return;
-  for (int i = nb - 1; i >= 0; --i) {
-    __syncthreads();
-    load_block(LI + (long)i * ss, li, ss);
-    if (i < nb - 1) load_block(LO + (long)i * ss, lo, ss);
-    load_tile(Y + i * bs, t1, s, k, tk);  // this block's forward y_i
-    __syncthreads();
-    if (i < nb - 1) {
-      full_mm_sub(lo, true, t2, t1, t1, s, tk);
-      __syncthreads();
+    if (t + 1 < nsteps) prefetch(t + 1);
+    const int st = t & 1;
+    const bool fwd = t < nb;
+    const int i = fwd ? t : 2 * nb - 1 - t;
+    if (t == nb) chain_zero = true;  // the backward chain starts uncoupled
+    bool own_zero;
+    // the mask records 64 skipped blocks: a forward block beyond it is
+    // computed and stored like a nonzero one, so the backward chain
+    // always finds it in Y
+    if (fwd) own_zero = i < 64 && !tile_nonzero(c.X(st), s, c.tk, c.T);
+    else own_zero = is_zero(i);
+    if (own_zero && chain_zero) {
+      // the result is zero: nothing to multiply
+      if (fwd) zero |= 1ull << i;
+      if (!fwd || lower_only) {
+        unit_zero(acc);
+        if (c.live) unit_store(acc, Y + i * bs, k, c.r0, c.c0, s, c.tk);
+      }
+      continue;
     }
-    tri_mm(li, true, t1, nullptr, 1.0f, t2, s, tk);
+    // V = own - coupling . chain
+    if (c.live) {
+      unit_zero(acc);
+      if (!chain_zero)
+        unit_mac(acc, c.A(st, 1), c.sp, c.U, c.T, c.r0, c.c0, 0, s);
+      Unit own;
+      if (own_zero) unit_zero(own);
+      else unit_get(own, t == nb ? c.U : c.X(st), c.T, c.r0, c.c0, s);
+      unit_rsub(acc, own);
+      unit_put(acc, c.V, c.T, c.r0, c.c0, s);
+    }
     __syncthreads();
-    store_tile(t2, Y + i * bs, s, k, tk);
+    // U = op(L_i^-1) V: the new chain tile, and the result
+    if (c.live) {
+      unit_zero(acc);
+      unit_mac(acc, c.A(st, 0), c.sp, c.V, c.T, c.r0, c.c0, fwd ? 0 : c.kt,
+               fwd ? c.kn : s);
+      unit_put(acc, c.U, c.T, c.r0, c.c0, s);
+      unit_store(acc, Y + i * bs, k, c.r0, c.c0, s, c.tk);
+    }
+    chain_zero = false;
   }
 }
 
@@ -248,67 +478,116 @@ tri_solve_kernel(const float* __restrict__ Lo, const float* __restrict__ Li,
 // coupling B_i y_i gathers into the last block, y_last = L_last^-1 (r_last
 // - sum B_i y_i); backward: w_last = L_last^-T y_last, then each head
 // w_i = L_i^-T (y_i - B_i^T w_last). With up, rhs and solution block j of
-// the rolled system are block (j + 1) % nb.
-__global__ void __launch_bounds__(kThreads)
+// the rolled system are block (j + 1) % nb. Tiling, staging and the skip of
+// exactly-zero tiles as in K6: a head whose rhs tile is zero has y_i = 0,
+// so its two forward products are skipped and its y_i is neither written
+// nor read back (with the identity as rhs, all heads but the two or three
+// that meet the tile's columns). The sum of B_i y_i stays in each thread's
+// registers across the heads.
+__global__ void __launch_bounds__(kSolveBoundThreads)
 arrow_solve_kernel(const float* __restrict__ Lo, const float* __restrict__ Li,
                    const float* __restrict__ r, float* y, int nb, int s,
                    int k, int up) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  const SolveCtx c = solve_ctx(smem, s, k);
   const int ss = s * s;
-  float* li = smem;             // L_i^-1
-  float* lo = li + ss;          // B_i
-  float* t1 = lo + ss;          // rhs tile
-  float* t2 = t1 + s * kTile;   // y_i
-  float* t3 = t2 + s * kTile;   // sum B_i y_i, then w_last
   const long b = blockIdx.x;
-  const int c0 = blockIdx.y * kTile;
-  const int tk = min(kTile, k - c0);
+  const long col0 = (long)blockIdx.y * c.T;
   const float* LO = Lo + b * (nb - 1) * ss;
   const float* LI = Li + b * nb * ss;
   const long bs = (long)s * k;
-  const float* R = r + b * nb * bs + c0;
-  float* Y = y + b * nb * bs + c0;
-  for (int e = threadIdx.x; e < s * kTile; e += blockDim.x) t3[e] = 0.0f;
-  for (int i = 0; i < nb - 1; ++i) {
-    const int p = up ? (i + 1) % nb : i;
-    __syncthreads();
-    load_block(LI + (long)i * ss, li, ss);
-    load_block(LO + (long)i * ss, lo, ss);
-    load_tile(R + p * bs, t1, s, k, tk);
-    __syncthreads();
-    tri_mm(li, false, t1, nullptr, 1.0f, t2, s, tk);
-    __syncthreads();
-    store_tile(t2, Y + p * bs, s, k, tk);
-    full_mm_sub(lo, false, t2, t3, t3, s, tk);  // t3 -= B_i y_i
-  }
+  const float* R = r + b * nb * bs + col0;
+  float* Y = y + b * nb * bs + col0;
+  const int nh = nb - 1;           // heads
+  const int nsteps = 2 * nh + 1;   // heads forward, the last block, heads back
   const int pl = up ? 0 : nb - 1;  // (nb - 1 + 1) % nb when up
-  __syncthreads();
-  load_block(LI + (long)(nb - 1) * ss, li, ss);
-  load_tile(R + pl * bs, t1, s, k, tk);
-  __syncthreads();
-  // t3 holds -sum B_i y_i, so r_last - sum B_i y_i = r_last + t3
-  for (int e = threadIdx.x; e < s * tk; e += blockDim.x) {
-    const int rr = e / tk, c = e % tk;
-    t1[rr * kTile + c] += t3[rr * kTile + c];
-  }
-  __syncthreads();
-  tri_mm(li, false, t1, nullptr, 1.0f, t2, s, tk);   // y_last
-  __syncthreads();
-  tri_mm(li, true, t2, nullptr, 1.0f, t3, s, tk);    // w_last
-  __syncthreads();
-  store_tile(t3, Y + pl * bs, s, k, tk);
-  for (int i = 0; i < nb - 1; ++i) {
-    const int p = up ? (i + 1) % nb : i;
+  auto place = [&](int i) { return up ? (i + 1) % nb : i; };
+  unsigned long long zero = 0;     // heads whose y_i is zero (i < 64)
+  auto is_zero = [&](int i) { return i < 64 && ((zero >> i) & 1ull); };
+  auto prefetch = [&](int t) {
+    const int st = t & 1;
+    if (t < nh) {
+      stage_block(c.A(st, 0), LI + (long)t * ss, s, c.sp, false, true);
+      stage_block(c.A(st, 1), LO + (long)t * ss, s, c.sp, false, false);
+      stage_tile(c.X(st), R + place(t) * bs, s, k, c.tk, c.T);
+    } else if (t == nh) {
+      // L_last^-1 both ways: for y_last and for w_last
+      stage_block(c.A(st, 0), LI + (long)nh * ss, s, c.sp, false, true);
+      stage_block(c.A(st, 1), LI + (long)nh * ss, s, c.sp, true, true);
+      stage_tile(c.X(st), R + pl * bs, s, k, c.tk, c.T);
+    } else {
+      const int i = t - nb;
+      stage_block(c.A(st, 0), LI + (long)i * ss, s, c.sp, true, true);
+      stage_block(c.A(st, 1), LO + (long)i * ss, s, c.sp, true, false);
+      if (!is_zero(i))
+        stage_tile(c.X(st), Y + place(i) * bs, s, k, c.tk, c.T);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  Unit sum, acc;  // sum: this unit of sum B_i y_i
+  unit_zero(sum);
+  for (int t = 0; t < nsteps; ++t) {
+    cp_async_wait();
     __syncthreads();
-    load_block(LI + (long)i * ss, li, ss);
-    load_block(LO + (long)i * ss, lo, ss);
-    load_tile(Y + p * bs, t1, s, k, tk);  // this block's head y_i
-    __syncthreads();
-    full_mm_sub(lo, true, t3, t1, t1, s, tk);
-    __syncthreads();
-    tri_mm(li, true, t1, nullptr, 1.0f, t2, s, tk);
-    __syncthreads();
-    store_tile(t2, Y + p * bs, s, k, tk);
+    if (t + 1 < nsteps) prefetch(t + 1);
+    const int st = t & 1;
+    if (t < nh) {
+      // head t forward: y = L^-1 r into U and the output, sum += B y
+      // (a head beyond the mask's 64 is computed and stored whatever its
+      // tile holds, so its backward step always finds y_i in Y)
+      if (t < 64 && !tile_nonzero(c.X(st), s, c.tk, c.T)) {
+        zero |= 1ull << t;
+        continue;
+      }
+      if (c.live) {
+        unit_zero(acc);
+        unit_mac(acc, c.A(st, 0), c.sp, c.X(st), c.T, c.r0, c.c0, 0, c.kn);
+        unit_put(acc, c.U, c.T, c.r0, c.c0, s);
+        unit_store(acc, Y + place(t) * bs, k, c.r0, c.c0, s, c.tk);
+      }
+      __syncthreads();
+      if (c.live)
+        unit_mac(sum, c.A(st, 1), c.sp, c.U, c.T, c.r0, c.c0, 0, s);
+    } else if (t == nh) {
+      // V = r_last - sum; U = y_last = L^-1 V; V = w_last = L^-T U
+      if (c.live) {
+        unit_get(acc, c.X(st), c.T, c.r0, c.c0, s);
+        unit_rsub(sum, acc);
+        unit_put(sum, c.V, c.T, c.r0, c.c0, s);
+      }
+      __syncthreads();
+      if (c.live) {
+        unit_zero(acc);
+        unit_mac(acc, c.A(st, 0), c.sp, c.V, c.T, c.r0, c.c0, 0, c.kn);
+        unit_put(acc, c.U, c.T, c.r0, c.c0, s);
+      }
+      __syncthreads();
+      if (c.live) {
+        unit_zero(acc);
+        unit_mac(acc, c.A(st, 1), c.sp, c.U, c.T, c.r0, c.c0, c.kt, s);
+        unit_put(acc, c.V, c.T, c.r0, c.c0, s);
+        unit_store(acc, Y + pl * bs, k, c.r0, c.c0, s, c.tk);
+      }
+    } else {
+      // head i backward: U = y_i - B_i^T w_last, w_i = L_i^-T U
+      const int i = t - nb;
+      if (c.live) {
+        unit_zero(acc);
+        unit_mac(acc, c.A(st, 1), c.sp, c.V, c.T, c.r0, c.c0, 0, s);
+        Unit own;
+        if (is_zero(i)) unit_zero(own);
+        else unit_get(own, c.X(st), c.T, c.r0, c.c0, s);
+        unit_rsub(acc, own);
+        unit_put(acc, c.U, c.T, c.r0, c.c0, s);
+      }
+      __syncthreads();
+      if (c.live) {
+        unit_zero(acc);
+        unit_mac(acc, c.A(st, 0), c.sp, c.U, c.T, c.r0, c.c0, c.kt, s);
+        unit_store(acc, Y + place(i) * bs, k, c.r0, c.c0, s, c.tk);
+      }
+    }
   }
 }
 
@@ -346,35 +625,65 @@ extern "C" int jrlqp_block_arrow_llt(const void* diag, const void* side,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <typename Kernel>
+int launch_solve(Kernel kernel, const void* Lo, const void* Li, const void* r,
+                 void* y, int B, int nb, int s, int k, int flag,
+                 void* stream) {
+  if (B <= 0 || k <= 0) return (int)cudaGetLastError();
+  const int T = solve_tile(k, s);
+  const size_t smem = solve_smem_floats(s, T) * sizeof(float);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B, (k + T - 1) / T);
+  const int threads = solve_threads(s, T);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)Lo, (const float*)Li, (const float*)r, (float*)y, nb, s,
+      k, flag);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int jrlqp_tri_block_solve(const void* Lo, const void* Li,
                                      const void* r, void* y, int B, int nb,
                                      int s, int k, int lower_only,
                                      void* stream) {
-  const size_t smem = (2 * (size_t)s * s + 2 * (size_t)s * kTile)
-                      * sizeof(float);
-  cudaError_t err = set_smem(tri_solve_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0 && k > 0) {
-    const dim3 grid(B, (k + kTile - 1) / kTile);
-    tri_solve_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)Lo, (const float*)Li, (const float*)r, (float*)y, nb, s,
-        k, lower_only);
-  }
-  return (int)cudaGetLastError();
+  return launch_solve(tri_solve_kernel, Lo, Li, r, y, B, nb, s, k, lower_only,
+                      stream);
 }
 
 extern "C" int jrlqp_block_arrow_solve(const void* Lo, const void* Li,
                                        const void* r, void* y, int B, int nb,
                                        int s, int k, int up, void* stream) {
-  const size_t smem = (2 * (size_t)s * s + 3 * (size_t)s * kTile)
-                      * sizeof(float);
-  cudaError_t err = set_smem(arrow_solve_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0 && k > 0) {
-    const dim3 grid(B, (k + kTile - 1) / kTile);
-    arrow_solve_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)Lo, (const float*)Li, (const float*)r, (float*)y, nb, s,
-        k, up);
+  return launch_solve(arrow_solve_kernel, Lo, Li, r, y, B, nb, s, k, up,
+                      stream);
+}
+
+// The launch configuration of the solve kernel `which` (0 K6, 1 K8) at
+// block size s and k rhs columns: out[0] the tile width, out[1] the threads
+// per block, out[2] the shared memory bytes per block, out[3] the resident
+// blocks per SM. Returns a CUDA error code.
+extern "C" int jrlqp_struct_solve_config(int which, int s, int k, int* out) {
+  const int T = solve_tile(k, s), threads = solve_threads(s, T);
+  const size_t smem = solve_smem_floats(s, T) * sizeof(float);
+  int blocks = 0;
+  cudaError_t err;
+  if (which == 0) {
+    err = set_smem(tri_solve_kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, tri_solve_kernel, threads, smem);
+  } else {
+    err = set_smem(arrow_solve_kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, arrow_solve_kernel, threads, smem);
   }
-  return (int)cudaGetLastError();
+  out[0] = T;
+  out[1] = threads;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return (int)err;
 }

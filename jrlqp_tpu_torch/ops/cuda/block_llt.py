@@ -14,7 +14,9 @@ the factorizations return ``(L_diag, L_off, Linv_diag)`` with
 ``Linv_diag[i] = L_i^-1``, the solves ``y = G^-1 r`` for r of shape
 (B, nb, s, k), at the unpadded shapes. Up arrows are factored in the rolled
 block order (block 0 last), as the Pallas wrappers do; the solve takes the
-rhs and returns y in the original order.
+rhs and returns y in the original order. The solves treat each
+``Linv_diag[i]`` as lower triangular, as the factorizations return it: K6
+and K8 read nothing above its diagonal.
 
 The plain versions below are the same algorithms in PyTorch. They are not
 ``torch.linalg.cholesky``, which raises on a non-SPD block where these clamp
@@ -30,7 +32,7 @@ __all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain",
            "tri_block_llt", "tri_block_llt_plain", "tri_block_solve",
            "tri_block_solve_plain", "block_arrow_llt",
            "block_arrow_llt_plain", "block_arrow_solve",
-           "block_arrow_solve_plain"]
+           "block_arrow_solve_plain", "solve_config"]
 
 # launches of each CUDA kernel since the last reset (set to 0 to reset):
 # K2 (chol_inv_b), K5, K6, K7 and K8
@@ -252,6 +254,21 @@ def _solve_cuda(entry: str, L_off, Linv, r, flag: bool):
         s, k, int(flag), stream)
     _build.check(code, entry)
     return y
+
+
+def solve_config(entry: str, s: int, k: int) -> dict:
+    """The launch configuration of the solve kernel behind the C entry
+    point ``entry`` (``jrlqp_tri_block_solve`` K6 or
+    ``jrlqp_block_arrow_solve`` K8) at block size s and k rhs columns, on
+    the current card: the rhs tile width, the threads and shared-memory
+    bytes per block, and the resident blocks per SM."""
+    import ctypes
+
+    which = {"jrlqp_tri_block_solve": 0, "jrlqp_block_arrow_solve": 1}[entry]
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().jrlqp_struct_solve_config(which, s, k, out),
+                 entry)
+    return dict(zip(("tile", "threads", "smem_bytes", "blocks_per_sm"), out))
 
 
 def tri_block_llt(diag: torch.Tensor, off: torch.Tensor):

@@ -48,9 +48,10 @@ from ...types import (
 from . import _build
 from .block_llt import chol_b_plain, posdef_plain, tri_inv_b_plain
 
-__all__ = ["run_loop_fused", "gi_fused_plain", "run_loop", "gi_loop_plain",
-           "run_warm_loop", "gi_warm_plain", "run_loop_compact",
-           "gi_compact_plain", "prepare", "prepare_state", "prepare_warm",
+__all__ = ["run_loop_fused", "run_loop_fused_carry", "gi_fused_plain",
+           "run_loop", "gi_loop_plain", "run_warm_loop", "warm_step",
+           "gi_warm_plain", "run_loop_compact", "gi_compact_plain", "prepare",
+           "prepare_state", "prepare_warm", "prepare_warm_carry",
            "postprocess", "residency"]
 
 BIG = 1e30           # f32 infinity proxy inside the loop
@@ -68,7 +69,7 @@ _F, _I = torch.float32, torch.int32
 # input dtypes of the C entry points, in argument order
 _FUSED_IN = (_F,) * 7
 _LOOP_IN = (_F,) * 9 + (_I,) * 4 + (_F,)
-_WARM_IN = (_F,) * 8 + (_I,) * 3 + (_F, _I)
+_WARM_IN = (_F,) * 8 + (_I,) * 3
 
 
 def _round_up(x: int, m: int) -> int:
@@ -171,33 +172,41 @@ def prepare_state(pb32, state0):
 
 
 def prepare_warm(pb32, H, Ns, status, aorder, q):
-    """K4's inputs from a carry (``run_warm_loop_pallas``,
-    gi_kernel.py:1366-1434): the padded problem with a, K0 = [H | N*^T],
-    status and aorder in the padded index layout, the per-slot statuses
-    statk, the per-slot signed active bounds b_act from the NEW bounds
-    (LOWER / EQUALITY -> l, UPPER -> -u, LOWER_BOUND / FIXED -> xl,
-    UPPER_BOUND -> -xu, 0 on a free slot) and q."""
+    """K4's inputs from a carry of plain tensors in the library's index
+    layout (``run_warm_loop_pallas``, gi_kernel.py:1366-1434): the padded
+    problem with a, K0 = [H | N*^T], status and aorder in the padded index
+    layout, and q. The per-slot statuses statk and the per-slot signed
+    active bounds b_act, which the Pallas wrapper gathers on the host, are
+    formed inside the kernel (and its plain version) from status, aorder
+    and the NEW bounds: LOWER / EQUALITY -> l, UPPER -> -u, LOWER_BOUND /
+    FIXED -> xl, UPPER_BOUND -> -xu, each clamped to +/-1e30, 0 on a free
+    slot."""
     (G, Ct, lo, up, xlo, xup, a), (n, m) = _padded(pb32)
     np_, mp_ = G.shape[1], Ct.shape[2]
-    ao = aorder.long()
-    valid = ao >= 0
-    idxs = torch.where(valid, ao, 0)
-    sts = torch.where(valid, status.long().gather(1, idxs), 0)
-
-    def clamp(v):
-        return torch.nan_to_num(v.to(_F), posinf=1e30,
-                                neginf=-1e30).clamp(-1e30, 1e30)
-
-    lo_all = clamp(torch.cat([pb32.l, pb32.xl], dim=1)).gather(1, idxs)
-    up_all = clamp(torch.cat([pb32.u, pb32.xu], dim=1)).gather(1, idxs)
-    upperish = (sts == UPPER) | (sts == UPPER_BOUND)
-    b_act = torch.where(valid, torch.where(upperish, -up_all, lo_all), 0.0)
-    statk0 = torch.zeros((G.shape[0], np_), dtype=_I, device=G.device)
-    statk0[:, :n] = sts
     return ((G, Ct, lo, up, xlo, xup, a, _operator(H, Ns, np_),
              _pad_status(status, n, m, mp_, np_),
-             _pad_aorder(ao, n, m, mp_, np_), statk0,
-             _padrow(b_act, np_, 0.0), q.to(_I)),
+             _pad_aorder(aorder.long(), n, m, mp_, np_), q.to(_I)),
+            (n, m))
+
+
+def prepare_warm_carry(pb, raw, q):
+    """K4's inputs from a carry in the kernels' own layout: ``raw`` is
+    (G, Ct, K, status, aorder) as :func:`warm_step` or
+    :func:`run_loop_fused_carry` returned them -- the padded f32 G and C^T
+    of the trajectory's first step, and the previous kernel's K = [H |
+    N*^T], status and aorder outputs, untouched -- so only a and the four
+    bound rows of the new problem ``pb`` (any float dtype) are padded
+    here."""
+    G, Ct, K, status, aorder = raw
+    n, m = pb.a.shape[1], pb.C.shape[1]
+    np_, mp_ = G.shape[1], Ct.shape[2]
+    if (np_, mp_) != (_round_up(n + 1, 8), _round_up(max(m, 1), 8)):
+        raise ValueError(f"carry of padded sizes {(np_, mp_)} does not fit "
+                         f"a problem with n={n}, m={m}")
+    return ((G, Ct, _padrow(pb.l, mp_, -INF_BOUND),
+             _padrow(pb.u, mp_, INF_BOUND), _padrow(pb.xl, np_, -INF_BOUND),
+             _padrow(pb.xu, np_, INF_BOUND), _padrow(pb.a, np_, 0.0), K,
+             status, aorder, q.to(_I)),
             (n, m))
 
 
@@ -567,21 +576,48 @@ def _gi_compact_plain_raw(*args):
     return _gi_loop_plain_raw(*args, compact=True)
 
 
+def _warm_slots(lo, up, xlo, xup, status, aorder):
+    """K4's per-slot statuses statk and signed active bounds b_act, as the
+    kernel forms them from the padded bound rows and the carried status and
+    aorder (int64, padded index layout): slot k holds constraint or bound
+    aorder[k] at status[aorder[k]]; LOWER / EQUALITY -> l, UPPER -> -u,
+    LOWER_BOUND / FIXED -> xl, UPPER_BOUND -> -xu, clamped to +/-1e30; a
+    free slot (aorder -1) has status 0 and bound 0."""
+    held = aorder >= 0
+    slot_idx = torch.where(held, aorder, 0)
+    statk = torch.where(held, status.gather(1, slot_idx), 0)
+    lo_all = torch.cat([lo, xlo], dim=1).clamp(-1e30, 1e30)
+    up_all = torch.cat([up, xup], dim=1).clamp(-1e30, 1e30)
+    upperish = (statk == UPPER) | (statk == UPPER_BOUND)
+    b = torch.where(held, torch.where(upperish, -up_all.gather(1, slot_idx),
+                                      lo_all.gather(1, slot_idx)), 0.0)
+    return statk, b
+
+
 def _gi_warm_plain_raw(G, Ct, lo, up, xlo, xup, a, K0, status0, aorder0,
-                       statk0, b0, q0, n, m, max_iter):
-    """K4's computation: ``_kernel_packed_warm``'s prologue (tr0 from the
-    carried H, the closed form, the u < -1e-5 deactivations), then the
-    loop."""
+                       q0, n, m, max_iter):
+    """K4's computation: the per-slot statuses and signed active bounds
+    from status, aorder and the new bounds (see :func:`prepare_warm`), then
+    ``_kernel_packed_warm``'s prologue (tr0 from the carried H, the closed
+    form, the u < -1e-5 deactivations) and the loop. K0 may carry K1's
+    identity on the padded diagonal of H: the trace runs over the n real
+    entries, and nothing else reads the padding. The carry holds n slots,
+    as the library's does: a padded slot that the last kernel left occupied
+    (a lane that ended LINEAR_DEPENDENCY_DETECTED at q > n) comes in free,
+    its N* column zero."""
     B, np_, _ = G.shape
     mtp_ = Ct.shape[2] + np_
     dev, i64 = G.device, torch.int64
     iot_n = torch.arange(np_, device=dev, dtype=i64)[None, :]
     iot_mt = torch.arange(mtp_, device=dev, dtype=i64)[None, :]
     lane2 = torch.arange(2 * np_, device=dev, dtype=i64)[None, None, :]
-    K, b = K0, b0
-    status, aorder, statk = status0.long(), aorder0.long(), statk0.long()
+    K = torch.where(lane2 >= np_ + n, 0.0, K0)
+    status = status0.long()
+    aorder = torch.where(iot_n < n, aorder0.long(), -1)
+    statk, b = _warm_slots(lo, up, xlo, xup, status, aorder)
     q = q0.long()[:, None]
-    tr0 = torch.clamp_min(torch.diagonal(K[:, :, :np_], dim1=1, dim2=2)
+    diag = torch.diagonal(K[:, :, :np_], dim1=1, dim2=2)
+    tr0 = torch.clamp_min(torch.where(iot_n < n, diag, 0.0)
                           .sum(dim=1, keepdim=True), 1e-30)
 
     def closed_form(K, b, statk):
@@ -645,9 +681,10 @@ def residency(entry: str, n: int, m: int) -> tuple[int, int]:
 
 def _launch(entry, dtypes, ins, n, m, max_iter):
     """Run the C entry point ``entry`` on the padded inputs ``ins`` (G and
-    C^T first) and return the seven raw outputs. K1 copies its inputs with
-    16-byte cp.async and float4 loads, so each must start 16-byte aligned,
-    as every fresh tensor of the caching allocator does."""
+    C^T first) and return the seven raw outputs. Every kernel copies its
+    inputs with 16-byte cp.async and float4 loads, so each must start
+    16-byte aligned, as every fresh tensor of the caching allocator does;
+    one that does not raises."""
     G, Ct = ins[0], ins[1]
     B, np_, _ = G.shape
     mp_ = Ct.shape[2]
@@ -670,11 +707,10 @@ def _launch(entry, dtypes, ins, n, m, max_iter):
             torch.empty((B, np_, 2 * np_), dtype=_F, device=dev),
             torch.empty((B,), dtype=_F, device=dev))
     ins = [t.contiguous() for t in ins]
-    if entry == "jrlqp_gi_fused":
-        for i, t in enumerate(ins):
-            if t.data_ptr() % 16 != 0:
-                raise ValueError(f"{entry}: input {i} does not start 16-byte "
-                                 f"aligned")
+    for i, t in enumerate(ins):
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{entry}: input {i} does not start 16-byte "
+                             f"aligned")
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = getattr(lib, entry)(*[t.data_ptr() for t in ins],
                                *[t.data_ptr() for t in outs],
@@ -732,6 +768,23 @@ def gi_fused_plain(pb32, max_iter: int) -> dict:
     return postprocess(_gi_fused_plain_raw(*inputs, n, m, max_iter), n, m)
 
 
+def _carry_raw(inputs, outs):
+    """The kernel-layout carry (G, Ct, K, status, aorder) that K4 reads:
+    the padded G and C^T a step ran on and its K, status and aorder
+    outputs."""
+    return (inputs[0], inputs[1], outs[5], outs[2], outs[3])
+
+
+def run_loop_fused_carry(pb32, max_iter: int) -> tuple[dict, tuple]:
+    """:func:`run_loop_fused`, and the kernel-layout carry for
+    :func:`prepare_warm_carry`."""
+    run = (_gi_fused_cuda_raw if _on_cuda(pb32, "run_loop_fused")
+           else _gi_fused_plain_raw)
+    inputs, (n, m) = prepare(pb32)
+    outs = run(*inputs, n, m, max_iter)
+    return postprocess(outs, n, m), _carry_raw(inputs, outs)
+
+
 def run_loop_fused(pb32, max_iter: int) -> dict:
     """Fused-init GI solve of a batch of f32 problems.
 
@@ -739,10 +792,7 @@ def run_loop_fused(pb32, max_iter: int) -> dict:
     space, and q, it, term, skip1, sc_idx, sc_status, H, Ns, hscale. A
     CUDA problem runs the kernel K1; a CPU problem runs the plain version.
     Any other device raises."""
-    run = (_gi_fused_cuda_raw if _on_cuda(pb32, "run_loop_fused")
-           else _gi_fused_plain_raw)
-    inputs, (n, m) = prepare(pb32)
-    return postprocess(run(*inputs, n, m, max_iter), n, m)
+    return run_loop_fused_carry(pb32, max_iter)[0]
 
 
 def gi_loop_plain(pb32, state0, max_iter: int) -> dict:
@@ -770,6 +820,20 @@ def gi_warm_plain(pb32, H, Ns, status, aorder, q, max_iter: int) -> dict:
     return postprocess(_gi_warm_plain_raw(*inputs, n, m, max_iter), n, m)
 
 
+def warm_step(inputs, n: int, m: int, max_iter: int) -> tuple[dict, tuple]:
+    """K4 on the inputs of :func:`prepare_warm` or
+    :func:`prepare_warm_carry`: the dict of :func:`run_loop_fused`, and the
+    kernel-layout carry for the next step's :func:`prepare_warm_carry`.
+    CUDA inputs run the kernel K4; CPU inputs run the plain version. Any
+    other device raises."""
+    dev = inputs[0].device
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"warm_step: no kernel for device {dev}")
+    run = _gi_warm_cuda_raw if dev.type == "cuda" else _gi_warm_plain_raw
+    outs = run(*inputs, n, m, max_iter)
+    return postprocess(outs, n, m), _carry_raw(inputs, outs)
+
+
 def run_warm_loop(pb32, H, Ns, status, aorder, q, max_iter: int) -> dict:
     """The warm-carry solve (counterpart of ``run_warm_loop_pallas``): the
     previous solve's H, N*, status, aorder and q (library index layout,
@@ -777,10 +841,9 @@ def run_warm_loop(pb32, H, Ns, status, aorder, q, max_iter: int) -> dict:
     and C. Returns the dict of :func:`run_loop_fused`. A CUDA problem runs
     the kernel K4; a CPU problem runs the plain version. Any other device
     raises."""
-    run = (_gi_warm_cuda_raw if _on_cuda(pb32, "run_warm_loop")
-           else _gi_warm_plain_raw)
+    _on_cuda(pb32, "run_warm_loop")
     inputs, (n, m) = prepare_warm(pb32, H, Ns, status, aorder, q)
-    return postprocess(run(*inputs, n, m, max_iter), n, m)
+    return warm_step(inputs, n, m, max_iter)[0]
 
 
 def gi_compact_plain(pb32, state0, max_iter: int) -> dict:

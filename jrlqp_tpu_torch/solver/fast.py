@@ -48,10 +48,13 @@ import dataclasses
 import torch
 
 from ..ops.cuda.gi_kernel import (
+    prepare_warm,
+    prepare_warm_carry,
     run_loop,
     run_loop_compact,
     run_loop_fused,
-    run_warm_loop,
+    run_loop_fused_carry,
+    warm_step,
 )
 from ..problems import QPProblem
 from ..types import (
@@ -753,13 +756,32 @@ class WarmCarry:
     trajectory (``jrlqp_tpu.solver.fast.WarmCarry``). When consecutive
     problems share G and C and only a and the bounds drift, the previous
     solve's operators are exactly the warm operators, so a warm step does
-    no factorization at all. Slots may hold holes (aorder == -1)."""
+    no factorization at all. Slots may hold holes (aorder == -1).
+
+    A carry that :func:`solve_refined_kernel_carry` returns also holds
+    ``raw``: the kernels' own tensors in the layout K4 reads -- the padded
+    f32 G and C^T of the trajectory's first step, which the carry's
+    contract says do not change (590 MB at batch 16384, n = 50, m = 100;
+    re-casting and re-padding them cost more than the kernel itself on an
+    H100, PERF.md section 6), and the last kernel's K = [H | N*^T], status
+    and aorder outputs -- so the next step pads only a and the bounds. H
+    and Ns are then views of that K, and status and aorder its index remap,
+    in the library's index space. A step from a carry with ``raw`` reads
+    ``raw`` and ``q`` and nothing else: ``H``, ``Ns``, ``status`` and
+    ``aorder`` are then its read-only picture. To step from edited or
+    replaced fields, pass them with ``raw=None``
+    (``dataclasses.replace(carry, status=..., raw=None)``): a carry of the
+    five plain tensors alone is packed into the kernel's layout by its
+    step and gives the same result."""
 
     H: torch.Tensor       # (B, n, n) f32 reduced inverse operator
     Ns: torch.Tensor      # (B, n, n) f32 N* row of each slot
     status: torch.Tensor  # (B, m+n) int32 ActivationStatus
     aorder: torch.Tensor  # (B, n) int32 constraint of each slot, -1 free
     q: torch.Tensor       # (B,) int32 active count
+    # (G, Ct, K, status, aorder) in the kernels' padded layout, or None
+    raw: tuple | None = dataclasses.field(default=None, repr=False,
+                                          compare=False)
 
 
 def solve_refined_kernel_carry(pbs: QPProblem, carry: WarmCarry | None = None,
@@ -769,19 +791,25 @@ def solve_refined_kernel_carry(pbs: QPProblem, carry: WarmCarry | None = None,
     """Batched solve of one step of a trajectory of related QPs
     (counterpart of ``solve_refined_pallas_carry``); returns ``(result,
     carry)``. ``carry=None`` solves cold in K1; a carry from the previous
-    step, whose G and C must be this step's, starts K4 from its operators.
-    A CPU batch runs the kernels' plain versions. With ``opt.validate``
-    the cold step ends lanes with inconsistent data INCONSISTENT_INPUT
-    (the warm step, like the JAX one, does not check)."""
-    pb32 = pbs.with_dtype(torch.float32)
+    step, whose G and C must be this step's, starts K4 from its operators:
+    of the new problem it reads only a and the bounds when the carry holds
+    the kernels' layout (see :class:`WarmCarry`). A CPU batch runs the
+    kernels' plain versions. With ``opt.validate`` the cold step ends
+    lanes with inconsistent data INCONSISTENT_INPUT (the warm step, like
+    the JAX one, does not check)."""
     if carry is None:
-        out = run_loop_fused(pb32, opt.max_iter)
+        pb32 = pbs.with_dtype(torch.float32)
+        out, raw = run_loop_fused_carry(pb32, opt.max_iter)
+        st = _validated(pb32, _state_from_kernel_out(out, pbs.batch), opt)
     else:
-        out = run_warm_loop(pb32, carry.H, carry.Ns, carry.status,
-                            carry.aorder, carry.q, opt.max_iter)
-    st = _state_from_kernel_out(out, pbs.batch)
-    if carry is None:
-        st = _validated(pb32, st, opt)
+        if carry.raw is None:
+            inputs, (n, m) = prepare_warm(
+                pbs.with_dtype(torch.float32), carry.H, carry.Ns,
+                carry.status, carry.aorder, carry.q)
+        else:
+            inputs, (n, m) = prepare_warm_carry(pbs, carry.raw, carry.q)
+        out, raw = warm_step(inputs, n, m, opt.max_iter)
+        st = _state_from_kernel_out(out, pbs.batch)
     return (_refine_batch(pbs, st, ir_steps),
             WarmCarry(H=out["H"], Ns=out["Ns"], status=out["status"],
-                      aorder=out["aorder"], q=out["q"]))
+                      aorder=out["aorder"], q=out["q"], raw=raw))

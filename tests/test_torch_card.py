@@ -11,6 +11,7 @@ with a card and no jax:
 Without a card every test here skips.
 """
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -413,6 +414,195 @@ def test_gi_kernels_match_plain_ragged(cuda_device, kernel, n, m):
     torch.cuda.synchronize()
     assert getattr(gi_kernel, count) == before + 1
     _assert_close_scaled(ours, plain(*args))
+
+
+def _warm_kernel_and_plain(pb, carry, max_iter):
+    """K4 and its plain version on the same inputs, from a carry in the
+    kernels' own layout; K4 launches once."""
+    ins, (n, m) = gi_kernel.prepare_warm_carry(pb, carry.raw, carry.q)
+    before = gi_kernel.warm_launches
+    ours = gi_kernel.postprocess(
+        gi_kernel._gi_warm_cuda_raw(*ins, n, m, max_iter), n, m)
+    torch.cuda.synchronize()
+    assert gi_kernel.warm_launches == before + 1
+    return ours, gi_kernel.postprocess(
+        gi_kernel._gi_warm_plain_raw(*ins, n, m, max_iter), n, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.02, 0.5])
+@pytest.mark.parametrize("n,m", [(5, 3), (31, 7), (64, 200), (100, 60)])
+def test_gi_warm_kernel_from_kernel_carry_ragged(cuda_device, n, m, scale):
+    # K4 from the carry as the entry point returns it (K1's own K, status
+    # and aorder, the padded G and C^T), at the shapes where the thread maps
+    # have edges
+    d = np_qp_batch(n * m + 3, 64, n, m, 0.3)
+    max_iter = 300
+    _, carry = fast.solve_refined_kernel_carry(
+        problem_from_numpy(**d, device=cuda_device), None,
+        SolverOptions(max_iter=max_iter))
+    assert carry.raw is not None
+    pb = problem_from_numpy(**drifted(d, scale, 7), device=cuda_device)
+    ours, ref = _warm_kernel_and_plain(pb, carry, max_iter)
+    if scale == 0.02:
+        _assert_close_scaled(ours, ref)
+    else:
+        # far from the carry a lane runs ~100 iterations, and at (64, 200)
+        # a few lanes end LINEAR_DEPENDENCY_DETECTED at a degenerate vertex
+        # on a path that one rounding decides: there the plain version
+        # itself goes three ways on the card, on the CPU and in f64, while
+        # the kernel kept the bits it had before its redesign (PERF.md,
+        # section 6). So every lane ends alike, at least 90% of the lanes
+        # end SUCCESS, and only a failed lane may differ: a lane that ends
+        # SUCCESS has the plain version's integer state, its f32 state
+        # within 1e-3 (100 iterations of f32 updates, not two), and after
+        # the f64 refinement it has the plain version's x and passes the
+        # gate wherever the plain version's lane does (a warm lane may end
+        # SUCCESS above the KKT limit in both)
+        assert torch.equal(ours["term"], ref["term"])
+        ok = ours["term"] == 0
+        assert float(ok.double().mean()) >= 0.9
+        _assert_close_scaled({k: v[ok] for k, v in ours.items()},
+                             {k: v[ok] for k, v in ref.items()}, tol=1e-3)
+        res, res_p = (fast._refine_batch(
+            pb, fast._state_from_kernel_out(o, pb.batch), 3)
+            for o in (ours, ref))
+        gate, gate_p = ((r.status == 0)
+                        & (kkt_residual(r.x, r.multipliers, pb) <= 1e-8)
+                        for r in (res, res_p))
+        assert bool((gate | ~gate_p)[ok].all())
+        assert float(gate[ok].double().mean()) >= 0.95
+        assert float((res.x - res_p.x)[ok].abs().max()) <= 1e-7
+    # the step from the five plain tensors is the same step
+    plain_carry = gi_kernel.run_warm_loop(
+        _f32_problem(drifted(d, scale, 7), cuda_device), carry.H, carry.Ns,
+        carry.status, carry.aorder, carry.q, max_iter)
+    for k in ours:
+        assert torch.equal(ours[k], plain_carry[k]), k
+
+
+def released(d, by=10.0):
+    """Batch ``d`` with every lower bound moved down by ``by``: the
+    constraints a solve of ``d`` holds at their lower bound come free, so a
+    warm step from its carry deactivates them at entry."""
+    return dict(d, l=d["l"] - by)
+
+
+@pytest.mark.cuda
+def test_gi_warm_kernel_every_lane_deactivates(cuda_device):
+    d = np_qp_batch(5, 64, 12, 20, 0.4)
+    max_iter = 200
+    _, carry = fast.solve_refined_kernel_carry(
+        problem_from_numpy(**d, device=cuda_device), None,
+        SolverOptions(max_iter=max_iter))
+    pb = problem_from_numpy(**released(d), device=cuda_device)
+    entry, _ = _warm_kernel_and_plain(pb, carry, 0)   # the prologue alone
+    assert bool((entry["it"] >= 1).all())
+    ours, ref = _warm_kernel_and_plain(pb, carry, max_iter)
+    _assert_close_scaled(ours, ref)
+    assert bool((ours["term"] == 0).all())
+
+
+def _solve_rhs(kind, B, nb, s, k, device):
+    n = nb * s
+    if kind == "identity":
+        r = torch.eye(n, max(n, k), device=device)[:, :k]
+        return r.reshape(1, nb, s, k).expand(B, nb, s, k).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(1000 * s + 10 * nb + k)
+    return torch.randn((B, nb, s, k), generator=g).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 64, 65, 387])
+@pytest.mark.parametrize("nb", [2, 9])
+@pytest.mark.parametrize("s", [8, 43])
+def test_struct_solves_match_plain_widths(cuda_device, s, nb, k):
+    # K6 (with lower_only) and K8 (down and up) at rhs widths on and off
+    # the tile edges, the identity (whose zero tiles the kernels skip) and a
+    # dense rhs; 1e-5 relative to the largest entry
+    B = 16
+    d = ik_batch(B, nb=nb, s=s, mc=2, seed=nb + s)
+    diag = torch.from_numpy(d["diag"].astype(np.float32)).to(cuda_device)
+    off = torch.from_numpy(d["off"].astype(np.float32)).to(cuda_device)
+    tri = block_llt.tri_block_llt(diag, off)
+    arrows = {up: block_llt.block_arrow_llt(diag, off, up=up)
+              for up in (False, True)}
+    for kind in ("identity", "dense"):
+        r = _solve_rhs(kind, B, nb, s, k, cuda_device)
+        before = _struct_counts()
+        pairs = [(f"K6 lower_only={lo}",
+                  block_llt.tri_block_solve(tri[1], tri[2], r, lo),
+                  block_llt.tri_block_solve_plain(tri[1], tri[2], r, lo))
+                 for lo in (False, True)]
+        pairs += [(f"K8 up={up}",
+                   block_llt.block_arrow_solve(f[1], f[2], r, up=up),
+                   block_llt.block_arrow_solve_plain(f[1], f[2], r, up=up))
+                  for up, f in arrows.items()]
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(_struct_counts(), before)]
+        assert launched == [0, 2, 0, 2]
+        for name, ours, ref in pairs:
+            assert ours.shape == ref.shape, (name, kind)
+            assert bool(torch.isfinite(ours).all()), (name, kind)
+            assert struct_err(ours, ref) <= 1e-5, (name, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["identity", "dense", "tail"])
+def test_struct_solves_match_plain_long_chain(cuda_device, kind):
+    # a chain of 70 blocks, more than the 64 whose skipped zero tiles the
+    # solves remember: with the identity as rhs most forward steps meet a
+    # zero tile, beyond block 64 too; "tail" is nonzero in the last block
+    # row alone, so every earlier forward result is zero
+    B, nb, s = 4, 70, 8
+    k = nb * s
+    d = ik_batch(B, nb=nb, s=s, mc=2, seed=nb + s)
+    diag = torch.from_numpy(d["diag"].astype(np.float32)).to(cuda_device)
+    off = torch.from_numpy(d["off"].astype(np.float32)).to(cuda_device)
+    tri = block_llt.tri_block_llt(diag, off)
+    arrows = {up: block_llt.block_arrow_llt(diag, off, up=up)
+              for up in (False, True)}
+    r = _solve_rhs("dense" if kind == "tail" else kind, B, nb, s, k,
+                   cuda_device)
+    if kind == "tail":
+        r[:, :-1] = 0.0
+    # the outputs come from torch.empty: leave the allocator's blocks full
+    # of NaN, so a result that is never written shows
+    for _ in range(4):
+        torch.full_like(r, float("nan"))
+    pairs = [(f"K6 lower_only={lo}",
+              block_llt.tri_block_solve(tri[1], tri[2], r, lo),
+              block_llt.tri_block_solve_plain(tri[1], tri[2], r, lo))
+             for lo in (False, True)]
+    pairs += [(f"K8 up={up}",
+               block_llt.block_arrow_solve(f[1], f[2], r, up=up),
+               block_llt.block_arrow_solve_plain(f[1], f[2], r, up=up))
+              for up, f in arrows.items()]
+    torch.cuda.synchronize()
+    for name, ours, ref in pairs:
+        assert bool(torch.isfinite(ours).all()), name
+        assert struct_err(ours, ref) <= 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.xfail(strict=True, reason=(
+    "a fault of K1 on the card, ROADMAP queue 3: at this lane's degenerate "
+    "vertex the kernel's f32 sums activate constraint 95 (slack +8.9e-7, "
+    "about 4 f32 ulps) in a 61st iteration, and the refined result stalls "
+    "at a KKT residual of 7.0e-8; the plain versions stop after 60"))
+def test_main_path_lane_on_card(cuda_device):
+    # lane 11415 of the headline batch, the one lane in 16384 that misses the
+    # main path's gate; tests/test_torch_main_path_lane.py holds the same
+    # arrays against the JAX package on the CPU, where every path passes
+    path = pathlib.Path(__file__).parent / "data" / "main_path_lane_11415.npz"
+    z = np.load(path)
+    pb = problem_from_numpy(**{k: z[k] for k in ("G", "a", "C", "l", "u",
+                                                 "xl", "xu")},
+                            device=cuda_device)
+    res = fast.solve_refined_kernel(pb, SolverOptions(max_iter=150),
+                                    ir_steps=1)
+    assert res.status.tolist() == [0]
+    assert float(kkt_residual(res.x, res.multipliers, pb).max()) <= 1e-8
 
 
 def _launches():

@@ -1,0 +1,92 @@
+"""The one lane of the headline batch that misses the main path's gate on
+an H100 (``tests/data/main_path_lane_11415.npz``: lane 11415 of
+``random_qp_batch`` at seed 0, batch 16384, n=50, m=100, act_frac 0.3, as
+``chip_smoke.py`` draws it, saved from the card with numpy).
+
+Verdict: a fault of the port's kernel on the card, not of the reference.
+On the CPU the JAX package passes the lane (the fused Pallas kernel in
+interpret mode and ``solve_refined``), and so does the port's plain main
+path: SUCCESS after 60 iterations, KKT residual under 1e-12. K1 on the
+card takes a 61st iteration: constraint 95 has a slack of +8.9e-7 at the
+60-iteration solution (about 4 f32 ulps of C x = 3.22), the kernel's f32
+sums see it violated and activate it at its lower bound, it comes out with
+a multiplier of 3.6e-7 of the wrong sign, and the f64 refinement of that
+active set stalls at a KKT residual of 7.0e-8, over the 1e-8 gate,
+whatever ``ir_steps``. The card's side of this is
+``test_main_path_lane_on_card`` in ``tests/test_torch_card.py``, expected
+to fail until the kernel is repaired; ``solve_refined_kernel_rescued``
+repairs such a lane today."""
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from jrlqp_tpu import SolverOptions as JOptions
+from jrlqp_tpu.solver.fast import solve_refined as j_solve_refined
+from jrlqp_tpu.solver.fast import solve_refined_pallas
+from jrlqp_tpu_torch import (
+    SolverOptions,
+    problem_from_numpy,
+    result_to_numpy,
+    solve_refined_kernel,
+)
+from jrlqp_tpu_torch.testing.kkt import kkt_residual
+from test_torch_gi_kernel import jax_problem
+
+torch.set_num_threads(1)
+
+LANE = pathlib.Path(__file__).parent / "data" / "main_path_lane_11415.npz"
+MAX_ITER = 150
+
+
+def _lane():
+    z = np.load(LANE)
+    return {k: z[k] for k in ("G", "a", "C", "l", "u", "xl", "xu")}, z
+
+
+def _jax_pallas_fused(d):
+    return solve_refined_pallas(jax_problem(d), JOptions(max_iter=MAX_ITER),
+                                ir_steps=1, fused_init=True, interpret=True)
+
+
+def _jax_solve_refined(d):
+    return jax.vmap(lambda p: j_solve_refined(
+        p, JOptions(max_iter=MAX_ITER), ir_steps=1))(jax_problem(d))
+
+
+def _port_plain_main_path(d):
+    return solve_refined_kernel(problem_from_numpy(**d, device="cpu"),
+                                SolverOptions(max_iter=MAX_ITER), ir_steps=1)
+
+
+@pytest.mark.parametrize("path", [_jax_pallas_fused, _jax_solve_refined,
+                                  _port_plain_main_path],
+                         ids=["jax_pallas_fused_interpret",
+                              "jax_solve_refined", "port_plain_main_path"])
+def test_main_path_lane_passes_off_the_card(path):
+    d, z = _lane()
+    res = path(d)
+    if not isinstance(res.x, torch.Tensor):
+        res = {k: np.asarray(getattr(res, k))
+               for k in ("x", "multipliers", "status", "iterations",
+                         "active_set")}
+    else:
+        res = result_to_numpy(res)
+    assert res["status"].tolist() == [0]
+    assert res["iterations"].tolist() == [60]
+    pb = problem_from_numpy(**d, device="cpu")
+    kkt = kkt_residual(torch.from_numpy(res["x"].astype(np.float64)),
+                       torch.from_numpy(res["multipliers"].astype(np.float64)),
+                       pb)
+    assert float(kkt.max()) <= 1e-8
+    # what the card returned for the same arrays: one iteration more,
+    # constraint 95 active on top, and a residual over the gate
+    assert z["iterations"].tolist() == [61]
+    differs = np.nonzero(z["active_set"][0] != res["active_set"][0])[0]
+    assert differs.tolist() == [95]
+    assert 1e-8 < float(z["resid"][0]) < 1e-7
+    saved = kkt_residual(torch.from_numpy(z["x"]),
+                         torch.from_numpy(z["multipliers"]), pb)
+    np.testing.assert_allclose(saved.numpy(), z["resid"], rtol=1e-6)
