@@ -29,7 +29,10 @@ width (9 robots x 43 dof, n=387, m=36):
 8. K5-K8 (the structured block-LLT chains) against their plain versions at
    the IK shape, batch 1024: tri-block-diagonal (with lower_only) and
    block-arrow down and up, with device times (lower_only and the up arrow
-   too), and K6's and K8's rhs tile width and resident blocks per SM;
+   too), K6's and K8's rhs tile width and resident blocks per SM, and the
+   cost of K6's padded layout (K6 on K5's padded factor and the shared
+   identity, as the path calls it, against an unpadded factor or rhs,
+   copied per call);
 9. the structured cold batch ``solve_structured_fast_batch`` at batch 1024
    (K5 + K6, the torch GI loop, f64 refinement), gated like the main path
    and held against the port's dense engine ``solve_refined``; the two
@@ -63,9 +66,14 @@ at 3.35 TB/s and its operations at 67 TFLOP/s (f32 outside the tensor
 cores; H100 SXM data sheet). Both are counted at the unpadded sizes, from
 this run's iteration and active counts, with triangular factors counted as
 triangles, by ``_gi_flops``, ``_gi_bytes`` and the phase 4 and 8 blocks.
-``library_ms`` is the time of one PyTorch call that computes the same
-function where there is one (``torch.cholesky_solve`` with the dense factor
-beside K6 and K8), else null. The four GI kernels' lines also carry their
+``library_ms`` is the time of PyTorch's own calls for the same function
+where there are some: ``torch.linalg.cholesky_ex`` then
+``torch.linalg.solve_triangular`` on the identity beside K2 (two calls,
+named in its ``library`` key), ``torch.linalg.cholesky_ex`` of the dense G
+beside K5 and K7, ``torch.cholesky_solve`` with the dense factor beside K6
+and K8; else null. Phases 2 and 3 print the sha1 digests of K2's outputs
+and of K1's outputs at iteration cap 0 (its prologue), phase 8 K6's, so
+two versions of the kernels can be compared bit for bit. The four GI kernels' lines also carry their
 threads per block and resident blocks per SM, and the run prints their
 µs per GI iteration per resident block (ms x SMs x blocks per SM / the
 iterations of the timed launch; for K3 and K4, whose launches run about
@@ -147,6 +155,16 @@ def _wall_s(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t)
     return best
+
+
+def _sha1(*tensors) -> str:
+    """First 12 hex digits of the sha1 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
 
 
 def _bound(flops: float, nbytes: int):
@@ -372,9 +390,18 @@ def main() -> int:
              "K2 L^-1 differs from plain")
     print(f"K2 vs plain: {K2_BATCH} blocks of {np_}x{np_}, "
           f"{n_bad} non-SPD flagged alike, max |err| {k2_err:.3e}")
+    print(f"K2 output digests (sha1): L {_sha1(L)}, L^-1 {_sha1(Li)}, "
+          f"posdef {_sha1(pd)}")
 
     # ---- phase 3: K1 (fused GI) vs plain, then both refined ----
     pbc = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC, dtype=f32)
+    ins3, (n, m) = gi_kernel.prepare(pbc)
+    prologue = gi_kernel._gi_fused_cuda_raw(*ins3, n, m, 0)
+    print("K1 prologue output digests (sha1, iteration cap 0): "
+          + ", ".join(f"{k} {_sha1(v)}" for k, v in zip(
+              ("x", "u", "status", "aorder", "scal", "K", "hscale"),
+              prologue)))
+    del ins3, prologue
     ok_k = gi_kernel.run_loop_fused(pbc, MAX_ITER)
     ok_p = gi_kernel.gi_fused_plain(pbc, MAX_ITER)
     torch.cuda.synchronize()
@@ -429,8 +456,16 @@ def main() -> int:
     k2_ms = _cuda_ms(lambda: block_llt.chol_inv_b(G_main))
     k2_plain_ms = _cuda_ms(lambda: block_llt.tri_inv_b_plain(
         block_llt.chol_b_plain(G_main)), reps=1)
+    # library yardstick of K2 (2 calls): the Cholesky, then L^-1 by a
+    # triangular solve on the identity
+    eye_main = torch.eye(np_, device=dev).expand(BATCH, np_, np_)
+    k2_lib_ms = _cuda_ms(lambda: torch.linalg.solve_triangular(
+        torch.linalg.cholesky_ex(G_main)[0], eye_main, upper=False))
+    del eye_main
     print(f"device ms at batch {BATCH} ({card}): K1 {k1_ms!r} "
-          f"(plain {k1_plain_ms!r}), K2 {k2_ms!r} (plain {k2_plain_ms!r})")
+          f"(plain {k1_plain_ms!r}), K2 {k2_ms!r} (plain {k2_plain_ms!r}, "
+          f"library: torch.linalg.cholesky_ex + solve_triangular, 2 calls, "
+          f"{k2_lib_ms!r})")
     outs1 = gi_kernel._gi_fused_cuda_raw(*inputs, n, m, MAX_ITER)
     it1 = int(outs1[4][:, 1].sum())
     # K1's loop starts at q = the equalities and fixed variables it replays;
@@ -665,6 +700,9 @@ def main() -> int:
     off32 = torch.from_numpy(ik["off"]).to(dev, f32)
     eye_ik = torch.eye(n_ik, device=dev).reshape(1, IK_NB, IK_S, n_ik)
     eye_ik = eye_ik.expand(IK_BATCH, -1, -1, -1).contiguous()
+    # the identity as the structured path hands it to K6: one buffer with
+    # rows of round4(n) floats, shared by the batch
+    eye_sh = block_llt.identity_rhs(IK_BATCH, IK_NB, IK_S, device=dev)
 
     def rel_err(ours, ref):
         return float((ours - ref).abs().max()
@@ -716,11 +754,11 @@ def main() -> int:
         "K5": (_cuda_ms(lambda: block_llt.tri_block_llt(diag32, off32)),
                _cuda_ms(lambda: block_llt.tri_block_llt_plain(diag32, off32),
                         reps=1)),
-        "K6": (_cuda_ms(lambda: block_llt.tri_block_solve(Lo, Li, eye_ik)),
+        "K6": (_cuda_ms(lambda: block_llt.tri_block_solve(Lo, Li, eye_sh)),
                _cuda_ms(lambda: block_llt.tri_block_solve_plain(
                    Lo, Li, eye_ik), reps=1)),
         "K6 lower_only": (
-            _cuda_ms(lambda: block_llt.tri_block_solve(Lo, Li, eye_ik,
+            _cuda_ms(lambda: block_llt.tri_block_solve(Lo, Li, eye_sh,
                                                        True)),
             _cuda_ms(lambda: block_llt.tri_block_solve_plain(
                 Lo, Li, eye_ik, True), reps=1)),
@@ -737,6 +775,25 @@ def main() -> int:
             _cuda_ms(lambda: block_llt.block_arrow_solve_plain(
                 uLo, uLi, eye_ik, up=True), reps=1)),
     }
+    # K6's padded layout, costed: K5 writes its factor with rows of
+    # round4(s) floats and the path's identity is one padded buffer, so the
+    # path's call copies nothing; an unpadded factor or rhs is copied once
+    # per call
+    Lo_u, Li_u = Lo.contiguous(), Li.contiguous()
+    k6_fac_copy = _cuda_ms(lambda: block_llt.tri_block_solve(Lo_u, Li_u,
+                                                             eye_sh))
+    k6_rhs_copy = _cuda_ms(lambda: block_llt.tri_block_solve(Lo, Li, eye_ik))
+    y_sh = block_llt.tri_block_solve(Lo, Li, eye_sh)
+    _require(all(torch.equal(y_sh, y) for y in (
+        block_llt.tri_block_solve(Lo_u, Li_u, eye_sh),
+        block_llt.tri_block_solve(Lo, Li, eye_ik))),
+        "K6 gives other bits on unpadded operands")
+    print(f"K6 layout ({card}): on K5's padded factor and the shared "
+          f"identity {struct_ms['K6'][0]!r} ms (nothing copied); on an "
+          f"unpadded factor (L_off and Linv copied) {k6_fac_copy!r} ms; on "
+          f"an unpadded identity (copied) {k6_rhs_copy!r} ms; same bits; "
+          f"output digest (sha1) {_sha1(y_sh)}")
+    del Lo_u, Li_u, y_sh
     for key, entry in (("K6", "jrlqp_tri_block_solve"),
                        ("K8", "jrlqp_block_arrow_solve")):
         print(f"{key} launch configuration at s={IK_S}, k={n_ik} ({card}): "
@@ -763,20 +820,24 @@ def main() -> int:
         "K7": _bound(fac_flops, fac_bytes),
         "K8": _bound(sol_flops, sol_bytes),
     }
-    # library yardstick of the solves: torch.cholesky_solve with the dense
-    # factor of the same G on the same identity right-hand side
+    # library yardsticks on the dense G of the same chain: the solves,
+    # torch.cholesky_solve with the dense factor on the same identity; the
+    # factorizations, torch.linalg.cholesky_ex
     from jrlqp_tpu_torch.structured import blocks as sblocks
     eye_d = eye_ik.reshape(IK_BATCH, n_ik, n_ik)
     lib_ms = {}
-    for key, G_d in (("K6", sblocks.tri_block_to_dense(diag32, off32)),
-                     ("K8", sblocks.block_arrow_to_dense(diag32, off32,
-                                                         up=False))):
+    for fac, sol, G_d in (
+            ("K5", "K6", sblocks.tri_block_to_dense(diag32, off32)),
+            ("K7", "K8", sblocks.block_arrow_to_dense(diag32, off32,
+                                                      up=False))):
         L_d = torch.linalg.cholesky(G_d)
-        lib_ms[key] = _cuda_ms(lambda: torch.cholesky_solve(eye_d, L_d))
+        lib_ms[sol] = _cuda_ms(lambda: torch.cholesky_solve(eye_d, L_d))
+        lib_ms[fac] = _cuda_ms(lambda: torch.linalg.cholesky_ex(G_d))
         del G_d, L_d
     print(f"bounds ({card}): {struct_bound}; library ms "
-          f"(torch.cholesky_solve, dense factor): {lib_ms}")
-    del Ld, Lo, Li, aLd, aLo, aLi, uLo, uLi, eye_ik, eye_d
+          f"(K5, K7: torch.linalg.cholesky_ex of the dense G; K6, K8: "
+          f"torch.cholesky_solve, dense factor): {lib_ms}")
+    del Ld, Lo, Li, aLd, aLo, aLi, uLo, uLi, eye_ik, eye_d, eye_sh
 
     # ---- phase 9: the structured cold batch ----
     opt_ik = SolverOptions(max_iter=IK_MAX_ITER)
@@ -1228,7 +1289,9 @@ def main() -> int:
          "replaces": "jrlqp_tpu/ops/pallas/block_llt.py:89",
          "launches": main_counts["chol_inv_b"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None,
+         "bound_by": k2_bound[1], "library_ms": k2_lib_ms,
+         "library": "torch.linalg.cholesky_ex + torch.linalg."
+                    "solve_triangular (2 calls)",
          "runs_inside": "gi_fused"},
         {"name": "gi_loop", "route": "cuda", "source": src,
          "replaces": f"{pallas}:628",

@@ -17,8 +17,7 @@ chol_inv_b_kernel(const float* __restrict__ A, float* __restrict__ L,
   float* x = smem + s * s;  // s x s, L^-1
   const long off = (long)blockIdx.x * s * s;
   for (int e = threadIdx.x; e < s * s; e += blockDim.x) a[e] = A[off + e];
-  jrlqp::chol_block(a, s, s);
-  jrlqp::tri_inv_block(a, s, x, s, s);
+  jrlqp::chol_inv_block(a, s, x, s, s);
   for (int e = threadIdx.x; e < s * s; e += blockDim.x) {
     L[off + e] = a[e];
     Li[off + e] = x[e];

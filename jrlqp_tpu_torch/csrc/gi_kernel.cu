@@ -818,9 +818,9 @@ gi_fused_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
     for (int c4 = lane; c4 < (np >> 2); c4 += 32)
       *reinterpret_cast<float4*>(K + i * ldk + 4 * c4) =
           *reinterpret_cast<const float4*>(Gb + i * np + 4 * c4);
-  jrlqp::chol_block(K, np, ldk);                // K's left half := L
+  // K's left half := L, its right half := L^-1
+  jrlqp::chol_inv_block(K, ldk, K + np, ldk, np);
   const float* Li = K + np;
-  jrlqp::tri_inv_block(K, ldk, K + np, ldk, np);  // right half := L^-1
   const bool posdef = jrlqp::posdef_from_diag(K, ldk, np);
   __syncthreads();  // diag(L) is read before H0 overwrites it
   // H0 = L^-T L^-1 into the left half, each thread its (row, column) pairs

@@ -18,7 +18,7 @@
 // (the block being factored, its inverse, the coupling block and the
 // running Schur term) in shared memory: 4-5 s x s floats, ~30-37 KB at
 // s = 43, so several problems share an SM and hide each other's barriers.
-// They reuse K2's device functions chol_block and tri_inv_block.
+// They reuse K2's device function chol_inv_block.
 // A solve (K6, K8) runs 2 nb dependent block products, but its rhs columns
 // are independent and, on the structured path, the rhs is the identity
 // (k = n = 387): one problem's rhs is 600 KB, too much for one block. So
@@ -39,17 +39,22 @@
 // coupled into it, is not multiplied (its result is zero for finite
 // factors): with the identity as rhs that is most of K8's forward heads
 // and K6's forward chain above the tile's own block row.
-// What bounds them now, measured on an H100 (PERF.md, section 6): of K8's
+// What bounds K8 now, measured on an H100 (PERF.md, section 6): of its
 // 2.4 ms at the IK shape the FMAs are ~0.5, and ~1 ms is the staging: an
 // s x s block of odd s starts at no 16-byte boundary, so operands and
 // tiles come in by 4-byte cp.async, the forward operands transposed on the
-// way. The rest is barriers, the zero tests and the stores.
+// way. The rest is barriers, the zero tests and the stores. K6 takes its
+// operands in a padded layout instead (K5 writes its factor with rows of
+// round4(s) floats; rhs and output rows are round4(k) floats), so its
+// blocks and tiles arrive by TMA copies that do not hold their issuer
+// (tri_solve_kernel).
 //
 // Up arrows: the Pallas wrappers roll the diagonal blocks (and the rhs) by
 // -1 before the kernel and the solution by +1 after it; here the kernels
 // read block (j + 1) % nb in place of block j instead, so no copy is made.
 // Sums run in another order than in the plain PyTorch versions, so kernel
 // and plain agree to a tolerance, not bitwise.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
 
 #include "block_llt.cuh"
@@ -90,6 +95,7 @@ __device__ void load_block(const float* src, float* dst, int n) {
 // blocks, so wide tiles stage less: at the IK shape 3 tiles of 132 columns
 // in one block of 384 threads per SM were 12-14% faster than 7 tiles of 56
 // in three blocks of 160 (PERF.md, section 6), and 2 tiles do not fit.
+// K6's zero pass and its tensor copies' boxes take it to be under 256.
 constexpr int kSolveTileMax = 132;
 // A solve block has at most this many threads; __launch_bounds__ of it
 // holds the kernels to 128 registers.
@@ -98,24 +104,29 @@ constexpr int kSmemLimit = 232448;    // dynamic shared memory per block
 
 __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 
-// Floats of shared memory of a solve block: two stages of two s x sp
+// Floats of shared memory of a solve block (K8): two stages of two s x sp
 // operand blocks, two staged tiles and two working tiles of s x T.
 __host__ __device__ inline size_t solve_smem_floats(int s, int T) {
   return 4 * (size_t)s * round4(s) + 4 * (size_t)s * T;
 }
 
-// Tile width for k rhs columns: the fewest tiles no wider than
-// kSolveTileMax (or than shared memory and the thread bound allow at this
-// s), made even (387 -> 3 x 132, not 2 x 132 + 123), rounded up to a
-// multiple of 4.
-__host__ __device__ inline int solve_tile(int k, int s) {
+// The tile width for k rhs columns when a tile of width T needs bytes(T)
+// of shared memory: the fewest tiles no wider than kSolveTileMax (or than
+// shared memory and the thread bound allow at this s), made even (387 ->
+// 3 x 132, not 2 x 132 + 123), rounded up to a multiple of 4.
+template <typename Bytes>
+__host__ __device__ inline int tile_width(int k, int s, Bytes bytes) {
   int tmax = kSolveTileMax;
-  while (tmax > 4 &&
-         (solve_smem_floats(s, tmax) * 4 > (size_t)kSmemLimit ||
-          (round4(s) / 4) * (tmax / 4) > kSolveBoundThreads))
+  while (tmax > 4 && (bytes(tmax) > (size_t)kSmemLimit ||
+                      (round4(s) / 4) * (tmax / 4) > kSolveBoundThreads))
     tmax -= 4;
   const int nt = (k + tmax - 1) / tmax;
   return round4((k + nt - 1) / nt);
+}
+
+// K8's tile width.
+__host__ __device__ inline int solve_tile(int k, int s) {
+  return tile_width(k, s, [s](int T) { return solve_smem_floats(s, T) * 4; });
 }
 
 // Threads of a solve block: one per unit, a whole number of warps.
@@ -291,13 +302,24 @@ __device__ __forceinline__ SolveCtx solve_ctx(float* smem, int s, int k) {
   return c;
 }
 
+// The s x s block src (shared memory, row pitch s) to dst (device memory,
+// row pitch ld): warps take rows, lanes columns.
+__device__ __forceinline__ void store_block(float* dst, int ld,
+                                            const float* src, int s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int row = warp; row < s; row += blockDim.x >> 5)
+    for (int c = lane; c < s; c += 32) dst[(long)row * ld + c] = src[row * s + c];
+}
+
 // K5: L_i = chol(D_i - S'_{i-1} S'_{i-1}^T), S'_i = S_i L_i^-T, and L_i^-1.
+// The three outputs leave with rows of ld = round4(s) floats, the layout in
+// which K6 copies them (the pad columns are not written).
 __global__ void __launch_bounds__(kThreads)
 tri_llt_kernel(const float* __restrict__ diag, const float* __restrict__ off,
                float* __restrict__ Ld, float* __restrict__ Lo,
                float* __restrict__ Li, int nb, int s) {
   extern __shared__ __align__(16) float smem[];
-  const int ss = s * s;
+  const int ss = s * s, ld = round4(s), so = s * ld;
   float* a = smem;       // the block being factored, then L_i
   float* x = a + ss;     // L_i^-1
   float* sp = x + ss;    // S'_i
@@ -305,27 +327,23 @@ tri_llt_kernel(const float* __restrict__ diag, const float* __restrict__ off,
   const long b = blockIdx.x;
   const float* D = diag + b * nb * ss;
   const float* S = off + b * (nb - 1) * ss;
-  float* LD = Ld + b * nb * ss;
-  float* LO = Lo + b * (nb - 1) * ss;
-  float* LI = Li + b * nb * ss;
+  float* LD = Ld + b * nb * so;
+  float* LO = Lo + b * (nb - 1) * so;
+  float* LI = Li + b * nb * so;
   for (int e = threadIdx.x; e < ss; e += blockDim.x) m[e] = 0.0f;
   for (int i = 0; i < nb; ++i) {
     __syncthreads();
     for (int e = threadIdx.x; e < ss; e += blockDim.x)
       a[e] = D[(long)i * ss + e] - m[e];
-    jrlqp::chol_block(a, s, s);
-    jrlqp::tri_inv_block(a, s, x, s, s);
-    for (int e = threadIdx.x; e < ss; e += blockDim.x) {
-      LD[(long)i * ss + e] = a[e];
-      LI[(long)i * ss + e] = x[e];
-    }
+    jrlqp::chol_inv_block(a, s, x, s, s);
+    store_block(LD + (long)i * so, ld, a, s);
+    store_block(LI + (long)i * so, ld, x, s);
     if (i < nb - 1) {
       load_block(S + (long)i * ss, m, ss);
       __syncthreads();
       mm_nt(m, x, sp, s, true, false);             // S_i L_i^-T
       __syncthreads();
-      for (int e = threadIdx.x; e < ss; e += blockDim.x)
-        LO[(long)i * ss + e] = sp[e];
+      store_block(LO + (long)i * so, ld, sp, s);
       mm_nt(sp, sp, m, s, false, false);           // S'_i S'_i^T
     }
   }
@@ -358,8 +376,7 @@ arrow_llt_kernel(const float* __restrict__ diag, const float* __restrict__ side,
     __syncthreads();
     for (int e = threadIdx.x; e < ss; e += blockDim.x)
       a[e] = last ? D[(long)p * ss + e] - acc[e] : D[(long)p * ss + e];
-    jrlqp::chol_block(a, s, s);
-    jrlqp::tri_inv_block(a, s, x, s, s);
+    jrlqp::chol_inv_block(a, s, x, s, s);
     for (int e = threadIdx.x; e < ss; e += blockDim.x) {
       LD[(long)i * ss + e] = a[e];
       LI[(long)i * ss + e] = x[e];
@@ -376,101 +393,379 @@ arrow_llt_kernel(const float* __restrict__ diag, const float* __restrict__ side,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6's copies: TMA copies into shared memory, each completing its bytes on
+// the stage's mbarrier: an operand block as one bulk copy (cp.async.bulk),
+// a tile of the rhs or of the forward results as one 2-D box of a tensor
+// map. The issuing thread does not wait on them, where a step's 9,400
+// 4-byte cp.async held their issuers for a third of the step, and one bulk
+// copy per tile row still cost a sixth (PERF.md, section 6). Sources and
+// row pitches are multiples of 16 bytes: the blocks and rows come padded
+// (row pitch sp = round4(s) and kp = round4(k)).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// The one arrival of the phase, which also expects `bytes` of copies.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete. A copy that never
+// lands (a fault of the caller's layout) ends the kernel with a trap after
+// about a second of polling, rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  for (long polls = 0;; ++polls) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1l << 22)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The box at (x, y, z) of the 3-D tensor map `map` (rows of floats: the
+// rhs or the output) into shared memory at dst (128-byte aligned, rows of
+// the box's width), completing on bar.
+__device__ __forceinline__ void tile_copy(float* dst, const CUtensorMap* map,
+                                          int x, int y, int z,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(z),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// acc += sum over k in [0, k1) of A[r][k] X[k][c]: the unit's rows of a
+// row-major s x sp block as its bulk copy lands (op(A) = A), k1 a multiple
+// of 4 no larger than sp, four k at a time (4 float4 loads of A, 4 of X, 64
+// FMAs, each sum still in k order). In the last quad A's columns from s on
+// (the pad, whatever it holds) are taken as zero, and X's rows there are
+// zero pad rows; with lower, that quad (k1 = r0 + 4) holds the diagonal,
+// and what lies above it is taken as zero too.
+__device__ __forceinline__ void unit_mac_rows(Unit& acc, const float* A, int sp,
+                                              const float* X, int T, int r0,
+                                              int c0, int k1, int s,
+                                              bool lower) {
+  for (int k = 0; k < k1; k += 4) {
+    float a[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(A + (r0 + i) * sp + k);
+      a[i][0] = v.x;
+      a[i][1] = v.y;
+      a[i][2] = v.z;
+      a[i][3] = v.w;
+    }
+    if (k + 4 == k1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          if ((lower && kk > i) || k + kk >= s) a[i][kk] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 x = *reinterpret_cast<const float4*>(X + (k + kk) * T + c0);
+      const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc.v[i][j] = fmaf(a[i][kk], xv[j], acc.v[i][j]);
+    }
+  }
+}
+
+// acc += sum over k in [r0, s) of L[k][r] X[k][c] (op(A) = L^T for a
+// row-major lower L): unit_mac from k = r0 + 4 on; the first quad masks
+// L's entries above its diagonal (k < r) and any k beyond s.
+__device__ __forceinline__ void unit_mac_upper(Unit& acc, const float* L,
+                                               int sp, const float* X, int T,
+                                               int r0, int c0, int s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k = r0 + kk;
+    if (k < s) {
+      const float4 a = *reinterpret_cast<const float4*>(L + k * sp + r0);
+      const float4 x = *reinterpret_cast<const float4*>(X + k * T + c0);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc.v[i][j] = fmaf(i <= kk ? av[i] : 0.0f, xv[j], acc.v[i][j]);
+    }
+  }
+  unit_mac(acc, L, sp, X, T, r0, c0, r0 + 4, s);
+}
+
+// K6's copies run two steps ahead of its products: three stages.
+constexpr int kTriStages = 3;
+
+// Floats of one of K6's tiles (sp rows of T), rounded up to 128 bytes: the
+// tiles come first in shared memory, each on a 128-byte boundary, as a
+// tensor copy's destination must be.
+__host__ __device__ inline int tri_tile_floats(int s, int T) {
+  return (round4(s) * T + 31) / 32 * 32;
+}
+
+// Bytes of K6's shared memory at tile width T: the staged tiles and the two
+// working tiles, the stages' operand blocks (each s x sp, in room for sp
+// rows: a unit's rows at and beyond s read its own room), then the stages'
+// mbarriers and the zero mask's two words.
+__host__ __device__ inline size_t tri_solve_smem_bytes(int s, int T) {
+  const size_t sp = round4(s);
+  return ((size_t)(kTriStages + 2) * tri_tile_floats(s, T) +
+          2 * kTriStages * sp * sp) * sizeof(float) + 32;
+}
+
+// K6's tile width.
+__host__ __device__ inline int tri_solve_tile(int k, int s) {
+  return tile_width(k, s, [s](int T) { return tri_solve_smem_bytes(s, T); });
+}
+
+// The unit's rows below s to the output in device memory (row stride k), as
+// float4 stores, for a unit that starts inside the tile's tk columns: K6's
+// output rows have room up to round4(k), so a unit that ends in the pad
+// stores there too (no one reads it).
+__device__ __forceinline__ void unit_store4(const Unit& u, float* dst, int k,
+                                            int r0, int c0, int s, int tk) {
+  if (c0 >= tk) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (r0 + i < s)
+      *reinterpret_cast<float4*>(dst + (long)(r0 + i) * k + c0) =
+          make_float4(u.v[i][0], u.v[i][1], u.v[i][2], u.v[i][3]);
+}
+
 // K6: y = G^-1 r by the forward chain y_i = L_i^-1 (r_i - S'_{i-1} y_{i-1})
 // and the backward chain w_i = L_i^-T (y_i - S'_i^T w_{i+1}); with
 // lower_only, y = L^-1 r (the forward chain alone). One thread block per
-// (problem, tile of T rhs columns). Step t's operand blocks and tile are
-// staged by cp.async while step t - 1's products run. A step whose rhs
-// tile and incoming chain tile are both exactly zero is skipped, its
-// result being zero (exact for finite factors): with the identity as rhs
-// the forward chain is zero above the tile's own block row. The forward
-// results go to the output buffer and come back for the backward chain;
-// only this block reads them.
+// (problem, tile of T rhs columns). The factor's blocks come with rows of
+// sp floats (what the pad holds never reaches a result), the rhs with rows
+// of kp floats (problem b at r + b * rbs; rbs = 0 shares one rhs, such as
+// the identity, across the batch), the output with rows of kp.
+// First, one pass over the rhs tile finds its block rows that are exactly
+// zero (any NaN counts as nonzero; blocks 0..63). The forward chain then
+// starts at the first nonzero block f, whose coupling is zero: blocks above
+// it are never staged, and a zero block row's tile is never copied. Each
+// executed step's blocks and tile arrive by TMA bulk copies issued by warp
+// 0 two steps ahead (three stages), onto the stage's mbarrier; the forward
+// products read the blocks as they land, row-major (unit_mac_rows), the
+// backward ones as k-major transposes (unit_mac, unit_mac_upper). Results
+// leave as float4 stores. The forward results come back for the backward
+// chain (a proxy fence orders those stores before the bulk copies read
+// them); only this block reads them.
 __global__ void __launch_bounds__(kSolveBoundThreads)
 tri_solve_kernel(const float* __restrict__ Lo, const float* __restrict__ Li,
-                 const float* __restrict__ r, float* y, int nb, int s, int k,
-                 int lower_only) {
-  extern __shared__ __align__(16) float smem[];
-  const SolveCtx c = solve_ctx(smem, s, k);
-  const int ss = s * s;
+                 const float* __restrict__ r, long rbs, float* y,
+                 const __grid_constant__ CUtensorMap rmap,
+                 const __grid_constant__ CUtensorMap ymap, int nb, int s,
+                 int k, int lower_only) {
+  extern __shared__ __align__(128) float tri_smem[];
+  const int sp = round4(s), kp = round4(k);
+  const int T = tri_solve_tile(k, s);
+  const int tk = min(T, k - (int)blockIdx.y * T);
+  const int ss = s * sp;                    // a padded block
+  const int ts = tri_tile_floats(s, T);
+  float* X0 = tri_smem;                     // stage st's tile: X0 + st ts
+  float* U = X0 + kTriStages * ts;          // the chain tile
+  float* V = U + ts;
+  float* A0 = V + ts;                       // stage st's blocks: A0 + 2 st sp sp
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(A0 + 2 * kTriStages * sp * sp);
+  unsigned* zw = reinterpret_cast<unsigned*>(bar + kTriStages);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int cgs = T / 4, r0 = 4 * (tid / cgs), c0 = 4 * (tid % cgs);
+  const bool live = r0 < s;
   const long b = blockIdx.x;
-  const long col0 = (long)blockIdx.y * c.T;
+  const long col0 = (long)blockIdx.y * T;
   const float* LO = Lo + b * (nb - 1) * ss;
   const float* LI = Li + b * nb * ss;
-  const long bs = (long)s * k;  // one block row of the rhs
-  const float* R = r + b * nb * bs + col0;
+  const long bs = (long)s * kp;             // one block row of rhs and output
+  const float* R = r + b * rbs + col0;
   float* Y = y + b * nb * bs + col0;
-  const int nsteps = lower_only ? nb : 2 * nb;
-  unsigned long long zero = 0;  // forward results known to be zero (i < 64)
-  auto is_zero = [&](int i) { return i < 64 && ((zero >> i) & 1ull); };
-  // step t < nb: forward block t; else backward block 2 nb - 1 - t
-  auto prefetch = [&](int t) {
-    const int st = t & 1;
-    if (t < nb) {
-      stage_block(c.A(st, 0), LI + (long)t * ss, s, c.sp, false, true);
-      if (t > 0)
-        stage_block(c.A(st, 1), LO + (long)(t - 1) * ss, s, c.sp, false,
-                    false);
-      stage_tile(c.X(st), R + t * bs, s, k, c.tk, c.T);
-    } else {
-      const int i = 2 * nb - 1 - t;
-      stage_block(c.A(st, 0), LI + (long)i * ss, s, c.sp, true, true);
-      if (i < nb - 1)
-        stage_block(c.A(st, 1), LO + (long)i * ss, s, c.sp, true, false);
-      // block nb - 1's forward result is still in U when its backward
-      // step runs (and not yet in Y when that step is staged)
-      if (i < nb - 1 && !is_zero(i))
-        stage_tile(c.X(st), Y + i * bs, s, k, c.tk, c.T);
+
+  // the tiles' pad rows are zero for good; the mbarriers; the mask's words
+  for (int c = tid; c < T; c += blockDim.x)
+    for (int row = s; row < sp; ++row) {
+      for (int st = 0; st < kTriStages; ++st) X0[st * ts + row * T + c] = 0.0f;
+      U[row * T + c] = 0.0f;
+      V[row * T + c] = 0.0f;
     }
-    cp_async_commit();
+  if (tid == 0) {
+    for (int st = 0; st < kTriStages; ++st) mbar_init(&bar[st]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    zw[0] = zw[1] = 0u;
+  }
+  __syncthreads();
+  // which block rows of the rhs tile hold a nonzero (or NaN) entry: the
+  // tile's rows q = i s + row lie at q kp; warps take rows, each lane two
+  // float4 groups (T <= kSolveTileMax < 256). Eight rows' loads are issued
+  // before any is tested, with no branch between them: each load's column
+  // is clamped into the tile (a lane past it reads a column it then
+  // ignores), its row into the rhs.
+  const int nmask = min(nb, 64), nq = nmask * s;
+  unsigned long long nz = 0;
+  auto nonzero = [&](const float4& v, int c) {
+    return (c < tk && !(v.x == 0.0f)) || (c + 1 < tk && !(v.y == 0.0f)) ||
+           (c + 2 < tk && !(v.z == 0.0f)) || (c + 3 < tk && !(v.w == 0.0f));
   };
-  prefetch(0);
-  bool chain_zero = true;  // the incoming chain tile (in U) is zero
+  const int ca = 4 * lane, cb = ca + 128, clast = (tk - 1) / 4 * 4;
+  const float* Ra = R + min(ca, clast);
+  const float* Rb = R + min(cb, clast);
+  constexpr int kRows = 8;
+  for (int q0 = warp; q0 < nq; q0 += kRows * nwarps) {
+    float4 va[kRows], vb[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const long q = min(q0 + u * nwarps, nq - 1);
+      va[u] = *reinterpret_cast<const float4*>(Ra + q * kp);
+      vb[u] = *reinterpret_cast<const float4*>(Rb + q * kp);
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int q = q0 + u * nwarps;
+      if (q < nq && (nonzero(va[u], ca) || nonzero(vb[u], cb)))
+        nz |= 1ull << (q / s);
+    }
+  }
+  const unsigned lo32 = __reduce_or_sync(0xffffffffu, (unsigned)nz);
+  const unsigned hi32 = __reduce_or_sync(0xffffffffu, (unsigned)(nz >> 32));
+  if (lane == 0) {
+    if (lo32) atomicOr(&zw[0], lo32);
+    if (hi32) atomicOr(&zw[1], hi32);
+  }
+  __syncthreads();
+  const unsigned long long mask = zw[0] | ((unsigned long long)zw[1] << 32);
+  // the first block whose rhs is nonzero; blocks from 64 on count as nonzero
+  const int f = mask ? __ffsll((long long)mask) - 1 : nmask;
+  auto is_zero = [&](int i) { return i < 64 && !((mask >> i) & 1ull); };
   Unit acc;
-  for (int t = 0; t < nsteps; ++t) {
-    cp_async_wait();
-    __syncthreads();
-    if (t + 1 < nsteps) prefetch(t + 1);
-    const int st = t & 1;
-    const bool fwd = t < nb;
-    const int i = fwd ? t : 2 * nb - 1 - t;
-    if (t == nb) chain_zero = true;  // the backward chain starts uncoupled
-    bool own_zero;
-    // the mask records 64 skipped blocks: a forward block beyond it is
-    // computed and stored like a nonzero one, so the backward chain
-    // always finds it in Y
-    if (fwd) own_zero = i < 64 && !tile_nonzero(c.X(st), s, c.tk, c.T);
-    else own_zero = is_zero(i);
-    if (own_zero && chain_zero) {
-      // the result is zero: nothing to multiply
-      if (fwd) zero |= 1ull << i;
-      if (!fwd || lower_only) {
-        unit_zero(acc);
-        if (c.live) unit_store(acc, Y + i * bs, k, c.r0, c.c0, s, c.tk);
+  unit_zero(acc);
+  if (f == nb || lower_only) {
+    // results known to be zero: all of y, or L^-1 r above block f
+    for (int i = 0; i < (f == nb ? nb : f); ++i)
+      if (live) unit_store4(acc, Y + i * bs, kp, r0, c0, s, tk);
+    if (f == nb) return;
+  }
+  const int nfwd = nb - f;
+  const int nsteps = nfwd + (lower_only ? 0 : nb);
+  // executed step e: forward block f + e, then backward block nb-1 .. 0
+  auto block_of = [&](int e) { return e < nfwd ? f + e : nb - 1 - (e - nfwd); };
+  // step e's copies, issued by one thread: L_i, the coupling block and
+  // the tile (a box of the rhs or of y_i, columns past kp read as zero)
+  auto prefetch = [&](int e) {
+    if (tid != 0) return;
+    const int st = e % kTriStages, i = block_of(e);
+    const float* blk1 = nullptr;        // the coupling block
+    const CUtensorMap* map = nullptr;   // the tile's tensor
+    int z = (int)b;
+    if (e < nfwd) {
+      if (i > f) blk1 = LO + (long)(i - 1) * ss;
+      if (!is_zero(i)) {
+        map = &rmap;
+        if (rbs == 0) z = 0;
       }
-      continue;
+    } else if (i < nb - 1) {
+      blk1 = LO + (long)i * ss;
+      if (i >= f) map = &ymap;
     }
-    // V = own - coupling . chain
-    if (c.live) {
-      unit_zero(acc);
-      if (!chain_zero)
-        unit_mac(acc, c.A(st, 1), c.sp, c.U, c.T, c.r0, c.c0, 0, s);
-      Unit own;
-      if (own_zero) unit_zero(own);
-      else unit_get(own, t == nb ? c.U : c.X(st), c.T, c.r0, c.c0, s);
-      unit_rsub(acc, own);
-      unit_put(acc, c.V, c.T, c.r0, c.c0, s);
+    const unsigned blk_bytes = 4u * ss;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect(&bar[st], blk_bytes * (blk1 ? 2 : 1) +
+                              (map ? 4u * T * s : 0u));
+    float* As = A0 + 2 * st * sp * sp;
+    bulk_copy(As, LI + (long)i * ss, blk_bytes, &bar[st]);
+    if (blk1) bulk_copy(As + sp * sp, blk1, blk_bytes, &bar[st]);
+    if (map) tile_copy(X0 + st * ts, map, (int)col0, i * s, z, &bar[st]);
+  };
+  for (int e = 0; e < min(nsteps, kTriStages - 1); ++e) prefetch(e);
+  for (int e = 0; e < nsteps; ++e) {
+    const int st = e % kTriStages, i = block_of(e);
+    const float* As = A0 + 2 * st * sp * sp;  // L_i, the coupling at + sp sp
+    const float* Xs = X0 + st * ts;
+    // the forward results that the backward chain reads back are stored by
+    // now: order them before the bulk copies that read them
+    if (e == nfwd - 1) asm volatile("fence.proxy.async;\n" ::: "memory");
+    __syncthreads();  // step e - 1 is done with its stage and the tiles
+    if (e + kTriStages - 1 < nsteps) prefetch(e + kTriStages - 1);
+    mbar_wait(&bar[st], (e / kTriStages) & 1);
+    if (e < nfwd) {
+      // V = r_i - S'_{i-1} y_{i-1} (no coupling into block f)
+      if (live) {
+        unit_zero(acc);
+        if (i > f) unit_mac_rows(acc, As + sp * sp, sp, U, T, r0, c0, sp, s, false);
+        Unit own;
+        if (is_zero(i)) unit_zero(own);
+        else unit_get(own, Xs, T, r0, c0, s);
+        unit_rsub(acc, own);
+        unit_put(acc, V, T, r0, c0, s);
+      }
+      __syncthreads();
+      // U = y_i = L_i^-1 V: the new chain tile, and the result
+      if (live) {
+        unit_zero(acc);
+        unit_mac_rows(acc, As, sp, V, T, r0, c0, r0 + 4, s, true);
+        unit_put(acc, U, T, r0, c0, s);
+        unit_store4(acc, Y + i * bs, kp, r0, c0, s, tk);
+      }
+    } else {
+      // V = y_i - S'_i^T w_{i+1} (y_{nb-1} is still in U)
+      if (live) {
+        unit_zero(acc);
+        Unit own;
+        if (i == nb - 1) {
+          unit_get(own, U, T, r0, c0, s);
+        } else {
+          unit_mac(acc, As + sp * sp, sp, U, T, r0, c0, 0, s);
+          if (i < f) unit_zero(own);
+          else unit_get(own, Xs, T, r0, c0, s);
+        }
+        unit_rsub(acc, own);
+        unit_put(acc, V, T, r0, c0, s);
+      }
+      __syncthreads();
+      // U = w_i = L_i^-T V
+      if (live) {
+        unit_zero(acc);
+        unit_mac_upper(acc, As, sp, V, T, r0, c0, s);
+        unit_put(acc, U, T, r0, c0, s);
+        unit_store4(acc, Y + i * bs, kp, r0, c0, s, tk);
+      }
     }
-    __syncthreads();
-    // U = op(L_i^-1) V: the new chain tile, and the result
-    if (c.live) {
-      unit_zero(acc);
-      unit_mac(acc, c.A(st, 0), c.sp, c.V, c.T, c.r0, c.c0, fwd ? 0 : c.kt,
-               fwd ? c.kn : s);
-      unit_put(acc, c.U, c.T, c.r0, c.c0, s);
-      unit_store(acc, Y + i * bs, k, c.r0, c.c0, s, c.tk);
-    }
-    chain_zero = false;
   }
 }
 
@@ -599,6 +894,7 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace
 
+// K5: diag, off unpadded; Ld, Lo, Li with rows of round4(s) floats.
 extern "C" int jrlqp_tri_block_llt(const void* diag, const void* off,
                                    void* Ld, void* Lo, void* Li, int B,
                                    int nb, int s, void* stream) {
@@ -644,14 +940,79 @@ int launch_solve(Kernel kernel, const void* Lo, const void* Li, const void* r,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the library links no -lcuda); null if the driver does not offer it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map of `batch` matrices of `rows` rows of kp floats (row pitch
+// kp, batch pitch bstride floats, both multiples of 4) read in boxes of T
+// columns by s rows; columns past kp read as zero.
+bool rows_map(CUtensorMap* map, const void* base, int kp, int rows,
+              int batch, long long bstride, int T, int s) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)kp, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)kp * 4, (cuuint64_t)bstride * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)T, (cuuint32_t)s, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             const_cast<void*>(base), dims, strides, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
+// K6 on the padded layout: Lo (B, nb-1, s, sp) and Li (B, nb, s, sp) with
+// sp = round4(s); r's problem b at r + b * rbs (rbs a multiple of 4, 0 to
+// share one rhs), rows of kp = round4(k) floats; y (B, nb, s, kp). Every
+// pointer 16-byte aligned. The rhs tiles and the forward results come back
+// through two tensor maps encoded here.
 extern "C" int jrlqp_tri_block_solve(const void* Lo, const void* Li,
-                                     const void* r, void* y, int B, int nb,
-                                     int s, int k, int lower_only,
-                                     void* stream) {
-  return launch_solve(tri_solve_kernel, Lo, Li, r, y, B, nb, s, k, lower_only,
-                      stream);
+                                     const void* r, long long rbs, void* y,
+                                     int B, int nb, int s, int k,
+                                     int lower_only, void* stream) {
+  if (B <= 0 || k <= 0) return (int)cudaGetLastError();
+  const int kp = round4(k), rows = nb * s;
+  const int T = tri_solve_tile(k, s);
+  CUtensorMap rmap, ymap;
+  if (!rows_map(&rmap, r, kp, rows, rbs ? B : 1,
+                rbs ? rbs : (long long)rows * kp, T, s) ||
+      !rows_map(&ymap, y, kp, rows, B, (long long)rows * kp, T, s))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tri_solve_smem_bytes(s, T);
+  cudaError_t err = set_smem(tri_solve_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B, (k + T - 1) / T);
+  tri_solve_kernel<<<grid, solve_threads(s, T), smem, (cudaStream_t)stream>>>(
+      (const float*)Lo, (const float*)Li, (const float*)r, (long)rbs,
+      (float*)y, rmap, ymap, nb, s, k, lower_only);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int jrlqp_block_arrow_solve(const void* Lo, const void* Li,
@@ -666,8 +1027,10 @@ extern "C" int jrlqp_block_arrow_solve(const void* Lo, const void* Li,
 // per block, out[2] the shared memory bytes per block, out[3] the resident
 // blocks per SM. Returns a CUDA error code.
 extern "C" int jrlqp_struct_solve_config(int which, int s, int k, int* out) {
-  const int T = solve_tile(k, s), threads = solve_threads(s, T);
-  const size_t smem = solve_smem_floats(s, T) * sizeof(float);
+  const int T = which == 0 ? tri_solve_tile(k, s) : solve_tile(k, s);
+  const int threads = solve_threads(s, T);
+  const size_t smem = which == 0 ? tri_solve_smem_bytes(s, T)
+                                 : solve_smem_floats(s, T) * sizeof(float);
   int blocks = 0;
   cudaError_t err;
   if (which == 0) {

@@ -52,8 +52,10 @@ _SIGNATURES = {
     "jrlqp_tri_block_llt": [_P] * 5 + [_I] * 3 + [_P],
     # diag, side; Ld, Lo, Li; B, nb, s, up; stream
     "jrlqp_block_arrow_llt": [_P] * 5 + [_I] * 4 + [_P],
-    # Lo, Li, r; y; B, nb, s, k, lower_only; stream
-    "jrlqp_tri_block_solve": [_P] * 4 + [_I] * 5 + [_P],
+    # Lo, Li, r (padded: block_llt.padded_rhs), r's batch stride; y; B, nb,
+    # s, k, lower_only; stream
+    "jrlqp_tri_block_solve": [_P] * 3 + [ctypes.c_longlong, _P] + [_I] * 5
+    + [_P],
     # Lo, Li, r; y; B, nb, s, k, up; stream
     "jrlqp_block_arrow_solve": [_P] * 4 + [_I] * 5 + [_P],
 }

@@ -18,6 +18,15 @@ rhs and returns y in the original order. The solves treat each
 ``Linv_diag[i]`` as lower triangular, as the factorizations return it: K6
 and K8 read nothing above its diagonal.
 
+K6 reads its operands in a padded layout, so that every block and every
+rhs row starts on a 16-byte boundary for its bulk copies: the factor's
+blocks with rows of ``round4(s)`` floats and the rhs with rows of
+``round4(k)``. An operand already laid out so goes in as it is; any other is
+copied once per call (:func:`pad_cols` for ``L_off`` and ``Linv``,
+:func:`padded_rhs` for the rhs). :func:`identity_rhs` is one such buffer,
+shared by the batch. Its result is a view of a padded buffer,
+``y[..., :k]``.
+
 The plain versions below are the same algorithms in PyTorch. They are not
 ``torch.linalg.cholesky``, which raises on a non-SPD block where these clamp
 the pivot at 1e-30 and let :func:`posdef_plain` flag the block.
@@ -32,7 +41,8 @@ __all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain",
            "tri_block_llt", "tri_block_llt_plain", "tri_block_solve",
            "tri_block_solve_plain", "block_arrow_llt",
            "block_arrow_llt_plain", "block_arrow_solve",
-           "block_arrow_solve_plain", "solve_config"]
+           "block_arrow_solve_plain", "solve_config", "pad_cols",
+           "padded_rhs", "identity_rhs"]
 
 # launches of each CUDA kernel since the last reset (set to 0 to reset):
 # K2 (chol_inv_b), K5, K6, K7 and K8
@@ -233,26 +243,110 @@ def _check_solve_shapes(name: str, L_off, Linv, r):
                          f"{tuple(Linv.shape[:3])}, got {tuple(r.shape)}")
 
 
-def _factor_cuda(entry: str, diag, off, *flags):
+def _tri_llt_cuda(diag, off):
+    """K5; its outputs are views [..., :s] of buffers with rows of
+    round4(s) floats."""
+    B, nb, s, _ = diag.shape
+    sp = _round4(s)
+    Ld, Li = (diag.new_empty((B, nb, s, sp)) for _ in range(2))
+    Lo = diag.new_empty((B, nb - 1, s, sp))
+    stream = torch.cuda.current_stream(diag.device).cuda_stream
+    code = _build.library().jrlqp_tri_block_llt(
+        diag.data_ptr(), off.data_ptr(), Ld.data_ptr(), Lo.data_ptr(),
+        Li.data_ptr(), B, nb, s, stream)
+    _build.check(code, "jrlqp_tri_block_llt")
+    return Ld[..., :s], Lo[..., :s], Li[..., :s]
+
+
+def _arrow_llt_cuda(diag, side, up: bool):
+    """K7."""
     B, nb, s, _ = diag.shape
     Ld, Li, Lo = torch.empty_like(diag), torch.empty_like(diag), \
-        torch.empty_like(off)
+        torch.empty_like(side)
     stream = torch.cuda.current_stream(diag.device).cuda_stream
-    code = getattr(_build.library(), entry)(
-        diag.data_ptr(), off.data_ptr(), Ld.data_ptr(), Lo.data_ptr(),
-        Li.data_ptr(), B, nb, s, *flags, stream)
-    _build.check(code, entry)
+    code = _build.library().jrlqp_block_arrow_llt(
+        diag.data_ptr(), side.data_ptr(), Ld.data_ptr(), Lo.data_ptr(),
+        Li.data_ptr(), B, nb, s, int(up), stream)
+    _build.check(code, "jrlqp_block_arrow_llt")
     return Ld, Lo, Li
 
 
-def _solve_cuda(entry: str, L_off, Linv, r, flag: bool):
+def _round4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def _lies_padded(t: torch.Tensor, width: int, any_batch: bool) -> bool:
+    """Does (B, nb, rows, w) ``t`` lie as the [..., :w] view of a contiguous
+    buffer of last dimension ``width``, 16-byte aligned? With ``any_batch``
+    the problems may lie at any multiple of 4 floats apart (0 included)."""
+    B, nb, rows, _ = t.shape
+    st = t.stride()
+    batch = (B == 1 or (st[0] % 4 == 0 if any_batch
+                        else st[0] == nb * rows * width))
+    return (st[3] == 1 and st[2] == width and st[1] == rows * width
+            and batch and t.data_ptr() % 16 == 0)
+
+
+def pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    """(B, nb, rows, w) ``t`` in a contiguous buffer of last dimension
+    ``width``, as the buffer's [..., :w]: ``t`` itself when it already lies
+    so (whatever the buffer holds beyond column w), else a zero-padded
+    copy."""
+    if _lies_padded(t, width, any_batch=False):
+        return t
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., :t.shape[-1]] = t
+    return out[..., :t.shape[-1]]
+
+
+def padded_rhs(r: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(r_p, batch stride) of a (B, nb, s, k) rhs in K6's layout: block rows
+    of s rows of ``round4(k)`` floats, contiguous within a problem, each
+    problem a multiple of 4 floats from the last (0: one rhs for the whole
+    batch), 16-byte aligned. ``r_p`` is ``r`` when ``r`` already lies so,
+    else a zero-padded copy; either way ``r_p`` has r's shape and values."""
+    B, nb, s, k = r.shape
+    kp = _round4(k)
+    if _lies_padded(r, kp, any_batch=True):
+        return r, (r.stride()[0] if B > 1 else 0)
+    return pad_cols(r, kp), nb * s * kp
+
+
+def identity_rhs(B: int, nb: int, s: int, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """The identity of width n = nb s as a (B, nb, s, n) rhs: a view of one
+    (nb, s, round4(n)) buffer shared by the batch, in K6's layout
+    (:func:`padded_rhs` takes it as it is)."""
+    n = nb * s
+    eye = torch.zeros((n, _round4(n)), dtype=dtype, device=device)
+    eye.diagonal().fill_(1.0)
+    return eye.view(1, nb, s, -1).expand(B, -1, -1, -1)[..., :n]
+
+
+def _tri_solve_cuda(L_off, Linv, r, lower_only: bool):
+    """K6 on the padded layout; returns y[..., :k] of a padded buffer."""
+    B, nb, s, k = r.shape
+    sp = _round4(s)
+    Lo_p, Li_p = pad_cols(L_off, sp), pad_cols(Linv, sp)
+    r_p, rbs = padded_rhs(r)
+    y = torch.empty((B, nb, s, _round4(k)), dtype=r.dtype, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    code = _build.library().jrlqp_tri_block_solve(
+        Lo_p.data_ptr(), Li_p.data_ptr(), r_p.data_ptr(), rbs, y.data_ptr(),
+        B, nb, s, k, int(lower_only), stream)
+    _build.check(code, "jrlqp_tri_block_solve")
+    return y[..., :k]
+
+
+def _arrow_solve_cuda(L_side, Linv, r, up: bool):
+    """K8."""
     B, nb, s, k = r.shape
     y = torch.empty_like(r)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    code = getattr(_build.library(), entry)(
-        L_off.data_ptr(), Linv.data_ptr(), r.data_ptr(), y.data_ptr(), B, nb,
-        s, k, int(flag), stream)
-    _build.check(code, entry)
+    code = _build.library().jrlqp_block_arrow_solve(
+        L_side.data_ptr(), Linv.data_ptr(), r.data_ptr(), y.data_ptr(), B,
+        nb, s, k, int(up), stream)
+    _build.check(code, "jrlqp_block_arrow_solve")
     return y
 
 
@@ -275,14 +369,14 @@ def tri_block_llt(diag: torch.Tensor, off: torch.Tensor):
     """(L_diag, L_off, Linv_diag) of a batch of f32 block-tridiagonal
     chains, diag (B, nb, s, s) and off (B, nb-1, s, s) with off[i] at block
     (i+1, i): the counterpart of ``tri_block_llt_pallas``. A CUDA batch
-    runs the kernel K5, a CPU batch its plain version; any other device
-    raises."""
+    runs the kernel K5, whose outputs are views ``[..., :s]`` of buffers
+    with rows of ``round4(s)`` floats, the layout K6 reads; a CPU batch runs
+    its plain version; any other device raises."""
     global tri_llt_launches
     _check_factor_shapes("tri_block_llt", diag, off)
     if not _chain_on_cuda("tri_block_llt", diag.shape[-1], diag, off):
         return tri_block_llt_plain(diag, off)
-    out = _factor_cuda("jrlqp_tri_block_llt", diag.contiguous(),
-                       off.contiguous())
+    out = _tri_llt_cuda(diag.contiguous(), off.contiguous())
     tri_llt_launches += 1
     return out
 
@@ -291,14 +385,14 @@ def tri_block_solve(L_off: torch.Tensor, Linv: torch.Tensor, r: torch.Tensor,
                     lower_only: bool = False):
     """y = G^-1 r (or L^-1 r with ``lower_only``) for r (B, nb, s, k) and
     the factor of :func:`tri_block_llt`: the counterpart of
-    ``tri_block_solve_pallas``. A CUDA batch runs the kernel K6, a CPU
-    batch its plain version; any other device raises."""
+    ``tri_block_solve_pallas``. A CUDA batch runs the kernel K6 (its
+    result a view ``y[..., :k]`` of a padded buffer), a CPU batch its plain
+    version; any other device raises."""
     global tri_solve_launches
     _check_solve_shapes("tri_block_solve", L_off, Linv, r)
     if not _chain_on_cuda("tri_block_solve", r.shape[2], L_off, Linv, r):
         return tri_block_solve_plain(L_off, Linv, r, lower_only)
-    y = _solve_cuda("jrlqp_tri_block_solve", L_off.contiguous(),
-                    Linv.contiguous(), r.contiguous(), lower_only)
+    y = _tri_solve_cuda(L_off, Linv, r, lower_only)
     tri_solve_launches += 1
     return y
 
@@ -314,8 +408,7 @@ def block_arrow_llt(diag: torch.Tensor, side: torch.Tensor, up: bool = False):
     _check_factor_shapes("block_arrow_llt", diag, side)
     if not _chain_on_cuda("block_arrow_llt", diag.shape[-1], diag, side):
         return block_arrow_llt_plain(diag, side, up)
-    out = _factor_cuda("jrlqp_block_arrow_llt", diag.contiguous(),
-                       side.contiguous(), int(up))
+    out = _arrow_llt_cuda(diag.contiguous(), side.contiguous(), up)
     arrow_llt_launches += 1
     return out
 
@@ -330,7 +423,7 @@ def block_arrow_solve(L_side: torch.Tensor, Linv: torch.Tensor,
     _check_solve_shapes("block_arrow_solve", L_side, Linv, r)
     if not _chain_on_cuda("block_arrow_solve", r.shape[2], L_side, Linv, r):
         return block_arrow_solve_plain(L_side, Linv, r, up)
-    y = _solve_cuda("jrlqp_block_arrow_solve", L_side.contiguous(),
-                    Linv.contiguous(), r.contiguous(), up)
+    y = _arrow_solve_cuda(L_side.contiguous(), Linv.contiguous(),
+                          r.contiguous(), up)
     arrow_solve_launches += 1
     return y

@@ -32,6 +32,7 @@ import torch
 from ..ops.cuda.block_llt import (
     block_arrow_llt,
     block_arrow_solve,
+    identity_rhs,
     tri_block_llt,
     tri_block_solve,
 )
@@ -180,8 +181,7 @@ def _structured_inverse_kernel_batch(diag, off, gtype):
     max(diag L) over the whole factor."""
     B, nb, s, _ = diag.shape
     n = nb * s
-    eye = torch.eye(n, dtype=diag.dtype, device=diag.device)
-    eye_b = eye.reshape(1, nb, s, n).expand(B, nb, s, n)
+    eye_b = identity_rhs(B, nb, s, dtype=diag.dtype, device=diag.device)
     if gtype == GType.TRI_BLOCK_DIAGONAL:
         Ld, Lo, Li = tri_block_llt(diag, off)
         H = tri_block_solve(Lo, Li, eye_b)

@@ -129,6 +129,124 @@ def test_chol_inv_b_kernel_matches_plain(cuda_device, n, s):
     torch.testing.assert_close(Li[pd], Lip[pd], rtol=1e-4, atol=1e-5)
 
 
+def _k2_order_exact(A):
+    """(L, L^-1) of (B, s, s) f32 blocks on the CPU in K2's own order: the
+    right-looking Cholesky with 1 / sqrt of the pivot clamped at 1e-30, each
+    trailing entry updated as A - (A_ij isq)(A_jc isq) from the square
+    block, then the row-wise inverse, each sum k ascending; every product
+    and sum rounded apart (separate torch ops)."""
+    A = A.detach().cpu().clone()
+    B, s, _ = A.shape
+    for j in range(s):
+        piv = A[:, j, j]
+        pc = torch.where(torch.isnan(piv), piv, torch.clamp_min(piv, 1e-30))
+        # the square root correctly rounded, as CUDA's sqrtf (torch's
+        # vectorized CPU sqrt is not): in f64, then to f32, which is exact
+        isq = (1.0 / pc.double().sqrt().float())[:, None]
+        li = A[:, j + 1:, j] * isq
+        lc = A[:, j, j + 1:] * isq
+        A[:, j + 1:, j + 1:] = (A[:, j + 1:, j + 1:]
+                                - li[:, :, None] * lc[:, None, :])
+        A[:, j:, j] = A[:, j:, j] * isq
+    L = torch.tril(A)
+    X = torch.zeros_like(L)
+    cols = torch.arange(s)
+    for i in range(s):
+        acc = torch.zeros(B, s)
+        for k in range(i):
+            acc = torch.where(cols <= k, acc + L[:, i, k:k + 1] * X[:, k],
+                              acc)
+        v = ((cols == i).to(torch.float32) - acc) / L[:, i, i:i + 1]
+        X[:, i] = torch.where(cols <= i, v, 0.0)
+    return L, X
+
+
+def _bits(t):
+    return t.detach().cpu().contiguous().view(torch.int32)
+
+
+def _k2_blocks(s):
+    """64 f32 blocks of size s: G = A A^T / n + I of width n = min(s, 50),
+    identity-padded to s as K1 pads G; block 1 not SPD, block 2 not
+    symmetric."""
+    n = min(s, 50)
+    d = np_qp_batch(9 + s, 64, n, 1, 0.0)
+    A = np.tile(np.eye(s), (64, 1, 1))
+    A[:, :n, :n] = d["G"]
+    A[1, n - 1, n - 1] = -1.0
+    A[2] += 0.01 * np.random.default_rng(s).standard_normal((s, s))
+    return torch.from_numpy(A.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [56, 43, 13])
+def test_chol_inv_b_kernel_is_order_exact(cuda_device, s):
+    # K2's L and L^-1 bit for bit against the same sums in the same order
+    A = _k2_blocks(s)
+    L, Li, pd = block_llt.chol_inv_b(A.to(cuda_device))
+    torch.cuda.synchronize()
+    L_ref, Li_ref = _k2_order_exact(A)
+    assert not bool(pd[1]) and bool(pd[0])
+    assert torch.equal(_bits(L), _bits(L_ref))
+    assert torch.equal(_bits(Li), _bits(Li_ref))
+
+
+def _fma32(a, b, c):
+    """fma(a, b, c) of f32 tensors, rounded once to f32: a b + c in f64
+    (the product is exact), with the error of that sum carried over when
+    it lands on a tie of f32 rounding."""
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    p = a64 * b64
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    r = s.float()
+    inf = torch.full_like(r, float("inf"))
+    toward = torch.nextafter(r, torch.where(s > r.double(), inf, -inf))
+    tie = (s != r.double()) & (2 * s == r.double() + toward.double())
+    fix = tie & (((toward.double() > s) & (e > 0))
+                 | ((toward.double() < s) & (e < 0)))
+    return torch.where(fix, toward, r)
+
+
+@pytest.mark.cuda
+def test_gi_fused_prologue_is_order_exact(cuda_device):
+    # K1 at iteration cap 0: its K = [H0 | 0] with H0 = L^-T L^-1 summed
+    # k ascending from max(i, j), x0 = -H0 a as one FMA chain per row,
+    # and tr0, all bit for bit against the same loops here (L^-1 from
+    # K2's own order); a non-SPD lane keeps H0 = I and x0 = 0
+    d = np_qp_batch(31, 64, 50, 100, 0.3)
+    d["G"][3] = np.diag([1.0] * 49 + [-1.0])
+    pb = _f32_problem(d, cuda_device)
+    ins, (n, m) = gi_kernel.prepare(pb)
+    x, _, _, _, scal, K, tr0 = gi_kernel._gi_fused_cuda_raw(*ins, n, m, 0)
+    torch.cuda.synchronize()
+    G, a = ins[0].cpu(), ins[6].cpu()
+    B, np_, _ = G.shape
+    L, X = _k2_order_exact(G)
+    pd = block_llt.posdef_plain(L)
+    assert not bool(pd[3]) and int(pd.sum()) == B - 1
+    idx = torch.arange(np_)
+    first = torch.maximum(idx[:, None], idx[None, :])
+    H = torch.zeros(B, np_, np_)
+    for k in range(np_):
+        H = torch.where(first <= k, H + X[:, k, :, None] * X[:, k, None, :],
+                        H)
+    H = torch.where(pd[:, None, None], H, torch.eye(np_))
+    acc = torch.zeros(B, np_)
+    for j in range(np_):
+        acc = _fma32(H[:, :, j], a[:, j:j + 1].expand(B, np_), acc)
+    x_ref = torch.where(pd[:, None], -acc, 0.0)
+    tr = torch.zeros(B)
+    for k in range(np_):
+        tr = tr + H[:, k, k]
+    assert torch.equal(_bits(K[:, :, :np_]), _bits(H))
+    assert bool((K[:, :, np_:] == 0).all())
+    assert torch.equal(_bits(x), _bits(x_ref))
+    assert torch.equal(_bits(tr0), _bits(torch.clamp_min(tr, 1e-30)))
+    assert scal[:, 1].tolist() == [0] * B
+
+
 def _assert_kernel_matches_plain(ours, ref):
     for k in ("term", "it", "q", "status", "aorder"):
         assert torch.equal(ours[k], ref[k]), k
@@ -548,6 +666,45 @@ def test_struct_solves_match_plain_widths(cuda_device, s, nb, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lower_only", [False, True])
+@pytest.mark.parametrize("kind", ["shared_identity", "identity", "dense",
+                                  "tail"])
+def test_tri_solve_at_the_ik_shape_matches_plain(cuda_device, kind,
+                                                 lower_only):
+    # K6 at the IK shape (nb = 9, s = 43, k = n = 387): the identity as the
+    # structured path hands it over (one padded buffer for the batch) and
+    # as an unpadded copy, a dense rhs, and one nonzero in its last block
+    # row alone (every forward result above it zero); 1e-5 relative to the
+    # largest entry
+    B, nb, s = 16, 9, 43
+    n = nb * s
+    d = ik_batch(B, nb=nb, s=s, mc=4, seed=5)
+    diag = torch.from_numpy(d["diag"].astype(np.float32)).to(cuda_device)
+    off = torch.from_numpy(d["off"].astype(np.float32)).to(cuda_device)
+    _, Lo, Li = block_llt.tri_block_llt(diag, off)
+    if kind == "shared_identity":
+        r = block_llt.identity_rhs(B, nb, s, device=cuda_device)
+    else:
+        r = _solve_rhs("dense" if kind == "tail" else kind, B, nb, s, n,
+                       cuda_device)
+        if kind == "tail":
+            r[:, :-1] = 0.0
+    before = block_llt.tri_solve_launches
+    y = block_llt.tri_block_solve(Lo, Li, r, lower_only)
+    ref = block_llt.tri_block_solve_plain(Lo, Li, r, lower_only)
+    torch.cuda.synchronize()
+    assert block_llt.tri_solve_launches == before + 1
+    assert y.shape == (B, nb, s, n) and bool(torch.isfinite(y).all())
+    assert struct_err(y, ref) <= 1e-5
+    if kind == "shared_identity":
+        eye = _solve_rhs("identity", B, nb, s, n, cuda_device)
+        assert torch.equal(y, block_llt.tri_block_solve(Lo, Li, eye,
+                                                        lower_only))
+    if kind == "tail" and lower_only:
+        assert bool((y[:, :-1] == 0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["identity", "dense", "tail"])
 def test_struct_solves_match_plain_long_chain(cuda_device, kind):
     # a chain of 70 blocks, more than the 64 whose skipped zero tiles the
@@ -586,10 +743,14 @@ def test_struct_solves_match_plain_long_chain(cuda_device, kind):
 
 @pytest.mark.cuda
 @pytest.mark.xfail(strict=True, reason=(
-    "a fault of K1 on the card, ROADMAP queue 3: at this lane's degenerate "
-    "vertex the kernel's f32 sums activate constraint 95 (slack +8.9e-7, "
-    "about 4 f32 ulps) in a 61st iteration, and the refined result stalls "
-    "at a KKT residual of 7.0e-8; the plain versions stop after 60"))
+    "a fault of K1 on the card that no change to its arithmetic alone "
+    "repairs (ROADMAP queue 3, PERF.md section 6): K1 and its plain version "
+    "take the same 60 steps, but rounding leaves K1's x with constraint 95 "
+    "at a slack of -1.4e-6 (the plain versions +1.1e-6 and +1.2e-6, the f64 "
+    "vertex +8.9e-7), so K1 activates it in a 61st iteration and the "
+    "refined result stalls at a KKT residual of 7.0e-8; each of the eleven "
+    "variants of K1's sums that were tried and pass this lane fails another "
+    "lane of the same four batches, as the plain version does (lane 9832)"))
 def test_main_path_lane_on_card(cuda_device):
     # lane 11415 of the headline batch, the one lane in 16384 that misses the
     # main path's gate; tests/test_torch_main_path_lane.py holds the same

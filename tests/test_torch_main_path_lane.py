@@ -14,8 +14,10 @@ a multiplier of 3.6e-7 of the wrong sign, and the f64 refinement of that
 active set stalls at a KKT residual of 7.0e-8, over the 1e-8 gate,
 whatever ``ir_steps``. The card's side of this is
 ``test_main_path_lane_on_card`` in ``tests/test_torch_card.py``, expected
-to fail until the kernel is repaired; ``solve_refined_kernel_rescued``
-repairs such a lane today."""
+to fail: K1 and its plain version take the same path here and differ only
+in rounding, and every variant of K1's sums that passes this lane fails
+another one (PERF.md, section 6). ``solve_refined_kernel_rescued`` repairs
+such a lane."""
 import pathlib
 
 import jax
