@@ -29,7 +29,10 @@ width (9 robots x 43 dof, n=387, m=36):
 8. K5-K8 (the structured block-LLT chains) against their plain versions at
    the IK shape, batch 1024: tri-block-diagonal (with lower_only) and
    block-arrow down and up, with device times (lower_only and the up arrow
-   too), K6's and K8's rhs tile width and resident blocks per SM, and the
+   too), K5's and K7's launch configuration (threads, shared memory and
+   resident blocks per SM), their times at batch 132, one full wave of
+   resident blocks and 1024, K6's and K8's rhs tile width and resident
+   blocks per SM, and the
    cost of K6's padded layout (K6 on K5's padded factor and the shared
    identity, as the path calls it, against an unpadded factor or rhs,
    copied per call);
@@ -72,11 +75,12 @@ where there are some: ``torch.linalg.cholesky_ex`` then
 named in its ``library`` key), ``torch.linalg.cholesky_ex`` of the dense G
 beside K5 and K7, ``torch.cholesky_solve`` with the dense factor beside K6
 and K8; else null. Phases 2 and 3 print the sha1 digests of K2's outputs
-and of K1's outputs at iteration cap 0 (its prologue), phase 8 K6's, so
-two versions of the kernels can be compared bit for bit. The four GI kernels' lines also carry their
-threads per block and resident blocks per SM, and the run prints their
-µs per GI iteration per resident block (ms x SMs x blocks per SM / the
-iterations of the timed launch; for K3 and K4, whose launches run about
+and of K1's outputs at iteration cap 0 (its prologue), phase 8 K5's, K7's
+(down and up) and K6's, so two versions of the kernels can be compared bit
+for bit. The lines of the four GI kernels, K5 and K7 also carry their
+threads per block and resident blocks per SM, and the run prints the GI
+kernels' µs per GI iteration per resident block (ms x SMs x blocks per SM
+/ the iterations of the timed launch; for K3 and K4, whose launches run about
 two iterations, the figure is mostly their state load and closed form, and
 is printed as such).
 
@@ -749,7 +753,7 @@ def main() -> int:
     del pairs
     Ld, Lo, Li = block_llt.tri_block_llt(diag32, off32)
     aLd, aLo, aLi = block_llt.block_arrow_llt(diag32, off32)
-    _, uLo, uLi = block_llt.block_arrow_llt(diag32, off32, up=True)
+    uLd, uLo, uLi = block_llt.block_arrow_llt(diag32, off32, up=True)
     struct_ms = {
         "K5": (_cuda_ms(lambda: block_llt.tri_block_llt(diag32, off32)),
                _cuda_ms(lambda: block_llt.tri_block_llt_plain(diag32, off32),
@@ -801,6 +805,30 @@ def main() -> int:
     print(f"device ms at batch {IK_BATCH}, nb={IK_NB}, s={IK_S} ({card}): "
           + ", ".join(f"{k} {v[0]!r} (plain {v[1]!r})"
                       for k, v in struct_ms.items()))
+    # K5's and K7's launch configuration (one thread block per problem),
+    # their time against the batch (one problem per SM, one full wave of
+    # resident blocks, the IK batch; problems repeated past the IK batch)
+    # and the digests of their outputs, so two versions of the kernels can
+    # be compared bit for bit
+    fac_cfg = {k: block_llt.factor_config(e, IK_S) for k, e in (
+        ("K5", "jrlqp_tri_block_llt"), ("K7", "jrlqp_block_arrow_llt"))}
+    for key, fac in (("K5", block_llt.tri_block_llt),
+                     ("K7", block_llt.block_arrow_llt)):
+        wave = fac_cfg[key]["blocks_per_sm"] * sms
+        sweep = {}
+        for B in (sms, wave, IK_BATCH):
+            idx = torch.arange(B, device=dev) % IK_BATCH
+            d_b, o_b = diag32[idx], off32[idx]
+            sweep[B] = _cuda_ms(lambda: fac(d_b, o_b))
+        print(f"{key} launch configuration at s={IK_S} ({card}): "
+              f"{fac_cfg[key]}, {wave} problems resident at once on {sms} "
+              f"SMs; device ms by batch {sweep} (batch {sms}: one problem "
+              f"per SM, {wave}: one full wave, {IK_BATCH}: the IK batch)")
+    print(f"K5 output digests (sha1) at batch {IK_BATCH}, nb={IK_NB}, "
+          f"s={IK_S}: L_diag {_sha1(Ld)}, L_off {_sha1(Lo)}, Linv_diag "
+          f"{_sha1(Li)}; K7 down: L_diag {_sha1(aLd)}, L_side {_sha1(aLo)}, "
+          f"Linv_diag {_sha1(aLi)}; K7 up: L_diag {_sha1(uLd)}, L_side "
+          f"{_sha1(uLo)}, Linv_diag {_sha1(uLi)}")
     # Both chains have nb diagonal blocks and nb - 1 coupling blocks. A
     # factor: per diagonal block its Cholesky and inverse (2/3 s^3), per
     # coupling block the product with a triangular inverse (s^3) and the
@@ -837,7 +865,7 @@ def main() -> int:
     print(f"bounds ({card}): {struct_bound}; library ms "
           f"(K5, K7: torch.linalg.cholesky_ex of the dense G; K6, K8: "
           f"torch.cholesky_solve, dense factor): {lib_ms}")
-    del Ld, Lo, Li, aLd, aLo, aLi, uLo, uLi, eye_ik, eye_d, eye_sh
+    del Ld, Lo, Li, aLd, aLo, aLi, uLd, uLo, uLi, eye_ik, eye_d, eye_sh
 
     # ---- phase 9: the structured cold batch ----
     opt_ik = SolverOptions(max_iter=IK_MAX_ITER)
@@ -1324,7 +1352,10 @@ def main() -> int:
             "ms": struct_ms[key][0], "plain_ms": struct_ms[key][1],
             "bound_ms": struct_bound[key][0],
             "bound_by": struct_bound[key][1],
-            "library_ms": lib_ms.get(key)})
+            "library_ms": lib_ms.get(key), **({
+                "threads": fac_cfg[key]["threads"],
+                "blocks_per_sm": fac_cfg[key]["blocks_per_sm"]}
+                if key in fac_cfg else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

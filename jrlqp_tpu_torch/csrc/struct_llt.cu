@@ -14,11 +14,9 @@
 // What bounds them on an H100: the serial chains. A factorization (K5, K7)
 // is nb Cholesky and inverse steps of s dependent rows each, with a barrier
 // per row -- latency, not FLOPs or bytes (a problem's blocks are ~100 KB).
-// So K5 and K7 run one problem per thread block with every working block
-// (the block being factored, its inverse, the coupling block and the
-// running Schur term) in shared memory: 4-5 s x s floats, ~30-37 KB at
-// s = 43, so several problems share an SM and hide each other's barriers.
-// They reuse K2's device function chol_inv_block.
+// So K5 and K7 run one problem per thread block, every working block in
+// shared memory, as many problems per SM as fit (section "K5 and K7"
+// below); they reuse K2's device function chol_inv_block.
 // A solve (K6, K8) runs 2 nb dependent block products, but its rhs columns
 // are independent and, on the structured path, the rhs is the identity
 // (k = n = 387): one problem's rhs is 600 KB, too much for one block. So
@@ -60,25 +58,6 @@
 #include "block_llt.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // K5 and K7
-
-// Y[r][c] = sum_{k < kend} P[r][k] Q[c][k] (+ Y[r][c] when accumulate),
-// for s x s blocks; kend = c + 1 when Q is lower triangular, else s.
-__device__ void mm_nt(const float* P, const float* Q, float* Y, int s,
-                      bool q_lower, bool accumulate) {
-  for (int e = threadIdx.x; e < s * s; e += blockDim.x) {
-    const int r = e / s, c = e % s;
-    const int kend = q_lower ? c + 1 : s;
-    float acc = 0.0f;
-    for (int k = 0; k < kend; ++k) acc = fmaf(P[r * s + k], Q[c * s + k], acc);
-    Y[e] = accumulate ? Y[e] + acc : acc;
-  }
-}
-
-__device__ void load_block(const float* src, float* dst, int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
-}
 
 // ---------------------------------------------------------------------------
 // The solves' tile products (K6, K8). A thread block owns a tile of T rhs
@@ -302,95 +281,425 @@ __device__ __forceinline__ SolveCtx solve_ctx(float* smem, int s, int k) {
   return c;
 }
 
-// The s x s block src (shared memory, row pitch s) to dst (device memory,
-// row pitch ld): warps take rows, lanes columns.
-__device__ __forceinline__ void store_block(float* dst, int ld,
-                                            const float* src, int s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int row = warp; row < s; row += blockDim.x >> 5)
-    for (int c = lane; c < s; c += 32) dst[(long)row * ld + c] = src[row * s + c];
+// ---------------------------------------------------------------------------
+// K5 and K7, the factorizations: one problem per thread block of
+// kFactorThreads = 128 threads, in three s x sp blocks of shared memory
+// (row pitch sp = round4(s), the pad columns zero for good) and, for K7,
+// the lower units of its running Schur sum: 22,704 and 26,752 bytes at the
+// IK shape (s = 43). So kFactorBlocks = 8 blocks fit an SM by shared memory
+// and (at <= 64 registers) registers, and a batch of 1024 is resident in
+// one wave on 132 SMs. What bounds them (clock64() stamps, PERF.md section
+// 6): K2's step chain, about 78% of a block's cycles, then the block
+// products and the loads and stores on the chain. So:
+// - K2 runs through a call (factor_block), and 4 warps a block: with 8
+//   warps at the 32-register bound its step loop spilled, and 8 blocks of
+//   4 warps finish the IK batch 1.2x sooner than 8 of 8 (PERF.md);
+// - the products run on 4-wide register units with no index division, each
+//   output one fmaf chain in k ascending order (the plain product's bits):
+//   a thread owns row r and columns c0 .. c0 + 3 and reads P's row r and
+//   Q's four rows as float4 along k (lanes on consecutive rows: a pitch of
+//   44 floats puts 8 of them on distinct banks; Q's rows are broadcast);
+//   S L^-T stops each chain at k = c (no term of L^-T's zero half), and a
+//   symmetric product P P^T is computed on and below the diagonal only (it
+//   is bitwise symmetric) and read mirrored where it is subtracted;
+// - inputs arrive by 4-byte cp.async (an unpadded s x s block starts at no
+//   16-byte boundary, so bulk and tensor copies cannot take them), issued a
+//   stage ahead: S_i while K2 runs, D_{i+1} before the Schur product;
+// - K5's padded outputs leave by one cp.async.bulk store per block, which
+//   does not hold its issuer; K7's unpadded ones by coalesced stores.
+// K7's heads are independent, but a cluster of thread blocks per problem,
+// one per head, is no faster at the IK batch (the same K2 work in the same
+// resident blocks, and the last block waits for every head); it gains only
+// on batches that leave SMs idle, so K7 runs its heads in series like K5
+// (PERF.md section 6).
+// ---------------------------------------------------------------------------
+
+constexpr int kFactorThreads = 128;
+constexpr int kFactorBlocks = 8;
+
+// K2 on the factor block A and its inverse X, called rather than inlined:
+// inlined, its step loop shares the registers that the bound of 8 blocks
+// per SM leaves with K5's and K7's own state and spills inside the loop;
+// called, it has them to itself and the caller's state is saved once per
+// step around the call (K5 and K7 4-7% faster at the IK batch).
+__device__ __noinline__ void factor_block(float* A, float* X, int ld, int s) {
+  jrlqp::chol_inv_block(A, ld, X, ld, s);
 }
 
-// K5: L_i = chol(D_i - S'_{i-1} S'_{i-1}^T), S'_i = S_i L_i^-T, and L_i^-1.
-// The three outputs leave with rows of ld = round4(s) floats, the layout in
-// which K6 copies them (the pad columns are not written).
-__global__ void __launch_bounds__(kThreads)
+#ifdef JRLQP_STAMPS
+// A build with -DJRLQP_STAMPS (testing/profile_factor.py) times K5's and
+// K7's stages by clock64(): at each stamp a barrier, then thread 0 adds the
+// cycles since the last stamp to its stage's total.
+__device__ unsigned long long factor_stamps[8];
+#define FACTOR_STAMP_INIT long long stamp_t = clock64()
+#define FACTOR_STAMP(k)                                              \
+  do {                                                               \
+    __syncthreads();                                                 \
+    if (threadIdx.x == 0) {                                          \
+      const long long t_ = clock64();                                \
+      atomicAdd(&factor_stamps[k], (unsigned long long)(t_ - stamp_t)); \
+      stamp_t = t_;                                                  \
+    }                                                                \
+  } while (0)
+#else
+#define FACTOR_STAMP_INIT
+#define FACTOR_STAMP(k)
+#endif
+
+// The lower units of a symmetric s x s product, (column group g, row r)
+// with r >= 4 g: sum over g of s - 4 g.
+__host__ __device__ inline int sym_units(int s) {
+  const int G = (s + 3) / 4;
+  return G * s - 2 * G * (G - 1);
+}
+
+// Bytes of shared memory of K5 (three blocks) and K7 (and its sum).
+__host__ __device__ inline size_t factor_smem_bytes(int s, bool arrow) {
+  return (3 * (size_t)s * round4(s) + (arrow ? 4 * (size_t)sym_units(s) : 0)) *
+         sizeof(float);
+}
+
+// Start 4-byte cp.async copies of the s x s row-major block src (device
+// memory) into dst (row pitch sp): consecutive threads on consecutive
+// elements, row and column advanced without a division per element.
+__device__ __forceinline__ void stage_rows(float* dst, int sp,
+                                           const float* src, int s) {
+  const int nt = blockDim.x, dr = nt / s, dc = nt % s;
+  int r = (int)threadIdx.x / s, c = (int)threadIdx.x % s;
+  for (int e = threadIdx.x; e < s * s; e += nt) {
+    cp_async4(dst + r * sp + c, src + e);
+    r += dr;
+    c += dc;
+    if (c >= s) {
+      c -= s;
+      ++r;
+    }
+  }
+}
+
+// The s x s block src (row pitch sp) to dst (device memory, unpadded), as
+// stage_rows walks it.
+__device__ __forceinline__ void store_rows(float* dst, const float* src,
+                                           int sp, int s) {
+  const int nt = blockDim.x, dr = nt / s, dc = nt % s;
+  int r = (int)threadIdx.x / s, c = (int)threadIdx.x % s;
+  for (int e = threadIdx.x; e < s * s; e += nt) {
+    dst[e] = src[r * sp + c];
+    r += dr;
+    c += dc;
+    if (c >= s) {
+      c -= s;
+      ++r;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The shared block src (s x sp, 16-byte aligned) to dst by one bulk copy
+// of the async proxy, as one bulk group of the issuing thread. Every thread
+// that wrote src runs bulk_fence() and a barrier first.
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"((unsigned)__cvta_generic_to_shared(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The issuer's bulk groups but the newest N have read their source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ... and have written their destination.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+struct Four {
+  float v[4];
+};
+
+// Row r of P Q^T at columns c0 .. c0 + 3 (row-major blocks of row pitch sp),
+// one fmaf chain per column from 0, k ascending: with q_lower (Q lower
+// triangular) column c takes k <= c, else k < s. Q's rows past s - 1 are
+// read as row s - 1; their outputs are not used.
+__device__ __forceinline__ Four unit_nt(const float* P, const float* Q,
+                                        int sp, int s, int r, int c0,
+                                        bool q_lower) {
+  Four acc;
+  int qo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc.v[j] = 0.0f;
+    qo[j] = min(c0 + j, s - 1) * sp;
+  }
+  const float* p = P + r * sp;
+  // whole quads of k: below c0 (lower Q) or below s rounded down
+  const int kq = q_lower ? c0 : s / 4 * 4;
+  for (int k = 0; k < kq; k += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 q = *reinterpret_cast<const float4*>(Q + qo[j] + k);
+      acc.v[j] = fmaf(a.x, q.x, acc.v[j]);
+      acc.v[j] = fmaf(a.y, q.y, acc.v[j]);
+      acc.v[j] = fmaf(a.z, q.z, acc.v[j]);
+      acc.v[j] = fmaf(a.w, q.w, acc.v[j]);
+    }
+  }
+  // the last quad: column c0 + j takes k <= c0 + j (lower Q), or k < s
+  const int kn = q_lower ? 4 : s - kq;
+  if (kn > 0) {
+    const float4 a = *reinterpret_cast<const float4*>(p + kq);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 q = *reinterpret_cast<const float4*>(Q + qo[j] + kq);
+      const int n = q_lower ? j + 1 : kn;
+      acc.v[j] = fmaf(a.x, q.x, acc.v[j]);
+      if (n > 1) acc.v[j] = fmaf(a.y, q.y, acc.v[j]);
+      if (n > 2) acc.v[j] = fmaf(a.z, q.z, acc.v[j]);
+      if (n > 3) acc.v[j] = fmaf(a.w, q.w, acc.v[j]);
+    }
+  }
+  return acc;
+}
+
+// Y = P L^-T (L^-T's zero half not multiplied) into Y (pitch sp; the pad
+// columns written zero): the units (column group g, row r) over the block's
+// threads, u = g s + r.
+__device__ __forceinline__ void product_lower_t(float* Y, const float* P,
+                                                const float* X, int sp,
+                                                int s) {
+  const int nt = blockDim.x, nu = sp / 4 * s;
+  const int dg = nt / s, dr = nt % s;
+  int g = (int)threadIdx.x / s, r = (int)threadIdx.x % s;
+  for (int u = threadIdx.x; u < nu; u += nt) {
+    const int c0 = 4 * g;
+    const Four y = unit_nt(P, X, sp, s, r, c0, true);
+    *reinterpret_cast<float4*>(Y + r * sp + c0) =
+        make_float4(y.v[0], c0 + 1 < s ? y.v[1] : 0.0f,
+                    c0 + 2 < s ? y.v[2] : 0.0f, c0 + 3 < s ? y.v[3] : 0.0f);
+    g += dg;
+    r += dr;
+    if (r >= s) {
+      r -= s;
+      ++g;
+    }
+  }
+}
+
+// The lower units of a symmetric product: (column group g, row r) with
+// r >= 4 g, enumerated group by group; (g, r) of the unit `rem` places on
+// from the first of group g (false when past the last unit).
+__device__ __forceinline__ bool sym_unit(int& g, int& r, int rem, int s) {
+  while (g < (s + 3) / 4 && rem >= s - 4 * g) {
+    rem -= s - 4 * g;
+    ++g;
+  }
+  r = 4 * g + rem;
+  return g < (s + 3) / 4;
+}
+
+// A[r][c] -= M[r][c] and A[c][r] -= M[r][c] for the unit's entries on and
+// below the diagonal (M's row r, columns c0 ..), the diagonal once.
+__device__ __forceinline__ void sub_mirrored(float* A, int sp, int s, int r,
+                                            int c0, const Four& m) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c0 + j;
+    if (c <= r && c < s) {
+      A[r * sp + c] = A[r * sp + c] - m.v[j];
+      if (c < r) A[c * sp + r] = A[c * sp + r] - m.v[j];
+    }
+  }
+}
+
+// K5: L_i = chol(D_i - S'_{i-1} S'_{i-1}^T), S'_i = S_i L_i^-T and L_i^-1,
+// one problem per thread block, three blocks of shared memory in turn:
+// step i factors a_i in A with L_i^-1 in X while S_i lands in W; L_i and
+// L_i^-1 leave by bulk stores; S'_i = W X^T is formed in A once L_i has
+// been read out, and leaves; D_{i+1} lands in W and S_{i+1} in X while
+// S'_i S'_i^T is formed on and below the diagonal and subtracted from
+// D_{i+1} in place (the first unit of each thread held in registers until
+// D_{i+1} has landed); then (A, X, W) -> (W, A, X). The outputs have rows of
+// sp = round4(s) floats, the layout in which K6 copies them (their pad
+// columns zero).
+__global__ void __launch_bounds__(kFactorThreads, kFactorBlocks)
 tri_llt_kernel(const float* __restrict__ diag, const float* __restrict__ off,
                float* __restrict__ Ld, float* __restrict__ Lo,
                float* __restrict__ Li, int nb, int s) {
   extern __shared__ __align__(16) float smem[];
-  const int ss = s * s, ld = round4(s), so = s * ld;
-  float* a = smem;       // the block being factored, then L_i
-  float* x = a + ss;     // L_i^-1
-  float* sp = x + ss;    // S'_i
-  float* m = sp + ss;    // S'_{i-1} S'_{i-1}^T, and S_i while S'_i is formed
+  FACTOR_STAMP_INIT;
+  const int ss = s * s, sp = round4(s), so = s * sp;
+  const unsigned so_bytes = 4u * so;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const long b = blockIdx.x;
   const float* D = diag + b * nb * ss;
   const float* S = off + b * (nb - 1) * ss;
   float* LD = Ld + b * nb * so;
   float* LO = Lo + b * (nb - 1) * so;
   float* LI = Li + b * nb * so;
-  for (int e = threadIdx.x; e < ss; e += blockDim.x) m[e] = 0.0f;
-  for (int i = 0; i < nb; ++i) {
+  float *A = smem, *X = smem + so, *W = smem + 2 * so;
+  for (int e = tid; e < 3 * so; e += nt) smem[e] = 0.0f;
+  __syncthreads();
+  stage_rows(A, sp, D, s);
+  cp_async_commit();
+  if (nb > 1) stage_rows(W, sp, S, s);
+  cp_async_commit();
+  cp_async_wait_group<1>();
+  __syncthreads();
+  FACTOR_STAMP(0);
+  // this thread's first lower unit of the Schur product
+  int g0 = 0, r0 = 0;
+  const bool has0 = sym_unit(g0, r0, tid, s);
+  for (int i = 0;; ++i) {
+    factor_block(A, X, sp, s);
+    FACTOR_STAMP(1);
+    bulk_fence();
     __syncthreads();
-    for (int e = threadIdx.x; e < ss; e += blockDim.x)
-      a[e] = D[(long)i * ss + e] - m[e];
-    jrlqp::chol_inv_block(a, s, x, s, s);
-    store_block(LD + (long)i * so, ld, a, s);
-    store_block(LI + (long)i * so, ld, x, s);
-    if (i < nb - 1) {
-      load_block(S + (long)i * ss, m, ss);
-      __syncthreads();
-      mm_nt(m, x, sp, s, true, false);             // S_i L_i^-T
-      __syncthreads();
-      store_block(LO + (long)i * so, ld, sp, s);
-      mm_nt(sp, sp, m, s, false, false);           // S'_i S'_i^T
+    if (tid == 0) {
+      bulk_store(LD + (long)i * so, A, so_bytes);
+      bulk_store(LI + (long)i * so, X, so_bytes);
     }
+    if (i == nb - 1) break;
+    cp_async_wait_group<0>();         // S_i
+    if (tid == 0) bulk_wait_read<1>();  // L_i is read out of A
+    __syncthreads();
+    FACTOR_STAMP(2);
+    product_lower_t(A, W, X, sp, s);  // S'_i
+    bulk_fence();
+    __syncthreads();
+    if (tid == 0) {
+      bulk_store(LO + (long)i * so, A, so_bytes);
+      bulk_wait_read<1>();            // L_i^-1 is read out of X
+    }
+    __syncthreads();
+    FACTOR_STAMP(3);
+    stage_rows(W, sp, D + (long)(i + 1) * ss, s);
+    cp_async_commit();
+    if (i + 1 < nb - 1) stage_rows(X, sp, S + (long)(i + 1) * ss, s);
+    cp_async_commit();
+    Four m0;
+    if (has0) m0 = unit_nt(A, A, sp, s, r0, 4 * g0, false);
+    cp_async_wait_group<1>();         // D_{i+1}
+    __syncthreads();
+    if (has0) sub_mirrored(W, sp, s, r0, 4 * g0, m0);
+    for (int u = tid + nt;; u += nt) {
+      int g = 0, r = 0;
+      if (!sym_unit(g, r, u, s)) break;
+      sub_mirrored(W, sp, s, r, 4 * g, unit_nt(A, A, sp, s, r, 4 * g, false));
+    }
+    FACTOR_STAMP(4);
+    if (tid == 0) bulk_wait_read<0>();  // S'_i is read out of A
+    __syncthreads();
+    FACTOR_STAMP(5);
+    float* t = A;
+    A = W;
+    W = X;
+    X = t;
   }
+  if (tid == 0) bulk_wait_all();
+  FACTOR_STAMP(6);
 }
 
 // K7: chol of each head block, B_i = S_i L_i^-T, the Schur complement
-// D_last - sum B_i B_i^T factored last, and every L_i^-1. With up, block j
-// of the (rolled) matrix is diag block (j + 1) % nb.
-__global__ void __launch_bounds__(kThreads)
+// D_last - sum B_i B_i^T factored last, and every L_i^-1, one problem per
+// thread block: K5's three blocks of shared memory and the running sum,
+// which is symmetric, as its lower units only (4 sym_units(s) floats, 4,048
+// bytes at s = 43: still 8 blocks per SM). Head i factors D_i in A with
+// L_i^-1 in X while S_i lands in W; B_i = W X^T is formed in A once L_i has
+// left; the next head's D (or D_last) lands in W and S_{i+1} in X while B_i
+// leaves and P_i = B_i B_i^T is added to the sum unit by unit, acc =
+// (((0 + P_0) + P_1) + ...), the plain order; then (A, X, W) -> (W, A, X).
+// Last, D_last - acc (read mirrored) is factored in A. With up, block j of
+// the rolled matrix is diag block (j + 1) % nb. The outputs are unpadded,
+// the layout K8 reads, and leave by coalesced stores.
+__global__ void __launch_bounds__(kFactorThreads, kFactorBlocks)
 arrow_llt_kernel(const float* __restrict__ diag, const float* __restrict__ side,
                  float* __restrict__ Ld, float* __restrict__ Lo,
                  float* __restrict__ Li, int nb, int s, int up) {
   extern __shared__ __align__(16) float smem[];
-  const int ss = s * s;
-  float* a = smem;       // the block being factored, then L_i
-  float* x = a + ss;     // L_i^-1
-  float* sb = x + ss;    // S_i
-  float* bb = sb + ss;   // B_i
-  float* acc = bb + ss;  // sum of B_i B_i^T
+  FACTOR_STAMP_INIT;
+  const int ss = s * s, sp = round4(s), so = s * sp;
+  const int tid = threadIdx.x, nt = blockDim.x, nh = nb - 1;
   const long b = blockIdx.x;
   const float* D = diag + b * nb * ss;
-  const float* S = side + b * (nb - 1) * ss;
+  const float* S = side + b * nh * ss;
   float* LD = Ld + b * nb * ss;
-  float* LO = Lo + b * (nb - 1) * ss;
+  float* LO = Lo + b * nh * ss;
   float* LI = Li + b * nb * ss;
-  for (int e = threadIdx.x; e < ss; e += blockDim.x) acc[e] = 0.0f;
-  for (int i = 0; i < nb; ++i) {
-    const int p = up ? (i + 1) % nb : i;
-    const bool last = i == nb - 1;
+  float *A = smem, *X = smem + so, *W = smem + 2 * so;
+  float4* acc = reinterpret_cast<float4*>(smem + 3 * so);
+  auto place = [&](int i) { return up ? (i + 1) % nb : i; };
+  for (int e = tid; e < 3 * so + 4 * sym_units(s); e += nt) smem[e] = 0.0f;
+  __syncthreads();
+  stage_rows(A, sp, D + (long)place(0) * ss, s);
+  cp_async_commit();
+  if (nh > 0) stage_rows(W, sp, S, s);
+  cp_async_commit();
+  cp_async_wait_group<1>();
+  __syncthreads();
+  FACTOR_STAMP(0);
+  for (int i = 0; i < nh; ++i) {
+    factor_block(A, X, sp, s);
+    FACTOR_STAMP(1);
+    store_rows(LD + (long)i * ss, A, sp, s);
+    store_rows(LI + (long)i * ss, X, sp, s);
+    cp_async_wait_group<0>();         // S_i
     __syncthreads();
-    for (int e = threadIdx.x; e < ss; e += blockDim.x)
-      a[e] = last ? D[(long)p * ss + e] - acc[e] : D[(long)p * ss + e];
-    jrlqp::chol_inv_block(a, s, x, s, s);
-    for (int e = threadIdx.x; e < ss; e += blockDim.x) {
-      LD[(long)i * ss + e] = a[e];
-      LI[(long)i * ss + e] = x[e];
+    FACTOR_STAMP(2);
+    product_lower_t(A, W, X, sp, s);  // B_i
+    __syncthreads();
+    FACTOR_STAMP(3);
+    stage_rows(W, sp, D + (long)place(i + 1) * ss, s);
+    cp_async_commit();
+    if (i + 1 < nh) stage_rows(X, sp, S + (long)(i + 1) * ss, s);
+    cp_async_commit();
+    store_rows(LO + (long)i * ss, A, sp, s);
+    for (int u = tid;; u += nt) {
+      int g = 0, r = 0;
+      if (!sym_unit(g, r, u, s)) break;
+      const Four p = unit_nt(A, A, sp, s, r, 4 * g, false);
+      float4 a = acc[u];
+      a.x = a.x + p.v[0];
+      a.y = a.y + p.v[1];
+      a.z = a.z + p.v[2];
+      a.w = a.w + p.v[3];
+      acc[u] = a;
     }
-    if (!last) {
-      load_block(S + (long)i * ss, sb, ss);
-      __syncthreads();
-      mm_nt(sb, x, bb, s, true, false);            // S_i L_i^-T
-      __syncthreads();
-      for (int e = threadIdx.x; e < ss; e += blockDim.x)
-        LO[(long)i * ss + e] = bb[e];
-      mm_nt(bb, bb, acc, s, false, true);          // += B_i B_i^T
-    }
+    cp_async_wait_group<1>();         // the next D
+    __syncthreads();
+    FACTOR_STAMP(4);
+    float* t = A;
+    A = W;
+    W = X;
+    X = t;
   }
+  if (nh > 0)
+    for (int u = tid;; u += nt) {
+      int g = 0, r = 0;
+      if (!sym_unit(g, r, u, s)) break;
+      const float4 a = acc[u];
+      sub_mirrored(A, sp, s, r, 4 * g, Four{{a.x, a.y, a.z, a.w}});
+    }
+  __syncthreads();
+  FACTOR_STAMP(5);
+  factor_block(A, X, sp, s);
+  FACTOR_STAMP(1);
+  store_rows(LD + (long)nh * ss, A, sp, s);
+  store_rows(LI + (long)nh * ss, X, sp, s);
+  FACTOR_STAMP(6);
 }
 
 // ---------------------------------------------------------------------------
@@ -898,27 +1207,53 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 extern "C" int jrlqp_tri_block_llt(const void* diag, const void* off,
                                    void* Ld, void* Lo, void* Li, int B,
                                    int nb, int s, void* stream) {
-  const size_t smem = 4 * (size_t)s * s * sizeof(float);
+  const size_t smem = factor_smem_bytes(s, false);
   cudaError_t err = set_smem(tri_llt_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (B > 0)
-    tri_llt_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+    tri_llt_kernel<<<B, kFactorThreads, smem, (cudaStream_t)stream>>>(
         (const float*)diag, (const float*)off, (float*)Ld, (float*)Lo,
         (float*)Li, nb, s);
   return (int)cudaGetLastError();
 }
 
+// K7: every tensor unpadded.
 extern "C" int jrlqp_block_arrow_llt(const void* diag, const void* side,
                                      void* Ld, void* Lo, void* Li, int B,
                                      int nb, int s, int up, void* stream) {
-  const size_t smem = 5 * (size_t)s * s * sizeof(float);
+  const size_t smem = factor_smem_bytes(s, true);
   cudaError_t err = set_smem(arrow_llt_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (B > 0)
-    arrow_llt_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+    arrow_llt_kernel<<<B, kFactorThreads, smem, (cudaStream_t)stream>>>(
         (const float*)diag, (const float*)side, (float*)Ld, (float*)Lo,
         (float*)Li, nb, s, up);
   return (int)cudaGetLastError();
+}
+
+// The launch configuration of the factorization `which` (0 K5, 1 K7) at
+// block size s: out[0] the threads per block, out[1] the shared memory
+// bytes per block, out[2] the resident blocks (problems) per SM. Returns a
+// CUDA error code.
+extern "C" int jrlqp_struct_factor_config(int which, int s, int* out) {
+  const size_t smem = factor_smem_bytes(s, which == 1);
+  int blocks = 0;
+  cudaError_t err;
+  if (which == 0) {
+    err = set_smem(tri_llt_kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, tri_llt_kernel, kFactorThreads, smem);
+  } else {
+    err = set_smem(arrow_llt_kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, arrow_llt_kernel, kFactorThreads, smem);
+  }
+  out[0] = kFactorThreads;
+  out[1] = (int)smem;
+  out[2] = blocks;
+  return (int)err;
 }
 
 namespace {
@@ -1050,3 +1385,13 @@ extern "C" int jrlqp_struct_solve_config(int which, int s, int k, int* out) {
   out[3] = blocks;
   return (int)err;
 }
+
+#ifdef JRLQP_STAMPS
+// The stamps' totals since the last reset (8 stages), then reset them.
+extern "C" int jrlqp_factor_stamps(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, factor_stamps, 8 * 8);
+  const unsigned long long zero[8] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(factor_stamps, zero, 8 * 8);
+  return (int)err;
+}
+#endif

@@ -151,6 +151,9 @@ def library() -> ctypes.CDLL:
             lib.jrlqp_struct_solve_config.argtypes = [
                 _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
             lib.jrlqp_struct_solve_config.restype = _I
+            lib.jrlqp_struct_factor_config.argtypes = [
+                _I, _I, ctypes.POINTER(ctypes.c_int)]
+            lib.jrlqp_struct_factor_config.restype = _I
             _lib = lib
     return _lib
 

@@ -41,7 +41,8 @@ __all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain",
            "tri_block_llt", "tri_block_llt_plain", "tri_block_solve",
            "tri_block_solve_plain", "block_arrow_llt",
            "block_arrow_llt_plain", "block_arrow_solve",
-           "block_arrow_solve_plain", "solve_config", "pad_cols",
+           "block_arrow_solve_plain", "solve_config", "factor_config",
+           "pad_cols",
            "padded_rhs", "identity_rhs"]
 
 # launches of each CUDA kernel since the last reset (set to 0 to reset):
@@ -52,7 +53,8 @@ tri_solve_launches = 0
 arrow_llt_launches = 0
 arrow_solve_launches = 0
 
-# K7 keeps five s x s f32 blocks in a thread block's shared memory
+# K6 stages six s x round4(s) f32 blocks (two per stage) in a thread
+# block's shared memory, K5 and K7 keep three: s <= 96 fits
 _STRUCT_MAX_S = 96
 
 
@@ -363,6 +365,21 @@ def solve_config(entry: str, s: int, k: int) -> dict:
     _build.check(_build.library().jrlqp_struct_solve_config(which, s, k, out),
                  entry)
     return dict(zip(("tile", "threads", "smem_bytes", "blocks_per_sm"), out))
+
+
+def factor_config(entry: str, s: int) -> dict:
+    """The launch configuration of the factorization kernel behind the C
+    entry point ``entry`` (``jrlqp_tri_block_llt`` K5 or
+    ``jrlqp_block_arrow_llt`` K7) at block size s, on the current card: the
+    threads and shared-memory bytes per block (one block per problem) and
+    the resident blocks per SM."""
+    import ctypes
+
+    which = {"jrlqp_tri_block_llt": 0, "jrlqp_block_arrow_llt": 1}[entry]
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().jrlqp_struct_factor_config(which, s, out),
+                 entry)
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), out))
 
 
 def tri_block_llt(diag: torch.Tensor, off: torch.Tensor):

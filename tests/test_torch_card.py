@@ -34,6 +34,7 @@ from jrlqp_tpu_torch.structured import (
     structured_from_numpy,
     structured_qp_problem,
 )
+from jrlqp_tpu_torch.testing import order_exact
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
 
@@ -129,38 +130,6 @@ def test_chol_inv_b_kernel_matches_plain(cuda_device, n, s):
     torch.testing.assert_close(Li[pd], Lip[pd], rtol=1e-4, atol=1e-5)
 
 
-def _k2_order_exact(A):
-    """(L, L^-1) of (B, s, s) f32 blocks on the CPU in K2's own order: the
-    right-looking Cholesky with 1 / sqrt of the pivot clamped at 1e-30, each
-    trailing entry updated as A - (A_ij isq)(A_jc isq) from the square
-    block, then the row-wise inverse, each sum k ascending; every product
-    and sum rounded apart (separate torch ops)."""
-    A = A.detach().cpu().clone()
-    B, s, _ = A.shape
-    for j in range(s):
-        piv = A[:, j, j]
-        pc = torch.where(torch.isnan(piv), piv, torch.clamp_min(piv, 1e-30))
-        # the square root correctly rounded, as CUDA's sqrtf (torch's
-        # vectorized CPU sqrt is not): in f64, then to f32, which is exact
-        isq = (1.0 / pc.double().sqrt().float())[:, None]
-        li = A[:, j + 1:, j] * isq
-        lc = A[:, j, j + 1:] * isq
-        A[:, j + 1:, j + 1:] = (A[:, j + 1:, j + 1:]
-                                - li[:, :, None] * lc[:, None, :])
-        A[:, j:, j] = A[:, j:, j] * isq
-    L = torch.tril(A)
-    X = torch.zeros_like(L)
-    cols = torch.arange(s)
-    for i in range(s):
-        acc = torch.zeros(B, s)
-        for k in range(i):
-            acc = torch.where(cols <= k, acc + L[:, i, k:k + 1] * X[:, k],
-                              acc)
-        v = ((cols == i).to(torch.float32) - acc) / L[:, i, i:i + 1]
-        X[:, i] = torch.where(cols <= i, v, 0.0)
-    return L, X
-
-
 def _bits(t):
     return t.detach().cpu().contiguous().view(torch.int32)
 
@@ -185,28 +154,10 @@ def test_chol_inv_b_kernel_is_order_exact(cuda_device, s):
     A = _k2_blocks(s)
     L, Li, pd = block_llt.chol_inv_b(A.to(cuda_device))
     torch.cuda.synchronize()
-    L_ref, Li_ref = _k2_order_exact(A)
+    L_ref, Li_ref = order_exact.k2_order_exact(A)
     assert not bool(pd[1]) and bool(pd[0])
     assert torch.equal(_bits(L), _bits(L_ref))
     assert torch.equal(_bits(Li), _bits(Li_ref))
-
-
-def _fma32(a, b, c):
-    """fma(a, b, c) of f32 tensors, rounded once to f32: a b + c in f64
-    (the product is exact), with the error of that sum carried over when
-    it lands on a tie of f32 rounding."""
-    a64, b64, c64 = a.double(), b.double(), c.double()
-    p = a64 * b64
-    s = p + c64
-    bb = s - p
-    e = (p - (s - bb)) + (c64 - bb)
-    r = s.float()
-    inf = torch.full_like(r, float("inf"))
-    toward = torch.nextafter(r, torch.where(s > r.double(), inf, -inf))
-    tie = (s != r.double()) & (2 * s == r.double() + toward.double())
-    fix = tie & (((toward.double() > s) & (e > 0))
-                 | ((toward.double() < s) & (e < 0)))
-    return torch.where(fix, toward, r)
 
 
 @pytest.mark.cuda
@@ -223,7 +174,7 @@ def test_gi_fused_prologue_is_order_exact(cuda_device):
     torch.cuda.synchronize()
     G, a = ins[0].cpu(), ins[6].cpu()
     B, np_, _ = G.shape
-    L, X = _k2_order_exact(G)
+    L, X = order_exact.k2_order_exact(G)
     pd = block_llt.posdef_plain(L)
     assert not bool(pd[3]) and int(pd.sum()) == B - 1
     idx = torch.arange(np_)
@@ -235,7 +186,8 @@ def test_gi_fused_prologue_is_order_exact(cuda_device):
     H = torch.where(pd[:, None, None], H, torch.eye(np_))
     acc = torch.zeros(B, np_)
     for j in range(np_):
-        acc = _fma32(H[:, :, j], a[:, j:j + 1].expand(B, np_), acc)
+        acc = order_exact.fma32(H[:, :, j], a[:, j:j + 1].expand(B, np_),
+                                acc)
     x_ref = torch.where(pd[:, None], -acc, 0.0)
     tr = torch.zeros(B)
     for k in range(np_):
@@ -387,6 +339,69 @@ def test_struct_kernels_match_plain(cuda_device, shape, kind):
     for name, ours, ref in pairs:
         assert ours.shape == ref.shape, name
         assert struct_err(ours, ref) <= 1e-5, name
+
+
+# (B, nb, s): the IK shape's block size and chain, a chain of 16 heads, one
+# of 70 blocks, an odd block wider than the IK one and the widest block
+FACTOR_SHAPES = [(16, 3, 13), (8, 9, 43), (4, 17, 8), (2, 70, 8),
+                 (3, 3, 61), (2, 3, 96)]
+
+
+def _factor_inputs(B, nb, s):
+    """f32 (diag, off) of an IK batch: problem 0's first diagonal block is
+    not bitwise symmetric; problem 1's block 1 and last block are not SPD
+    (their last pivot is clamped)."""
+    d = ik_batch(B, nb=nb, s=s, mc=2, seed=11 * nb + s)
+    diag, off = d["diag"].astype(np.float32), d["off"].astype(np.float32)
+    rng = np.random.default_rng(s)
+    diag[0, 0] += 0.01 * rng.standard_normal((s, s)).astype(np.float32)
+    diag[1, min(1, nb - 1), s - 1, s - 1] = -1.0
+    diag[1, nb - 1, s - 1, s - 1] = -1.0
+    return torch.from_numpy(diag), torch.from_numpy(off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nb,s", FACTOR_SHAPES)
+def test_tri_llt_kernel_is_order_exact(cuda_device, B, nb, s):
+    # K5's L_diag, L_off and Linv_diag bit for bit against the same sums in
+    # the same order on the CPU
+    diag, off = _factor_inputs(B, nb, s)
+    before = block_llt.tri_llt_launches
+    ours = block_llt.tri_block_llt(diag.to(cuda_device), off.to(cuda_device))
+    torch.cuda.synchronize()
+    assert block_llt.tri_llt_launches == before + 1
+    ref = order_exact.k5_order_exact(diag, off)
+    assert not bool(block_llt.posdef_plain(ref[0][1, -1:]).any())
+    for name, o, r in zip(("L_diag", "L_off", "Linv_diag"), ours, ref):
+        assert o.shape == r.shape, name
+        assert torch.equal(_bits(o), _bits(r)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True], ids=["down", "up"])
+@pytest.mark.parametrize("B,nb,s", FACTOR_SHAPES)
+def test_arrow_llt_kernel_is_order_exact(cuda_device, B, nb, s, up):
+    # K7's outputs bit for bit against the same sums in the same order: the
+    # heads, then the Schur sum head by head in order
+    diag, off = _factor_inputs(B, nb, s)
+    before = block_llt.arrow_llt_launches
+    ours = block_llt.block_arrow_llt(diag.to(cuda_device),
+                                     off.to(cuda_device), up=up)
+    torch.cuda.synchronize()
+    assert block_llt.arrow_llt_launches == before + 1
+    ref = order_exact.k7_order_exact(diag, off, up=up)
+    for name, o, r in zip(("L_diag", "L_side", "Linv_diag"), ours, ref):
+        assert o.shape == r.shape, name
+        assert torch.equal(_bits(o), _bits(r)), name
+
+
+@pytest.mark.cuda
+def test_factor_config_fits_the_ik_batch_in_one_wave(cuda_device):
+    # K5 and K7 keep 8 problems per SM at the IK block size, so an IK batch
+    # of 1024 is resident at once on an H100's 132 SMs
+    for entry in ("jrlqp_tri_block_llt", "jrlqp_block_arrow_llt"):
+        cfg = block_llt.factor_config(entry, 43)
+        assert cfg["threads"] == 128 and cfg["blocks_per_sm"] >= 8, cfg
 
 
 def _ik_problem(d, gtype, device):
