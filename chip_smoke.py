@@ -60,7 +60,26 @@ width (9 robots x 43 dof, n=387, m=36):
 15. observability on 256 lanes: ``solve_fast_traced`` and ``solve_traced``
    against their untraced solves, ``capture_kernel_trajectory`` on one lane
    (one K9 launch per cap) against the f32 fast trace, ``dump_matlab``, and
-   ``no_retrace`` around repeated solves at two shapes.
+   ``no_retrace`` around repeated solves at two shapes;
+16. the small solvers: the closed-form ``solve_box`` at batch 16384, n=16
+   (the box benchmark's data, numpy seed 0), KKT <= 1e-8 on every SUCCESS
+   lane and held against ``solve_box_gi`` on 1024 lanes, with solves/s;
+   ``solve_mixed`` at batch 1024 of the headline set, gated like the main
+   path and held against the f64 ``solve_batch``;
+17. ``solve_refined_kernel(..., fused_init=False)`` (the torch init, then
+   K3) at batch 16384, gated like the main path; ``solve_sharded`` with the
+   engines "pallas" (K1, then K3) and "f64" over ``make_mesh()`` (the one
+   card) and over four shards on ``cuda:0``, each lane for lane against
+   its unsharded solve, its ``BatchStats`` against the result's sums; the
+   one-card mesh's overhead against the bare engine;
+18. the corpus: ``run_corpus`` over the vendored Maros-Meszaros files of
+   ``tests/data/qps/`` -- the 8 strictly convex ones through "f64" and
+   "pallas_rescued" (SUCCESS, f* within 1e-6, KKT <= 1e-8) and through
+   "refined" and "pallas" (printed, not gated), the 8 singular ones
+   through the unbucketed "f64" (SUCCESS at f*, or NON_POS_HESSIAN) -- and
+   four synthesized problems of n up to 128 through "pallas_rescued",
+   whose (128, 128) bucket runs K3 at (np, mp) = (136, 128); K3 against its
+   plain version at that shape on 64 lanes of the headline distribution.
 
 Every kernel's line in the JSON record carries ``bound_ms``, the least time
 the card could take for the kernel's work on this run's inputs: the larger
@@ -85,7 +104,8 @@ two iterations, the figure is mostly their state load and closed form, and
 is printed as such).
 
 Each path runs with the launch counts set to 0 just before it and read
-just after. Any failed check raises, so the exit code is nonzero. The last
+just after; phases 16-18 print one JSON line per path with its wall ms and
+counts. Any failed check raises, so the exit code is nonzero. The last
 two lines of standard output are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, it exits nonzero and prints no result.
@@ -97,6 +117,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -117,6 +138,16 @@ IK_BATCH, IK_MAX_ITER, IK_IR_STEPS = 1024, 200, 3
 IK_STEPS, IK_DRIFT = 10, 0.02
 RESCUE_ACT_FRAC = 0.9       # phase 13's hard set
 OBS_BATCH, SJR_BATCH = 256, 256
+BOX_BATCH, BOX_N = 16384, 16  # the box benchmark (harness.py:375-407)
+# the vendored corpus (tests/test_corpus.py:137-140) and the synthesized
+# large buckets, (n, n_ineq, n_strong_active, bounds, double_sided)
+# (tests/test_corpus.py:184-190), drawn with numpy seed 7 as that test does
+VENDORED_STRICT = ("hs21", "hs35", "hs35mod", "hs76", "qptest", "hs118",
+                   "hs268", "s268")
+VENDORED_SINGULAR = ("hs51", "hs52", "hs53", "genhs28", "tame",
+                     "cvxqp1_s", "cvxqp2_s", "cvxqp3_s")
+LARGE_SPECS = ((48, 40, 16, False, False), (64, 50, 20, False, True),
+               (96, 80, 30, False, False), (128, 100, 40, True, False))
 PEAK_F32, PEAK_BW = 67e12, 3.35e12   # H100 SXM: FLOP/s (f32, no TC), B/s
 
 
@@ -238,6 +269,15 @@ def main() -> int:
     from jrlqp_tpu_torch.testing.batch_gen import random_qp_batch
     from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
     from jrlqp_tpu_torch.testing.kkt import kkt_residual
+    from jrlqp_tpu_torch import pad_problem, solve_box, solve_mixed
+    from jrlqp_tpu_torch.io import run_corpus, write_qps
+    from jrlqp_tpu_torch.io.maros_meszaros import (
+        MAROS_MESZAROS,
+        MarosMeszarosEntry,
+    )
+    from jrlqp_tpu_torch.parallel import make_mesh, solve_sharded
+    from jrlqp_tpu_torch.solver.box_single import box_qp_problem, solve_box_gi
+    from jrlqp_tpu_torch.testing import ProblemCharacteristics, random_problem
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1304,12 +1344,244 @@ def main() -> int:
           f"and loaded nothing (library loads {_build.loads})")
     del pb14, pb15, pb15_32, small, fast_trace, cap
 
+    # ---- phases 16-18: the small solvers, sharding and the corpus ----
+    t_new = time.perf_counter()
+
+    def timed(fn):
+        """(fn's value, wall ms, launch counts) of one call, the counts set
+        to 0 just before it."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t), counts()
+
+    def phase_line(phase, path, wall_ms, launched, **extra):
+        print(json.dumps({"phase": phase, "path": path, "wall_ms": wall_ms,
+                          "launches": {k: v for k, v in launched.items()
+                                       if v}, **extra}))
+
+    def same_lanes(name, res, ref, x_tol):
+        """Status, iterations and active set equal on every lane, x within
+        x_tol."""
+        for k in ("status", "iterations", "active_set"):
+            _require(torch.equal(getattr(res, k), getattr(ref, k)),
+                     f"{name}: {k} differs from the unsharded solve")
+        err = float((res.x - ref.x).abs().max())
+        _require(err <= x_tol, f"{name}: x differs by {err} > {x_tol}")
+        return err
+
+    # ---- phase 16: the small solvers ----
+    rng16 = np.random.default_rng(SEED)
+    shape16 = (BOX_BATCH, BOX_N)
+    x0 = rng16.standard_normal(shape16)
+    c16 = rng16.standard_normal(shape16)
+    xl16 = -np.abs(rng16.standard_normal(shape16)) - 0.1
+    xu16 = np.abs(rng16.standard_normal(shape16)) + 0.1
+    bl16 = ((c16 * np.clip(x0, xl16, xu16)).sum(axis=1)
+            + rng16.uniform(-0.5, 0.5, BOX_BATCH))
+    box = [torch.from_numpy(v).to(dev) for v in (x0, c16, bl16, xl16, xu16)]
+    opt_box = SolverOptions(max_iter=3 * BOX_N)
+    res16, box_ms, c16_counts = timed(lambda: solve_box(*box, opt_box))
+    _require(sum(c16_counts.values()) == 0, "solve_box launched a kernel")
+    _require(res16.x.shape == shape16 and bool(torch.isfinite(res16.x).all()),
+             "solve_box: output shape or non-finite x")
+    ok16 = res16.status == 0
+    kkt16 = float(kkt_residual(res16.x, res16.multipliers,
+                               box_qp_problem(*box))[ok16].max())
+    _require(kkt16 <= 1e-8, f"solve_box: KKT {kkt16} > 1e-8 on a SUCCESS "
+             f"lane")
+    gi16 = solve_box_gi(*[v[:CHECK_BATCH] for v in box], opt_box)
+    cf16 = res16.status[:CHECK_BATCH]
+    _require(torch.equal(gi16.status, cf16),
+             "solve_box and solve_box_gi end lanes with another status")
+    both16 = gi16.status == 0
+    gi_err16 = float((gi16.x[both16] - res16.x[:CHECK_BATCH][both16])
+                     .abs().max())
+    _require(gi_err16 <= 1e-10, f"solve_box vs solve_box_gi: x differs by "
+             f"{gi_err16} > 1e-10")
+    phase_line(16, "solve_box", box_ms, c16_counts, batch=BOX_BATCH, n=BOX_N,
+               success_rate=float(ok16.double().mean()),
+               infeasible=int((res16.status == 3).sum()),
+               active_rate=float((res16.iterations > 0).double().mean()),
+               max_kkt_success=kkt16,
+               vs_solve_box_gi={"lanes": CHECK_BATCH,
+                                "same_status": True,
+                                "success_lanes": int(both16.sum()),
+                                "max_abs_x_err": gi_err16},
+               solves_per_s=BOX_BATCH / _wall_s(
+                   lambda: solve_box(*box, opt_box)), card=card)
+    pb16 = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC,
+                           dtype=f32).with_dtype(f64)
+    res16m, mixed_ms, c16m = timed(lambda: solve_mixed(pb16, opt))
+    _require(sum(c16m.values()) == 0, "solve_mixed launched a kernel")
+    rate16m, kkt16m, pass16m = gate("solve_mixed", res16m, pb16)
+    ref16, jr_ms, _ = timed(lambda: solve_batch(pb16, opt))
+    _, _, pass16r = gate("solve_batch (J/R, f64)", ref16, pb16)
+    both16m = pass16m & pass16r
+    same16m = ((res16m.status == ref16.status)
+               & (res16m.active_set == ref16.active_set).all(dim=1))
+    _require(bool(same16m[both16m].all()), "solve_mixed and solve_batch "
+             "differ in status or active set on a lane that passes both")
+    x16m = float((res16m.x[both16m] - ref16.x[both16m]).abs().max())
+    _require(x16m <= 1e-7, f"solve_mixed vs solve_batch: x differs by {x16m}")
+    phase_line(16, "solve_mixed", mixed_ms, c16m, batch=CHECK_BATCH, n=N, m=M,
+               pass_rate=rate16m, max_kkt=kkt16m,
+               mean_it=float(res16m.iterations.double().mean()),
+               vs_solve_batch={"lanes_passing_both": int(both16m.sum()),
+                               "same_status_and_active_set": True,
+                               "max_abs_x_err": x16m,
+                               "solve_batch_wall_ms": jr_ms}, card=card)
+    del box, res16, gi16
+
+    # ---- phase 17: the fused_init=False path and the sharded solve ----
+    pb17 = problems()
+    res17, k3_path_ms, c17 = timed(lambda: solve_refined_kernel(
+        pb17, opt, ir_steps=IR_STEPS, fused_init=False))
+    _require(c17["gi_loop"] == 1 and sum(c17.values()) == 1,
+             "fused_init=False did not run K3 once (and nothing else)")
+    rate17, kkt17, _ = gate("fused_init=False (K3)", res17, pb17)
+    phase_line(17, "solve_refined_kernel(fused_init=False)", k3_path_ms, c17,
+               batch=BATCH, pass_rate=rate17, max_kkt=kkt17,
+               mean_it=float(res17.iterations.double().mean()),
+               solves_per_s=BATCH / _wall_s(lambda: solve_refined_kernel(
+                   pb17, opt, ir_steps=IR_STEPS, fused_init=False)),
+               card=card)
+    # solve_sharded refines with the engines' default ir_steps (3), as the
+    # JAX package's does: its unsharded references do the same
+    refs17 = {True: solve_refined_kernel(pb17, opt, fused_init=True),
+              False: solve_refined_kernel(pb17, opt, fused_init=False)}
+    mesh1 = make_mesh()
+    cards = tuple(torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count()))
+    _require(mesh1.devices == cards, f"make_mesh(): {mesh1.devices}, "
+             f"expected every card {cards}")
+    sharded_launches = {"gi_fused": 0, "gi_loop": 0}
+    for label, mesh in ((f"make_mesh() ({mesh1.size} card(s))", mesh1),
+                        ("4 shards on cuda:0", make_mesh(devices=[dev] * 4))):
+        for engine, fused, pb_, ref in (
+                ("pallas", True, pb17, refs17[True]),
+                ("pallas", False, pb17, refs17[False]),
+                ("f64", False, pb16, ref16)):
+            name = f"solve_sharded({engine}, fused_init={fused}) over {label}"
+            (res, stats), ms, cnt = timed(lambda: solve_sharded(
+                pb_, opt, mesh=mesh, engine=engine, fused_init=fused))
+            want = ({} if engine == "f64" else
+                    {"gi_fused" if fused else "gi_loop": mesh.size})
+            _require({k: v for k, v in cnt.items() if v} == want,
+                     f"{name}: launches {cnt}, expected {want}")
+            for k, v in want.items():
+                sharded_launches[k] += v
+            err = same_lanes(name, res, ref, 1e-10)
+            it = res.iterations.long()
+            _require((stats.total_iterations, stats.n_success,
+                      stats.max_iterations)
+                     == (int(it.sum()), int((res.status == 0).sum()),
+                         int(it.max())), f"{name}: BatchStats {stats}")
+            phase_line(17, name, ms, cnt, batch=pb_.batch, shards=mesh.size,
+                       max_abs_x_err_vs_unsharded=err,
+                       stats=dataclasses.asdict(stats), card=card)
+    bare17 = _wall_s(lambda: solve_refined_kernel(pb17, opt))
+    mesh17 = _wall_s(lambda: solve_sharded(pb17, opt, mesh=mesh1,
+                                           engine="pallas", fused_init=True))
+    print(json.dumps({"phase": 17, "path": f"make_mesh() ({mesh1.size} "
+                      "card(s)) overhead (pallas, fused_init=True)",
+                      "bare_ms": 1e3 * bare17,
+                      "sharded_ms": 1e3 * mesh17,
+                      "overhead_ms": 1e3 * (mesh17 - bare17), "card": card}))
+    del pb17, res17, refs17, pb16, res16m, ref16
+
+    # ---- phase 18: the corpus ----
+    qdir = os.path.join(ROOT, "tests", "data", "qps")
+    corpus_loop_launches = 0
+
+    def corpus(entries, engine, phase_gate, bucketed=True, qps_dir=qdir,
+               path=None):
+        nonlocal corpus_loop_launches
+        rows, ms, cnt = timed(lambda: run_corpus(
+            qps_dir=qps_dir, entries=entries, engine=engine,
+            bucketed=bucketed))
+        _require(len(rows) == len(entries), f"corpus {engine}: "
+                 f"{len(rows)} rows for {len(entries)} entries")
+        kernels = engine.startswith("pallas")
+        _require(cnt["gi_fused"] == 0 and (cnt["gi_loop"] > 0) == kernels
+                 and sum(cnt.values()) == cnt["gi_loop"],
+                 f"corpus {engine}: launches {cnt}")
+        corpus_loop_launches += cnt["gi_loop"]
+        for r in rows:
+            if phase_gate is not None:
+                _require(phase_gate(r), f"corpus {engine}: row {r}")
+        phase_line(18, path or f"run_corpus({engine})", ms, cnt, rows=[
+            {k: r[k] for k in ("name", "status", "obj_ok", "kkt_residual",
+                               "iterations")} for r in rows],
+            gated=phase_gate is not None, card=card)
+
+    def strict_gate(r):
+        return (r["status"] == "SUCCESS" and r["obj_ok"]
+                and r["kkt_residual"] <= 1e-8)
+
+    strict = [e for e in MAROS_MESZAROS if e.name in VENDORED_STRICT]
+    singular = [e for e in MAROS_MESZAROS if e.name in VENDORED_SINGULAR]
+    _require(len(strict) == len(singular) == 8, "vendored corpus entries")
+    for engine in ("f64", "pallas_rescued"):
+        corpus(strict, engine, strict_gate)
+    for engine in ("refined", "pallas"):
+        corpus(strict, engine, None)
+    corpus(singular, "f64", lambda r: (r["status"] == "SUCCESS" and r["obj_ok"])
+           or r["status"] == "NON_POS_HESSIAN", bucketed=False,
+           path="run_corpus(f64, unbucketed), singular G")
+    smem = lib.jrlqp_gi_smem_bytes(136, 128)
+    threads, blocks = gi_kernel.residency("jrlqp_gi_loop", 128, 128)
+    print(json.dumps({"phase": 18, "K3 at (np, mp)": [136, 128],
+                      "smem_bytes": smem, "limit": gi_kernel._SMEM_LIMIT,
+                      "threads": threads, "blocks_per_sm": blocks}))
+    _require(smem <= gi_kernel._SMEM_LIMIT and blocks >= 1,
+             "K3 does not fit at (136, 128)")
+    # K3 against its plain version at that shape: 64 lanes of the headline
+    # distribution at n = 128, m = 100, padded to the bucket
+    pb18 = pad_problem(random_qp_batch(gen, 64, 128, 100, ACT_FRAC,
+                                       dtype=f32).with_dtype(f64), 128, 128)
+    pb18_32 = pb18.with_dtype(f32)
+    st18 = fast._init_fast(pb18_32, opt.with_(dtype=f32,
+                                              zero_z_threshold=1e-6))
+    k3_136 = against_plain("K3 at (136, 128)",
+                           gi_kernel.run_loop(pb18_32, st18, 400),
+                           gi_kernel.gi_loop_plain(pb18_32, st18, 400), pb18)
+    del pb18, pb18_32, st18
+    with tempfile.TemporaryDirectory() as tmp:
+        rng18 = np.random.default_rng(7)
+        large = []
+        for i, (n, n_ineq, n_act, bnd, dbl) in enumerate(LARGE_SPECS):
+            rp = random_problem(ProblemCharacteristics(
+                n_var=n, n_obj=n, n_ineq=n_ineq, n_strong_act_ineq=n_act,
+                bounds=bnd, n_strong_act_bounds=1 if bnd else 0,
+                double_sided_ineq=dbl), rng18)
+            d = rp.to_qp_arrays()
+            r = rp.A @ rp.x - rp.b
+            name = f"synth{i:02d}"
+            with open(os.path.join(tmp, f"{name}.qps"), "w") as fh:
+                fh.write(write_qps(name, d["G"], d["a"], d["C"], d["l"],
+                                   d["u"], d["xl"], d["xu"],
+                                   objcst=d["objcst"]))
+            large.append(MarosMeszarosEntry(
+                name=name, fstar=0.5 * float(r @ r), cond=1.0,
+                nb_cstr=d["C"].shape[0], nb_var=n,
+                nz=int(np.count_nonzero(d["C"])), qn=n, qnz=0))
+        corpus(large, "pallas_rescued", strict_gate, qps_dir=tmp,
+               path="run_corpus(pallas_rescued), LARGE_SPECS")
+    new_s = time.perf_counter() - t_new
+    print(json.dumps({"phases": "16-18", "wall_s": new_s}))
+
     src = "jrlqp_tpu_torch/csrc/gi_kernel.cu"
     pallas = "jrlqp_tpu/ops/pallas/gi_kernel.py"
     kernels = [
         {"name": "gi_fused", "route": "cuda", "source": src,
          "replaces": f"{pallas}:674",
-         "launches": main_counts["gi_fused"], "max_abs_err": k1_err,
+         "launches": main_counts["gi_fused"] + sharded_launches["gi_fused"],
+         "launches_by_path": {"main": main_counts["gi_fused"],
+                              "solve_sharded": sharded_launches["gi_fused"]},
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None, **res_k1},
         {"name": "chol_inv_b", "route": "cuda",
@@ -1323,7 +1595,13 @@ def main() -> int:
          "runs_inside": "gi_fused"},
         {"name": "gi_loop", "route": "cuda", "source": src,
          "replaces": f"{pallas}:628",
-         "launches": hint_counts["gi_loop"], "max_abs_err": k3_err,
+         "launches": (hint_counts["gi_loop"] + c17["gi_loop"]
+                      + sharded_launches["gi_loop"] + corpus_loop_launches),
+         "launches_by_path": {"hint": hint_counts["gi_loop"],
+                              "fused_init=False": c17["gi_loop"],
+                              "solve_sharded": sharded_launches["gi_loop"],
+                              "run_corpus": corpus_loop_launches},
+         "max_abs_err": k3_err, "max_abs_err_at_136x128": k3_136,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None, **res_k3},
         {"name": "gi_warm", "route": "cuda", "source": src,

@@ -16,7 +16,10 @@ trajectory, ``solve_refined_pallas_carry``). The f64 J/R engine: ``solve``
 and ``solve_batch`` (:mod:`.solver.dense`), ``solve_warm`` and the rescue
 ``solve_refined_kernel_rescued`` (K3, then f64 for the failed lanes); the
 compact-slot kernel K9 behind ``solve_refined_kernel_compact`` and the
-tracing of :mod:`jrlqp_tpu_torch.utils`.
+tracing of :mod:`jrlqp_tpu_torch.utils`. Beside them: the closed-form box
+solve ``solve_box``, the f32-then-f64 ``solve_mixed``, sharded solves over
+a device mesh (:mod:`jrlqp_tpu_torch.parallel`), and the QPS reader and
+Maros-Meszaros corpus runner (:mod:`jrlqp_tpu_torch.io`).
 """
 import torch as _torch
 
@@ -27,7 +30,15 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from .problems import QPProblem, problem_from_numpy, result_to_numpy  # noqa: E402
+from .problems import (  # noqa: E402
+    LeastSquareProblem,
+    QPProblem,
+    pad_problem,
+    problem_from_numpy,
+    result_to_numpy,
+    stack_problems,
+)
+from .solver.box_single import solve_box  # noqa: E402
 from .solver.dense import solve, solve_batch  # noqa: E402
 from .solver.fast import (  # noqa: E402
     WarmCarry,
@@ -39,9 +50,10 @@ from .solver.fast import (  # noqa: E402
     solve_refined_kernel_rescued,
     solve_refined_warm_kernel,
 )
-from .solver.state import GIResult  # noqa: E402
+from .solver.mixed import solve_mixed  # noqa: E402
+from .solver.state import GIResult, GIState  # noqa: E402
 from .solver.warm_start import solve_warm  # noqa: E402
-from .structured import solve_structured  # noqa: E402
+from .structured import GType, StructuredC, StructuredG, solve_structured  # noqa: E402
 from .utils import (  # noqa: E402
     LogFlags,
     capture_kernel_trajectory,
@@ -51,20 +63,30 @@ from .utils import (  # noqa: E402
     solve_traced,
 )
 from .types import ActivationStatus, SolverOptions, TerminationStatus  # noqa: E402
-from .validation import inconsistent_mask  # noqa: E402
+from .validation import inconsistent_mask, well_formed  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "QPProblem",
+    "well_formed",
+    "inconsistent_mask",
+    "LeastSquareProblem",
+    "pad_problem",
+    "stack_problems",
     "problem_from_numpy",
     "result_to_numpy",
     "solve",
     "solve_batch",
+    "solve_mixed",
     "solve_warm",
+    "solve_box",
     "solve_fast",
     "solve_fast_warm",
     "solve_structured",
+    "GType",
+    "StructuredC",
+    "StructuredG",
     "solve_refined_kernel_rescued",
     "solve_refined_kernel_compact",
     "LogFlags",
@@ -78,8 +100,8 @@ __all__ = [
     "solve_refined_kernel_carry",
     "WarmCarry",
     "GIResult",
+    "GIState",
     "ActivationStatus",
     "TerminationStatus",
     "SolverOptions",
-    "inconsistent_mask",
 ]

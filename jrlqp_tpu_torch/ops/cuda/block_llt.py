@@ -107,9 +107,11 @@ def _chol_inv_b_cuda(A: torch.Tensor):
     Li = torch.empty_like(A)
     pd = torch.empty((B,), dtype=torch.int32, device=A.device)
     lib = _build.library()
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    code = lib.jrlqp_chol_inv_b(A.data_ptr(), L.data_ptr(), Li.data_ptr(),
-                                pd.data_ptr(), B, s, stream)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        code = lib.jrlqp_chol_inv_b(A.data_ptr(), L.data_ptr(),
+                                    Li.data_ptr(), pd.data_ptr(), B, s,
+                                    stream)
     _build.check(code, "chol_inv_b")
     launches += 1
     return L, Li, pd.bool()
@@ -252,10 +254,11 @@ def _tri_llt_cuda(diag, off):
     sp = _round4(s)
     Ld, Li = (diag.new_empty((B, nb, s, sp)) for _ in range(2))
     Lo = diag.new_empty((B, nb - 1, s, sp))
-    stream = torch.cuda.current_stream(diag.device).cuda_stream
-    code = _build.library().jrlqp_tri_block_llt(
-        diag.data_ptr(), off.data_ptr(), Ld.data_ptr(), Lo.data_ptr(),
-        Li.data_ptr(), B, nb, s, stream)
+    with torch.cuda.device(diag.device):
+        stream = torch.cuda.current_stream(diag.device).cuda_stream
+        code = _build.library().jrlqp_tri_block_llt(
+            diag.data_ptr(), off.data_ptr(), Ld.data_ptr(), Lo.data_ptr(),
+            Li.data_ptr(), B, nb, s, stream)
     _build.check(code, "jrlqp_tri_block_llt")
     return Ld[..., :s], Lo[..., :s], Li[..., :s]
 
@@ -265,10 +268,11 @@ def _arrow_llt_cuda(diag, side, up: bool):
     B, nb, s, _ = diag.shape
     Ld, Li, Lo = torch.empty_like(diag), torch.empty_like(diag), \
         torch.empty_like(side)
-    stream = torch.cuda.current_stream(diag.device).cuda_stream
-    code = _build.library().jrlqp_block_arrow_llt(
-        diag.data_ptr(), side.data_ptr(), Ld.data_ptr(), Lo.data_ptr(),
-        Li.data_ptr(), B, nb, s, int(up), stream)
+    with torch.cuda.device(diag.device):
+        stream = torch.cuda.current_stream(diag.device).cuda_stream
+        code = _build.library().jrlqp_block_arrow_llt(
+            diag.data_ptr(), side.data_ptr(), Ld.data_ptr(), Lo.data_ptr(),
+            Li.data_ptr(), B, nb, s, int(up), stream)
     _build.check(code, "jrlqp_block_arrow_llt")
     return Ld, Lo, Li
 
@@ -332,10 +336,11 @@ def _tri_solve_cuda(L_off, Linv, r, lower_only: bool):
     Lo_p, Li_p = pad_cols(L_off, sp), pad_cols(Linv, sp)
     r_p, rbs = padded_rhs(r)
     y = torch.empty((B, nb, s, _round4(k)), dtype=r.dtype, device=r.device)
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    code = _build.library().jrlqp_tri_block_solve(
-        Lo_p.data_ptr(), Li_p.data_ptr(), r_p.data_ptr(), rbs, y.data_ptr(),
-        B, nb, s, k, int(lower_only), stream)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        code = _build.library().jrlqp_tri_block_solve(
+            Lo_p.data_ptr(), Li_p.data_ptr(), r_p.data_ptr(), rbs,
+            y.data_ptr(), B, nb, s, k, int(lower_only), stream)
     _build.check(code, "jrlqp_tri_block_solve")
     return y[..., :k]
 
@@ -344,10 +349,11 @@ def _arrow_solve_cuda(L_side, Linv, r, up: bool):
     """K8."""
     B, nb, s, k = r.shape
     y = torch.empty_like(r)
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    code = _build.library().jrlqp_block_arrow_solve(
-        L_side.data_ptr(), Linv.data_ptr(), r.data_ptr(), y.data_ptr(), B,
-        nb, s, k, int(up), stream)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        code = _build.library().jrlqp_block_arrow_solve(
+            L_side.data_ptr(), Linv.data_ptr(), r.data_ptr(), y.data_ptr(),
+            B, nb, s, k, int(up), stream)
     _build.check(code, "jrlqp_block_arrow_solve")
     return y
 

@@ -711,10 +711,13 @@ def _launch(entry, dtypes, ins, n, m, max_iter):
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"{entry}: input {i} does not start 16-byte "
                              f"aligned")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = getattr(lib, entry)(*[t.data_ptr() for t in ins],
-                               *[t.data_ptr() for t in outs],
-                               B, n, m, np_, mp_, int(max_iter), stream)
+    # the runtime launches on the current device and sets the kernel's
+    # shared-memory limit there: make it the tensors' card
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, entry)(*[t.data_ptr() for t in ins],
+                                   *[t.data_ptr() for t in outs],
+                                   B, n, m, np_, mp_, int(max_iter), stream)
     _build.check(code, entry)
     return outs
 

@@ -3,7 +3,9 @@
 Counterpart of :mod:`jrlqp_tpu.solver.fast` on five paths:
 
 - the main path ``solve_refined_kernel`` (``solve_refined_pallas(...,
-  fused_init=True)``): the whole f32 solve in the fused kernel K1;
+  fused_init=True)``): the whole f32 solve in the fused kernel K1; with
+  ``fused_init=False`` (the JAX default) the torch cold init, then the
+  loop in K3;
 - the hint warm start ``solve_refined_warm_kernel``
   (``solve_refined_warm_pallas``): the warm init here in batched torch
   (hint processing, M = N^T G^-1 N by Cholesky, the closed form, the u < 0
@@ -146,8 +148,16 @@ def _validated(pb: QPProblem, st: FastState, opt: SolverOptions
         inconsistent_mask(pb), INCONSISTENT_INPUT, st.term).to(torch.int32))
 
 
-def _refine_batch(pbs: QPProblem, st: FastState, ir_steps: int) -> GIResult:
+def _refine_batch(pbs: QPProblem, st: FastState, ir_steps: int,
+                  exact: bool = False) -> GIResult:
     """Batched mixed-precision iterative refinement in native f64.
+
+    The kernel paths' refinement (``_refine_batch``, fast.py:397-548)
+    computes the f64 products G x, N^T x and N lam once and tracks them
+    with f32 increments; ``exact=True`` recomputes them in f64 at every
+    step instead, as ``_refine`` (fast.py:569-617) behind the JAX
+    ``solve_refined`` does, which keeps an ill-conditioned G's f32
+    rounding out of the residual.
 
     Slot validity is ``aorder >= 0``: the fused kernel frees a slot by
     zeroing it, so active slots may have holes."""
@@ -191,19 +201,27 @@ def _refine_batch(pbs: QPProblem, st: FastState, ir_steps: int) -> GIResult:
     x = x32.to(f64)
     lam = lam32.to(f64)
 
-    # one-time f64 products y = G x, cx = C x, w = N lam = C^T mu_c + mu_b
-    signed = sgn32 * lam32
-    mu_c = torch.zeros((B, m + 1), dtype=f32, device=x.device).scatter_add(
-        1, torch.where(is_b, m, cidx), signed)[:, :m]
-    mu_b = torch.zeros((B, n + 1), dtype=f32, device=x.device).scatter_add(
-        1, torch.where(is_b, bidx, n), signed)[:, :n]
     G64, C64 = pbs.G.to(f64), pbs.C.to(f64)
-    y = _bmv(G64, x)
-    cx = _bmv(C64, x)
-    w = _bmtv(C64, mu_c.to(f64)) + mu_b.to(f64)
-    ntx = sgn64 * torch.cat([cx, x], dim=1).gather(1, idxs)
+    c_at = torch.where(is_b, m, cidx)
+    b_at = torch.where(is_b, bidx, n)
 
-    for _ in range(ir_steps):
+    def products(x, lam):
+        """f64 y = G x, N^T x and w = N lam = C^T mu_c + mu_b (each
+        multiplier lands alone in its row, so the scatters are exact)."""
+        signed = sgn64 * lam
+        mu_c = torch.zeros((B, m + 1), dtype=f64, device=x.device
+                           ).scatter_add(1, c_at, signed)[:, :m]
+        mu_b = torch.zeros((B, n + 1), dtype=f64, device=x.device
+                           ).scatter_add(1, b_at, signed)[:, :n]
+        cx = _bmv(C64, x)
+        return (_bmv(G64, x),
+                sgn64 * torch.cat([cx, x], dim=1).gather(1, idxs),
+                _bmtv(C64, mu_c) + mu_b)
+
+    y, ntx, w = products(x, lam)
+    for step in range(ir_steps):
+        if exact and step:
+            y, ntx, w = products(x, lam)
         r1 = w - y - a64                                     # stationarity
         r2 = torch.where(valid, b - ntx, 0.0)                # active feas.
         r1_32, r2_32 = r1.to(f32), r2.to(f32)
@@ -213,10 +231,13 @@ def _refine_batch(pbs: QPProblem, st: FastState, ir_steps: int) -> GIResult:
         dlam = _bmv(Ns32, gv - r1_32)
         x = x + dx.to(f64)
         lam = torch.where(valid, lam + dlam.to(f64), 0.0)
-        # track the f64 quantities with f32 increments (error << target)
-        y = y + _bmv(G32, dx).to(f64)
-        ntx = ntx + _bmv(Nt32, dx).to(f64)
-        w = w + _bmtv(Nt32, dlam).to(f64)
+        if not exact:
+            # track the f64 quantities with f32 increments
+            y = y + _bmv(G32, dx).to(f64)
+            ntx = ntx + _bmv(Nt32, dx).to(f64)
+            w = w + _bmtv(Nt32, dlam).to(f64)
+    if exact:
+        y = _bmv(G64, x)
 
     # multipliers in the external sign convention (UPPER-active positive)
     sign_out = torch.where(upperish, 1.0, -1.0).to(f64)
@@ -637,19 +658,25 @@ def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
     at any n, on any device."""
     pb32 = pbs.with_dtype(torch.float32)
     opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
-    return _refine_batch(pbs, _run_fast(pb32, opt32), ir_steps)
+    return _refine_batch(pbs, _run_fast(pb32, opt32), ir_steps, exact=True)
 
 
 def solve_refined_kernel(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
-                         ir_steps: int = 3) -> GIResult:
-    """Batched f32 GI in the fused kernel, then ``ir_steps`` steps of f64
+                         ir_steps: int = 3, fused_init: bool = True
+                         ) -> GIResult:
+    """Batched f32 GI in a kernel, then ``ir_steps`` steps of f64
     refinement (counterpart of ``solve_refined_pallas(pbs, opt, ir_steps,
-    fused_init=True)``).
+    fused_init=fused_init)``).
 
-    Runs on the problem's device: a CUDA batch goes through the CUDA
-    kernel, a CPU batch through its plain PyTorch version. With
-    ``opt.validate`` lanes with inconsistent data end INCONSISTENT_INPUT.
+    ``fused_init=True`` (the main path) runs the whole solve, cold init
+    included, in the fused kernel K1; ``False`` (the JAX package's default)
+    runs the cold init in torch (``_init_fast``) and the loop in K3. Runs
+    on the problem's device: a CUDA batch goes through the CUDA kernel, a
+    CPU batch through its plain PyTorch version. With ``opt.validate``
+    lanes with inconsistent data end INCONSISTENT_INPUT on both branches.
     """
+    if not fused_init:
+        return _solve_refined_from_init(pbs, opt, ir_steps, run_loop)
     return _solve_refined(pbs, opt, ir_steps, run_loop_fused)
 
 
@@ -665,10 +692,11 @@ def _solve_refined(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
 
 def _solve_refined_from_init(pbs: QPProblem, opt: SolverOptions,
                              ir_steps: int, run) -> GIResult:
-    """The f32 cold init in torch (``_init_fast``), the loop
-    ``run(pb32, state0, max_iter)`` -- K3's or K9's wrapper, or a plain
-    version -- then ``ir_steps`` steps of f64 refinement: the body of
-    ``solve_refined_pallas(..., fused_init=False)`` (fast.py:638-671)."""
+    """The f32 cold init in torch (``_init_fast``, which applies
+    ``opt.validate``), the loop ``run(pb32, state0, max_iter)`` -- K3's or
+    K9's wrapper, or a plain version -- then ``ir_steps`` steps of f64
+    refinement: the body of ``solve_refined_pallas(..., fused_init=False)``
+    (fast.py:638-671)."""
     pb32 = pbs.with_dtype(torch.float32)
     opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
     out = run(pb32, _init_fast(pb32, opt32), opt.max_iter)

@@ -1,7 +1,9 @@
 """The port's kernels (K1-K9) on a CUDA card, held against their plain
 PyTorch versions on the same card; the launch counts of the structured
 path, the compact-slot path, the trajectory capture and the rescue; the
-default device; and the numpy batch generators that the CPU tests share.
+box solve, the sharded solve on one card and K3 at the corpus's largest
+bucket; the default device; and the numpy batch generators that the CPU
+tests share.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and no jax:
@@ -22,10 +24,14 @@ from jrlqp_tpu_torch import (
     capture_kernel_trajectory,
     no_retrace,
     problem_from_numpy,
+    solve_batch,
+    solve_box,
     solve_refined_kernel_compact,
     solve_refined_kernel_rescued,
+    stack_problems,
 )
 from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
+from jrlqp_tpu_torch.parallel import make_mesh, solve_sharded
 from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.structured import (
     GType,
@@ -34,7 +40,11 @@ from jrlqp_tpu_torch.structured import (
     structured_from_numpy,
     structured_qp_problem,
 )
-from jrlqp_tpu_torch.testing import order_exact
+from jrlqp_tpu_torch.testing import (
+    ProblemCharacteristics,
+    order_exact,
+    random_problem,
+)
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
 
@@ -841,6 +851,38 @@ def test_rescued_batch_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernels_run_on_a_second_card(cuda_device):
+    # the runtime launches on its current device: a batch on card 1 must
+    # still be solved there (K1, K3, K5+K6), equal to card 0's results
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    second = torch.device("cuda", 1)
+    d, max_iter = make_case("n8_m12")
+    opt = SolverOptions(max_iter=max_iter)
+    for fused in (True, False):
+        res = fast.solve_refined_kernel(
+            problem_from_numpy(**d, device=second), opt, fused_init=fused)
+        assert res.x.device == second
+        ref = fast.solve_refined_kernel(
+            problem_from_numpy(**d, device=cuda_device), opt,
+            fused_init=fused)
+        _assert_same_result(res, dataclasses.replace(
+            ref, **{f.name: getattr(ref, f.name).cpu()
+                    for f in dataclasses.fields(ref)}), x_tol=0.0)
+    k = ik_batch(4, nb=3, s=8, mc=2, seed=3)
+    out = []
+    for dev in (second, cuda_device):
+        sg, sc = structured_from_numpy(diag=k["diag"], off=k["off"],
+                                       gtype=GType.TRI_BLOCK_DIAGONAL,
+                                       blocks=k["blocks"], device=dev)
+        a, lo, up = (torch.from_numpy(k[v]).to(dev) for v in "alu")
+        out.append(solve_structured_fast_batch(sg, a, sc, lo, up,
+                                               opt=SolverOptions()))
+    assert torch.equal(out[0].status.cpu(), out[1].status.cpu())
+    assert torch.equal(out[0].x.cpu(), out[1].x.cpu())
+
+
+@pytest.mark.cuda
 def test_default_device_is_the_card(cuda_device):
     d, _ = make_case("n8_m12")
     assert problem_from_numpy(**d).G.device == torch.device("cuda", 0)
@@ -861,3 +903,129 @@ def test_no_retrace_across_shapes_on_card(cuda_device):
             pb = problem_from_numpy(**make_case(name)[0], device=cuda_device)
             fast.solve_refined_kernel(pb, opt)
             solve_refined_kernel_compact(pb, opt)
+
+
+def np_box_batch(seed, batch, n):
+    """Batches (x0, c, bl, xl, xu) of box-and-one-constraint problems, the
+    constraint cutting the box on odd lanes (the generator of
+    tests/test_box_single.py)."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(-1, 1, (batch, n))
+    r1, r2 = rng.uniform(-1, 1, (2, batch, n))
+    xl, xu = np.minimum(r1, r2), np.maximum(r1, r2)
+    c = rng.uniform(-1, 1, (batch, n))
+    corner_lo = np.where(c > 0, xl, xu)
+    corner_hi = np.where(c > 0, xu, xl)
+    d1 = (c * np.clip(x0, xl, xu)).sum(axis=1)
+    act = 0.5 * d1 + 0.5 * (c * corner_hi).sum(axis=1)
+    bl = np.where(np.arange(batch) % 2 == 1, act,
+                  (c * corner_lo).sum(axis=1))
+    return x0, c, bl, xl, xu
+
+
+@pytest.mark.cuda
+def test_solve_box_on_card_matches_cpu(cuda_device):
+    arrs = np_box_batch(5, 256, 16)
+    res = solve_box(*[torch.from_numpy(a).to(cuda_device) for a in arrs])
+    ref = solve_box(*[torch.from_numpy(a) for a in arrs])
+    assert res.x.device == cuda_device
+    _assert_same_result(res, ref, x_tol=1e-12)
+    torch.testing.assert_close(res.multipliers.cpu(), ref.multipliers,
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,fused_init", [("f64", False),
+                                               ("pallas", False),
+                                               ("pallas", True)])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_solve_sharded_on_card(cuda_device, engine, fused_init, shards):
+    d = np_qp_batch(6, 64, 12, 24, 0.3)
+    pb = problem_from_numpy(**d, device=cuda_device)
+    opt = SolverOptions(max_iter=100)
+    mesh = make_mesh(devices=[cuda_device] * shards)
+    before = _launches()
+    res, stats = solve_sharded(pb, opt, mesh=mesh, engine=engine,
+                               fused_init=fused_init)
+    torch.cuda.synchronize()
+    grew = [a - b for a, b in zip(_launches(), before)]
+    if engine == "pallas":
+        # one K1 (fused) or K3 launch per shard, nothing else
+        assert grew == ([shards, 0, 0, 0] if fused_init
+                        else [0, shards, 0, 0])
+    else:
+        assert grew == [0, 0, 0, 0]
+    ref = (fast.solve_refined_kernel(pb, opt, fused_init=fused_init)
+           if engine == "pallas" else solve_batch(pb, opt))
+    _assert_same_result(res, dataclasses.replace(
+        ref, **{f.name: getattr(ref, f.name).cpu()
+                for f in dataclasses.fields(ref)}), x_tol=1e-10)
+    it = res.iterations.long()
+    assert (stats.total_iterations, stats.n_success, stats.max_iterations) \
+        == (int(it.sum()), int((res.status == 0).sum()), int(it.max()))
+
+
+def np_large_bucket(seed, batch, generator="headline"):
+    """``batch`` problems of the LARGE_SPECS shapes (tests/test_corpus.py)
+    n = 128, m = 100 and n = 96, m = 80, padded to the corpus bucket
+    (128, 128), where K3 runs at (np, mp) = (136, 128). ``"headline"``
+    draws them as ``np_qp_batch`` does (cond(G) ≈ 5); ``"random_problem"``
+    as the corpus test does (G = AᵀA of a square Gaussian A: cond(G)
+    1e5–1e8, beyond what the f32 loop resolves)."""
+    rng = np.random.default_rng(seed)
+    pbs = []
+    for i in range(batch):
+        n, m, n_act, bounds = ((96, 80, 30, False) if i % 2 else
+                               (128, 100, 40, True))
+        if generator == "headline":
+            d = {k: v[0] for k, v in np_qp_batch(
+                int(rng.integers(1 << 31)), 1, n, m, 0.3).items()}
+            if bounds:
+                d["xl"], d["xu"] = np.full(n, -2.0), np.full(n, 2.0)
+            d["objcst"] = 0.0
+        else:
+            d = random_problem(ProblemCharacteristics(
+                n_var=n, n_obj=n, n_ineq=m, n_strong_act_ineq=n_act,
+                bounds=bounds, n_strong_act_bounds=1 if bounds else 0),
+                rng).to_qp_arrays()
+        pbs.append(problem_from_numpy(
+            **{k: np.asarray(v)[None] for k, v in d.items()}, device="cpu"))
+    return stack_problems(pbs, 128, 128)
+
+
+@pytest.mark.cuda
+def test_gi_loop_kernel_at_the_largest_corpus_bucket(cuda_device):
+    # K3 from the torch cold init at (np, mp) = (136, 128), one block per
+    # SM: the same path as its plain version on every lane, float state
+    # within 1e-4 x max(1, |lane|)
+    lib = gi_kernel._build.library()
+    assert lib.jrlqp_gi_smem_bytes(136, 128) <= gi_kernel._SMEM_LIMIT
+    pb = np_large_bucket(8, 64).to(cuda_device).with_dtype(torch.float32)
+    state0 = fast._init_fast(pb, _opt32(400))
+    before = gi_kernel.loop_launches
+    ours = gi_kernel.run_loop(pb, state0, 400)
+    torch.cuda.synchronize()
+    assert gi_kernel.loop_launches == before + 1
+    ref = gi_kernel.gi_loop_plain(pb, state0, 400)
+    _assert_close_scaled(ours, ref)
+    assert bool((ours["term"] == 0).all())
+
+
+@pytest.mark.cuda
+def test_rescued_corpus_bucket_on_card(cuda_device):
+    # the corpus generator's problems at the (128, 128) bucket: cond(G) up
+    # to 1e8, so the f32 stage (one K3 launch) misses about half the lanes
+    # (and its path there follows the summation order: the plain version
+    # on the card and on the CPU part on most of them); the f64 rescue
+    # must end every lane SUCCESS at KKT <= 1e-8, as on the CPU
+    pb = np_large_bucket(8, 16, "random_problem")
+    opt = SolverOptions(max_iter=400)
+    before = _launches()
+    res = solve_refined_kernel_rescued(pb.to(cuda_device), opt)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(), before)] == [0, 1, 0, 0]
+    assert bool((res.status == 0).all())
+    resid = kkt_residual(res.x, res.multipliers, pb.to(cuda_device))
+    assert float(resid.max()) <= 1e-8
+    ref = solve_refined_kernel_rescued(pb, opt)
+    assert torch.equal(res.status.cpu(), ref.status)

@@ -12,15 +12,19 @@ import torch
 from jrlqp_tpu import QPProblem as JQP
 from jrlqp_tpu import SolverOptions as JOptions
 from jrlqp_tpu import solve_batch as j_solve_batch
-from jrlqp_tpu.problems import pad_problem, stack_problems
+from jrlqp_tpu.problems import pad_problem as j_pad_problem
+from jrlqp_tpu.problems import stack_problems as j_stack_problems
 from jrlqp_tpu.testing import ProblemCharacteristics, random_problem
 from jrlqp_tpu_torch import (
     SolverOptions,
     TerminationStatus,
     no_retrace,
+    pad_problem,
     problem_from_numpy,
+    result_to_numpy,
     solve,
     solve_batch,
+    stack_problems,
 )
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
 
@@ -165,15 +169,23 @@ def test_fixed_variables():
 
 
 def test_batched_heterogeneous_padded():
+    # the port's batch from the port's stack_problems, the JAX one from the
+    # JAX package's; both give the same arrays
     rng = np.random.default_rng(7)
-    jpbs = []
+    jpbs, tpbs = [], []
     for characs in _characteristic_sets() * 2:
         d = random_problem(characs, rng).to_qp_arrays()
         jpbs.append(JQP(**{k: jnp.asarray(v) for k, v in d.items()}))
-    arrs = np_problem(stack_problems(jpbs))
-    ours, ref = both(arrs)
+        tpbs.append(problem_from_numpy(**{k: np.asarray(v)[None]
+                                          for k, v in d.items()},
+                                       device="cpu"))
+    arrs = np_problem(j_stack_problems(jpbs))
+    pb = stack_problems(tpbs)
+    for k, v in result_to_numpy(pb).items():
+        assert v.tobytes() == arrs[k].tobytes(), k
+    ours = solve_batch(pb, SolverOptions())
+    ref = j_solve_batch_jit(jax_batch(arrs), JOptions())
     assert_results_match(ours, ref)
-    pb = problem_from_numpy(**arrs, device="cpu")
     assert float(kkt_residual(ours.x, ours.multipliers, pb).max()) < 1e-8
 
 
@@ -184,10 +196,15 @@ def test_multiple_uses_no_retrace():
 
     def run_one(characs, n_pad=5, m_pad=10):
         d = random_problem(characs, rng).to_qp_arrays()
-        jpb = pad_problem(JQP(**{k: jnp.asarray(v) for k, v in d.items()}),
-                          n_pad, m_pad)
+        jpb = j_pad_problem(JQP(**{k: jnp.asarray(v) for k, v in d.items()}),
+                            n_pad, m_pad)
         arrs = {k: np.asarray(v)[None] for k, v in np_problem(jpb).items()}
-        res = solve(problem_from_numpy(**arrs, device="cpu"))
+        pb = pad_problem(problem_from_numpy(
+            **{k: np.asarray(v)[None] for k, v in d.items()}, device="cpu"),
+            n_pad, m_pad)
+        for k, v in result_to_numpy(pb).items():
+            assert v.tobytes() == arrs[k].tobytes(), k
+        res = solve(pb)
         assert int(res.status[0]) == int(TerminationStatus.SUCCESS)
         ref = j_solve_batch_jit(jax_batch(arrs), JOptions())
         assert_results_match(res, ref)

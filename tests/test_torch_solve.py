@@ -1,6 +1,8 @@
 """The port's main path ``solve_refined_kernel`` (plain K1 on the CPU, then
 f64 refinement) against ``solve_refined_pallas(..., fused_init=True)`` in
-interpret mode, on the batches of test_torch_gi_kernel.py."""
+interpret mode, on the batches of test_torch_gi_kernel.py; and its
+``fused_init=False`` branch (the torch cold init, then plain K3) against
+``solve_refined_pallas(..., fused_init=False)``."""
 import inspect
 
 import numpy as np
@@ -104,3 +106,32 @@ def test_default_ir_steps_match_pallas():
     np.testing.assert_allclose(ours["multipliers"],
                                np.asarray(ref.multipliers), atol=1e-6)
     assert bool((kkt_residual(res.x, res.multipliers, pb) <= 1e-8).all())
+
+
+@pytest.mark.parametrize("validate", [False, True])
+@pytest.mark.parametrize("name", ["n8_m12", "eq_fixed", "non_spd"])
+def test_unfused_init_matches_pallas_interpret(name, validate):
+    # fused_init=False (the JAX default): lane for lane against the JAX
+    # branch; status, iterations and active set equal, x within 1e-7 and
+    # the multipliers within 1e-6 (f32 loop, f64 refinement)
+    d, max_iter = make_case(name)
+    d["l"][1, 4] = d["u"][1, 4] + 1.0          # lane 1: l > u
+    ref = solve_refined_pallas(
+        jax_problem(d), JOptions(max_iter=max_iter, validate=validate),
+        ir_steps=1, interpret=True, pack=4, fused_init=False)
+    pb = problem_from_numpy(**d, device="cpu")
+    res = solve_refined_kernel(
+        pb, SolverOptions(max_iter=max_iter, validate=validate), ir_steps=1,
+        fused_init=False)
+    ours = result_to_numpy(res)
+    for k in ("status", "iterations", "active_set"):
+        np.testing.assert_array_equal(ours[k], np.asarray(getattr(ref, k)),
+                                      err_msg=k)
+    np.testing.assert_allclose(ours["x"], np.asarray(ref.x), atol=1e-7,
+                               err_msg="x: atol 1e-7")
+    np.testing.assert_allclose(ours["multipliers"],
+                               np.asarray(ref.multipliers), atol=1e-6,
+                               err_msg="multipliers: atol 1e-6")
+    inconsistent = ours["status"][1] == int(
+        TerminationStatus.INCONSISTENT_INPUT)
+    assert inconsistent == validate

@@ -70,7 +70,10 @@ def test_importing_port_loads_no_jax():
             "import jrlqp_tpu_torch.solver.fast, jrlqp_tpu_torch.testing.kkt, "
             "jrlqp_tpu_torch.testing.batch_gen, jrlqp_tpu_torch.utils, "
             "jrlqp_tpu_torch.solver.dense, jrlqp_tpu_torch.solver.warm_start, "
-            "jrlqp_tpu_torch.structured, jrlqp_tpu_torch.ops.linalg; "
+            "jrlqp_tpu_torch.structured, jrlqp_tpu_torch.ops.linalg, "
+            "jrlqp_tpu_torch.io, jrlqp_tpu_torch.parallel, "
+            "jrlqp_tpu_torch.parallel.distributed, "
+            "jrlqp_tpu_torch.solver.box_single, jrlqp_tpu_torch.solver.mixed; "
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jrlqp_tpu')))")
     out = subprocess.run([sys.executable, "-c", code, str(PKG.parent)],
@@ -110,12 +113,27 @@ def test_default_device_is_the_card():
                 xu=np.ones((1, 2)))
     blocks = dict(diag=np.eye(2)[None, None], off=np.zeros((1, 0, 2, 2)),
                   gtype=GType.TRI_BLOCK_DIAGONAL, blocks=np.ones((1, 1, 1, 2)))
+    from jrlqp_tpu_torch.io import run_corpus
+    from jrlqp_tpu_torch.io.maros_meszaros import MAROS_MESZAROS
+    from jrlqp_tpu_torch.parallel import make_mesh
+
+    qps_dir = str(PKG.parent / "tests" / "data" / "qps")
+    hs21 = [e for e in MAROS_MESZAROS if e.name == "hs21"]
     if torch.cuda.is_available():
         assert problem_from_numpy(**arrs).G.device.type == "cuda"
         assert structured_from_numpy(**blocks)[0].diag.device.type == "cuda"
+        assert make_mesh().devices == tuple(
+            torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+        assert run_corpus(qps_dir=qps_dir, entries=hs21)[0]["obj_ok"]
         return
     with pytest.raises((AssertionError, RuntimeError)):
         problem_from_numpy(**arrs)
     with pytest.raises((AssertionError, RuntimeError)):
         structured_from_numpy(**blocks)
+    with pytest.raises(RuntimeError):
+        make_mesh()
+    with pytest.raises((AssertionError, RuntimeError)):
+        run_corpus(qps_dir=qps_dir, entries=hs21)
     assert problem_from_numpy(**arrs, device="cpu").G.device.type == "cpu"
+    assert run_corpus(qps_dir=qps_dir, entries=hs21,
+                      device="cpu")[0]["obj_ok"]
