@@ -8,7 +8,8 @@ against its plain PyTorch version on the card, and drives the port's paths,
 the dense ones at n=50, m=100 and the structured one at the multi-robot IK
 width (9 robots x 43 dof, n=387, m=36):
 
-1. the card and the build;
+1. the card and the build (the CUDA kernels, and the host C++ readers of
+   ``jrlqp_tpu_torch/csrc/host/``);
 2. K2 (block Cholesky and inverse) against its plain version;
 3. K1 (the fused GI solve) against its plain version, 1024 lanes;
 4. the main path ``solve_refined_kernel`` at batch 16384 (the headline
@@ -80,6 +81,25 @@ width (9 robots x 43 dof, n=387, m=36):
    four synthesized problems of n up to 128 through "pallas_rescued",
    whose (128, 128) bucket runs K3 at (np, mp) = (136, 128); K3 against its
    plain version at that shape on 64 lanes of the headline distribution.
+19. the benchmark harness (``jrlqp_tpu_torch.bench``) on the card:
+   ``time_batch`` at the headline set ("pallas" and "pallas_rescued" at
+   batch 16384, "f64", "mixed" and "refined" at 1024); the size sweep on
+   K1 at batch 16384 up to n=100, m=200 (one block per SM there), with K1's
+   device ms, shared memory and residency per size, K1 held to its plain
+   version on the sweep's draws at each size (the whole batch at n <= 25,
+   1024 lanes above), and each lane the row misses solved again by the
+   plain version and the f64 J/R engine; the active-fraction sweep on K1;
+   the warm-start trajectory on K1 and 11 K4 steps at batch 16384, and on
+   the f64 J/R engine at batch 256; K5, K6 and K7 held to their plain
+   versions on the decompositions' draws (s=48), then the decompositions
+   (K5, K7, K5 + K6 beside the composed chains and
+   ``torch.linalg.cholesky``) and the structured IK batch at batch 1024; the box batch; the scaling
+   capture (mesh 1 on one card); the compacted solve
+   ``solve_refined_kernel_compacted`` at batch 16384 (K3 twice) against one
+   K3 launch lane for lane, with its phase-2 lane count; and the host C++
+   QPS reader (built in phase 1) against the Python one on the vendored files. The kernel rows are gated where
+   PERF.md section 2 gates the configuration and must show their kernel's
+   launches; the other rows print their rates ungated.
 
 Every kernel's line in the JSON record carries ``bound_ms``, the least time
 the card could take for the kernel's work on this run's inputs: the larger
@@ -104,7 +124,7 @@ two iterations, the figure is mostly their state load and closed form, and
 is printed as such).
 
 Each path runs with the launch counts set to 0 just before it and read
-just after; phases 16-18 print one JSON line per path with its wall ms and
+just after; phases 16-19 print one JSON line per path with its wall ms and
 counts. Any failed check raises, so the exit code is nonzero. The last
 two lines of standard output are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -139,6 +159,8 @@ IK_STEPS, IK_DRIFT = 10, 0.02
 RESCUE_ACT_FRAC = 0.9       # phase 13's hard set
 OBS_BATCH, SJR_BATCH = 256, 256
 BOX_BATCH, BOX_N = 16384, 16  # the box benchmark (harness.py:375-407)
+DEC_NB, DEC_S = 9, 48       # bench_decompositions' default chain
+SWEEP_SIZES = (10, 25, 50, 75, 100)  # bench_size_sweep's n, at m = 2n
 # the vendored corpus (tests/test_corpus.py:137-140) and the synthesized
 # large buckets, (n, n_ineq, n_strong_active, bounds, double_sided)
 # (tests/test_corpus.py:184-190), drawn with numpy seed 7 as that test does
@@ -278,6 +300,10 @@ def main() -> int:
     from jrlqp_tpu_torch.parallel import make_mesh, solve_sharded
     from jrlqp_tpu_torch.solver.box_single import box_qp_problem, solve_box_gi
     from jrlqp_tpu_torch.testing import ProblemCharacteristics, random_problem
+    from jrlqp_tpu_torch import solve_refined_kernel_compacted
+    from jrlqp_tpu_torch.bench import harness
+    from jrlqp_tpu_torch.io import native, read_qps
+    from jrlqp_tpu_torch.types import MAX_ITER_REACHED
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -373,6 +399,57 @@ def main() -> int:
                  f"{name} refined x differs from plain by > 1e-7")
         return err
 
+    struct_err = {"K5": 0.0, "K6": 0.0, "K7": 0.0, "K8": 0.0}
+
+    def rel_err(ours, ref):
+        return float((ours - ref).abs().max()
+                     / ref.abs().max().clamp_min(1.0))
+
+    def chain_pairs(kind, d32, o32, eye):
+        """[(output, kernel, plain)] of one chain kind: the factorization
+        and the solve on the identity ``eye``, on the same factor."""
+        if kind.startswith("tri"):
+            fac = block_llt.tri_block_llt(d32, o32)
+            fac_p = block_llt.tri_block_llt_plain(d32, o32)
+            lower = kind == "tri_lower"
+            y = block_llt.tri_block_solve(fac[1], fac[2], eye, lower)
+            y_p = block_llt.tri_block_solve_plain(fac[1], fac[2], eye, lower)
+        else:
+            up = kind == "arrow_up"
+            fac = block_llt.block_arrow_llt(d32, o32, up=up)
+            fac_p = block_llt.block_arrow_llt_plain(d32, o32, up=up)
+            y = block_llt.block_arrow_solve(fac[1], fac[2], eye, up=up)
+            y_p = block_llt.block_arrow_solve_plain(fac[1], fac[2], eye,
+                                                    up=up)
+        return [("factor", k, p) for k, p in zip(fac, fac_p)] + [
+            ("solve", y, y_p)]
+
+    def hold_chains(kinds, d32, o32, eye, where):
+        """Each chain kind's kernels against their plain versions on
+        (d32, o32) and the identity: every output within 1e-5 relative
+        (to max(1, |plain|)); the largest |err| goes into ``struct_err``.
+        Returns {kind: max relative error}."""
+        rels = {}
+        for kind in kinds:
+            pairs = chain_pairs(kind, d32, o32, eye)
+            torch.cuda.synchronize()
+            for what, k, p in pairs:
+                _require(k.shape == p.shape and bool(torch.isfinite(k).all()),
+                         f"{kind} {what} ({where}): shape or non-finite "
+                         f"output")
+                rel = rel_err(k, p)
+                _require(rel <= 1e-5, f"{kind} {what} ({where}): kernel vs "
+                         f"plain {rel} > 1e-5 relative")
+                name = {("tri", "factor"): "K5", ("tri", "solve"): "K6",
+                        ("arr", "factor"): "K7", ("arr", "solve"): "K8"}[
+                            (kind[:3], what)]
+                struct_err[name] = max(struct_err[name],
+                                       float((k - p).abs().max()))
+            rels[kind] = max(rel_err(k, p) for _, k, p in pairs)
+            print(f"K5-K8 vs plain ({kind}, {where}): max |err| / max(1, "
+                  f"|plain|) {rels[kind]:.3e}")
+        return rels
+
     # ---- phase 1: the card and the build ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -391,6 +468,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the host C++ readers build here too (g++, csrc/host/), outside every
+    # timed window: run_corpus (phase 18) reads through read_qps("auto")
+    _require(native.available(), f"native readers: {native._load_error}")
+    print(f"native readers: {native.build_info}")
 
     def residency(entry, ms, iters, prologue=""):
         """Threads per block and blocks per SM of a GI kernel at (N, M),
@@ -748,49 +829,8 @@ def main() -> int:
     # rows of round4(n) floats, shared by the batch
     eye_sh = block_llt.identity_rhs(IK_BATCH, IK_NB, IK_S, device=dev)
 
-    def rel_err(ours, ref):
-        return float((ours - ref).abs().max()
-                     / ref.abs().max().clamp_min(1.0))
-
-    def chain_pairs(kind):
-        """[(output, kernel, plain)] of one chain kind: the factorization
-        and the solve on the identity, on the same factor."""
-        if kind.startswith("tri"):
-            fac = block_llt.tri_block_llt(diag32, off32)
-            fac_p = block_llt.tri_block_llt_plain(diag32, off32)
-            lower = kind == "tri_lower"
-            y = block_llt.tri_block_solve(fac[1], fac[2], eye_ik, lower)
-            y_p = block_llt.tri_block_solve_plain(fac[1], fac[2], eye_ik,
-                                                  lower)
-        else:
-            up = kind == "arrow_up"
-            fac = block_llt.block_arrow_llt(diag32, off32, up=up)
-            fac_p = block_llt.block_arrow_llt_plain(diag32, off32, up=up)
-            y = block_llt.block_arrow_solve(fac[1], fac[2], eye_ik, up=up)
-            y_p = block_llt.block_arrow_solve_plain(fac[1], fac[2], eye_ik,
-                                                    up=up)
-        return [("factor", k, p) for k, p in zip(fac, fac_p)] + [
-            ("solve", y, y_p)]
-
-    struct_err = {"K5": 0.0, "K6": 0.0, "K7": 0.0, "K8": 0.0}
-    for kind in ("tri", "tri_lower", "arrow_down", "arrow_up"):
-        pairs = chain_pairs(kind)
-        torch.cuda.synchronize()
-        for what, k, p in pairs:
-            _require(k.shape == p.shape and bool(torch.isfinite(k).all()),
-                     f"{kind} {what}: shape or non-finite output")
-            rel = rel_err(k, p)
-            _require(rel <= 1e-5, f"{kind} {what}: kernel vs plain {rel} "
-                     f"> 1e-5 relative")
-            name = {("tri", "factor"): "K5", ("tri", "solve"): "K6",
-                    ("arr", "factor"): "K7", ("arr", "solve"): "K8"}[
-                        (kind[:3], what)]
-            struct_err[name] = max(struct_err[name],
-                                   float((k - p).abs().max()))
-        print(f"K5-K8 vs plain ({kind}, batch {IK_BATCH}, nb={IK_NB}, "
-              f"s={IK_S}): max |err| / max(1, |plain|) "
-              f"{max(rel_err(k, p) for _, k, p in pairs):.3e}")
-    del pairs
+    hold_chains(("tri", "tri_lower", "arrow_down", "arrow_up"), diag32,
+                off32, eye_ik, f"batch {IK_BATCH}, nb={IK_NB}, s={IK_S}")
     Ld, Lo, Li = block_llt.tri_block_llt(diag32, off32)
     aLd, aLo, aLi = block_llt.block_arrow_llt(diag32, off32)
     uLd, uLo, uLi = block_llt.block_arrow_llt(diag32, off32, up=True)
@@ -1401,8 +1441,9 @@ def main() -> int:
                      .abs().max())
     _require(gi_err16 <= 1e-10, f"solve_box vs solve_box_gi: x differs by "
              f"{gi_err16} > 1e-10")
+    box_rate16 = float(ok16.double().mean())
     phase_line(16, "solve_box", box_ms, c16_counts, batch=BOX_BATCH, n=BOX_N,
-               success_rate=float(ok16.double().mean()),
+               success_rate=box_rate16,
                infeasible=int((res16.status == 3).sum()),
                active_rate=float((res16.iterations > 0).double().mean()),
                max_kkt_success=kkt16,
@@ -1573,15 +1614,252 @@ def main() -> int:
     new_s = time.perf_counter() - t_new
     print(json.dumps({"phases": "16-18", "wall_s": new_s}))
 
+    # ---- phase 19: the harness, the compacted solve, the native readers ----
+    t19 = time.perf_counter()
+    harness_launches = dict.fromkeys(counts(), 0)
+    opt_h = SolverOptions(max_iter=500)      # time_batch's default options
+
+    def bench(path, fn, need, gate_rows=None, **extra):
+        """Run the harness call ``fn`` with the counts set to 0 just before
+        it and read just after; every kernel in ``need`` must have been
+        launched; ``gate_rows(row)`` -> (min rate, value) or None for each
+        row. Prints the phase line and returns the rows."""
+        out, ms, cnt = timed(fn)
+        for k in need:
+            _require(cnt[k] > 0, f"{path}: {k} was not launched")
+        _require(all(cnt[k] == 0 for k in cnt if k not in need),
+                 f"{path}: launches {cnt}, expected only {need}")
+        for k, v in cnt.items():
+            harness_launches[k] += v
+        rows = [r.row() if dataclasses.is_dataclass(r) else r
+                for r in (out if isinstance(out, list) else [out])]
+        gated = []
+        for r in rows:
+            g = gate_rows(r) if gate_rows is not None else None
+            if g is not None:
+                _require(g[1] >= g[0], f"{path} {r['name']}: {g[1]} < {g[0]}")
+                gated.append(r["name"])
+        phase_line(19, path, ms, cnt, rows=rows, gated=gated, card=card,
+                   **extra)
+        return rows, cnt
+
+    def kkt_gate(min_rate):
+        return lambda r: (min_rate, r["kkt_pass_rate"])
+
+    # time_batch at the headline set: the kernel engines at batch 16384,
+    # the f64 J/R engines (launch-bound passes) at their 1024 cut
+    pb19 = problems()
+    bench("time_batch(pallas) headline", lambda: harness.time_batch(
+        "headline/pallas", pb19, opt, solver="pallas"), ["gi_fused"],
+        kkt_gate(0.999))
+    bench("time_batch(pallas_rescued) headline", lambda: harness.time_batch(
+        "headline/pallas_rescued", pb19, opt, solver="pallas_rescued"),
+        ["gi_loop"], kkt_gate(1.0))
+    pb19s = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC,
+                            dtype=f32).with_dtype(f64)
+    for solver, min_rate in (("f64", 0.999), ("mixed", 0.999),
+                             ("refined", None)):
+        bench(f"time_batch({solver}) headline, batch {CHECK_BATCH}",
+              lambda: harness.time_batch(f"headline/{solver}", pb19s, opt,
+                                         solver=solver, n_rep=1), [],
+              None if min_rate is None else kkt_gate(min_rate))
+    del pb19, pb19s
+
+    # the size sweep: K1 up to n = 100, m = 200 (one block per SM there).
+    # At each size K1 is held to its plain version on the sweep's own
+    # draws (the whole batch where the plain version is cheap, else its
+    # first CHECK_BATCH lanes), and each lane the sweep's row misses
+    # (time_batch: K1 and 3 refinement steps) is solved again by the plain
+    # version alone and by the f64 J/R engine, so that a fault of K1 shows
+    # apart from a lane that f32 cannot solve
+    k1_sizes, k1_size_err = [], {}
+    for n_ in SWEEP_SIZES:
+        threads, blocks = gi_kernel.residency("jrlqp_gi_fused", n_, 2 * n_)
+        smem = lib.jrlqp_gi_smem_bytes(gi_kernel._round_up(n_ + 1, 8),
+                                       gi_kernel._round_up(2 * n_, 8))
+        pb_n = harness._qp_batch(SEED, BATCH, n_, 2 * n_, ACT_FRAC,
+                                 dev).with_dtype(f64)
+        inputs, (n, m) = gi_kernel.prepare(pb_n.with_dtype(f32))
+        ms = _cuda_ms(lambda: gi_kernel._gi_fused_cuda_raw(
+            *inputs, n, m, opt_h.max_iter))
+        its = int(gi_kernel._gi_fused_cuda_raw(
+            *inputs, n, m, opt_h.max_iter)[4][:, 1].sum())
+        del inputs
+        lanes = BATCH if n_ <= 25 else CHECK_BATCH
+        pb_c = pb_n._map(lambda t: t[:lanes])
+        ok_k = gi_kernel.run_loop_fused(pb_c.with_dtype(f32), opt_h.max_iter)
+        ok_p = gi_kernel.gi_fused_plain(pb_c.with_dtype(f32), opt_h.max_iter)
+        torch.cuda.synchronize()
+        err = against_plain(f"K1 at n={n_}, m={2 * n_} (the sweep's "
+                            f"draws)", ok_k, ok_p, pb_c)
+        k1_size_err[n_] = err
+        res_n = solve_refined_kernel(pb_n, opt_h)
+        kkt_n = kkt_residual(res_n.x, res_n.multipliers, pb_n)
+        miss = torch.nonzero(~((res_n.status == 0) & (kkt_n <= 1e-8)))[:, 0]
+        missed = []
+        if miss.numel():
+            sub = pb_n._map(lambda t: t[miss])
+            sub_p = fast._solve_refined(sub, opt_h, 3, gi_kernel.gi_fused_plain)
+            sub_64 = dense.solve_batch(sub, opt_h)
+            kkt_p = kkt_residual(sub_p.x, sub_p.multipliers, sub)
+            kkt_64 = kkt_residual(sub_64.x, sub_64.multipliers, sub)
+            for j, lane in enumerate(miss.tolist()):
+                row = {"lane": lane, "k1": [int(res_n.status[lane]),
+                                            int(res_n.iterations[lane]),
+                                            float(kkt_n[lane])],
+                       "plain_alone": [int(sub_p.status[j]),
+                                       int(sub_p.iterations[j]),
+                                       float(kkt_p[j])],
+                       "f64_jr": [int(sub_64.status[j]),
+                                  int(sub_64.iterations[j]),
+                                  float(kkt_64[j])]}
+                if lane < lanes:   # held above: both raw terms there
+                    row["raw_term_k1_plain"] = [int(ok_k["term"][lane]),
+                                                int(ok_p["term"][lane])]
+                missed.append(row)
+            del sub, sub_p, sub_64
+        k1_sizes.append({"n": n_, "m": 2 * n_, "smem_bytes": smem,
+                         "threads": threads, "blocks_per_sm": blocks,
+                         "k1_ms": ms, "mean_it": its / BATCH,
+                         "us_per_iteration_per_block":
+                             1e3 * ms * sms * blocks / its,
+                         "lanes_vs_plain": lanes,
+                         "max_abs_err_vs_plain": err,
+                         "missed_lanes [status, iterations, kkt]": missed})
+        del pb_n, pb_c, ok_k, ok_p, res_n, kkt_n
+    print(json.dumps({"phase": 19, "K1 by size (batch 16384, max_iter "
+                      f"{opt_h.max_iter})": k1_sizes, "card": card}))
+    bench("bench_size_sweep(pallas)", lambda: harness.bench_size_sweep(
+        SWEEP_SIZES, batch=BATCH, solver="pallas", seed=SEED, device=dev),
+        ["gi_fused"], lambda r: (0.999, r["kkt_pass_rate"])
+        if r["name"] == f"size/n={N}/m={M}" else None)
+    bench("bench_active_sweep(pallas)", lambda: harness.bench_active_sweep(
+        N, M, batch=BATCH, solver="pallas", seed=SEED, device=dev),
+        ["gi_fused"], lambda r: (0.999, r["kkt_pass_rate"])
+        if int(r["name"].split("/")[1][:-1]) <= 30 else None)
+
+    # the warm-start trajectory: a cold K1 step, then K4 steps
+    traj_steps = 12
+    _, cnt = bench("bench_warm_start_trajectory(pallas)",
+                 lambda: harness.bench_warm_start_trajectory(
+                     N, M, steps=traj_steps, batch=BATCH, seed=SEED,
+                     solver="pallas", time_window=10, device=dev),
+                 ["gi_fused", "gi_warm"], lambda r: (0.999, min(
+                     r["warm_success"], r["cold_success"])))
+    _require(cnt["gi_warm"] == traj_steps - 1
+             and cnt["gi_fused"] == traj_steps + 1,
+             f"the warm trajectory: launches {cnt}, expected K1 "
+             f"{traj_steps + 1} times (one cold step, {traj_steps} cold "
+             f"solves) and K4 on each of its {traj_steps - 1} warm steps")
+    bench("bench_warm_start_trajectory(f64), batch 256",
+          lambda: harness.bench_warm_start_trajectory(
+              steps=4, batch=256, seed=SEED, solver="f64", device=dev), [])
+
+    # the structured rows: K5, K7 and K5 + K6 beside the composed chains
+    # and torch.linalg.cholesky; the IK batch on K5 + K6, the composed
+    # blocks and the dense engine
+    # K5, K6 and K7 on the decompositions' own draws first: no other path
+    # runs s = 48 (K8 comes with the arrow chain's check)
+    d_dec, o_dec = (torch.from_numpy(v).to(dev, f32) for v in
+                    harness.decomposition_inputs(DEC_NB, DEC_S, IK_BATCH,
+                                                 SEED))
+    n_dec = DEC_NB * DEC_S
+    eye_dec = torch.eye(n_dec, device=dev).reshape(1, DEC_NB, DEC_S, n_dec)
+    eye_dec = eye_dec.expand(IK_BATCH, -1, -1, -1).contiguous()
+    rel_dec = hold_chains(("tri", "arrow_down"), d_dec, o_dec, eye_dec,
+                          f"the decompositions' draws, batch {IK_BATCH}, "
+                          f"nb={DEC_NB}, s={DEC_S}")
+    del d_dec, o_dec, eye_dec
+    bench("bench_decompositions", lambda: harness.bench_decompositions(
+        nb=DEC_NB, s=DEC_S, batch=IK_BATCH, seed=SEED, device=dev),
+        ["tri_block_llt", "tri_block_solve", "block_arrow_llt"],
+        max_rel_err_vs_plain=rel_dec)
+    bench("bench_structured_ik", lambda: harness.bench_structured_ik(
+        nb=IK_NB, s=IK_S, mc=IK_MC, batch=IK_BATCH, seed=SEED, device=dev),
+        ["tri_block_llt", "tri_block_solve"],
+        lambda r: (0.999, r["success_rate"]))
+
+    # the box batch: the draws of phase 16, whose KKT <= 1e-8 gate holds
+    # on every SUCCESS lane
+    rows, _ = bench("bench_box_single", lambda: harness.bench_box_single(
+        BOX_N, batch=BOX_BATCH, seed=SEED, device=dev), [])
+    _require(rows[0]["success_rate"] == box_rate16,
+             "bench_box_single: another success rate than phase 16's solve")
+
+    # weak scaling: one card runs mesh 1 alone
+    rows, _ = bench("bench_scaling(pallas)", lambda: harness.bench_scaling(
+        n=N, m=M, per_device_batch=BATCH, engine="pallas", seed=SEED),
+        ["gi_fused"], lambda r: (0.999, r["success_rate"]),
+        cards=torch.cuda.device_count())
+    print(json.dumps({"phase": 19, "bench_scaling": "mesh sizes run: "
+                      f"{[r['mesh_size'] for r in rows]} of (1, 2, 4, 8) on "
+                      f"{torch.cuda.device_count()} card(s)"}))
+
+    # the compacted solve against one K3 launch (fused_init=False)
+    pb19 = problems()
+    cap = max(1, min(int(MAX_ITER * 0.45), MAX_ITER))
+    res_c, comp_ms, c19 = timed(lambda: solve_refined_kernel_compacted(
+        pb19, opt, ir_steps=IR_STEPS, phase1_frac=0.45))
+    _require(c19["gi_loop"] == 2 and sum(c19.values()) == 2,
+             f"compacted solve: launches {c19}, expected K3 twice")
+    res_1, one_ms, c19_1 = timed(lambda: solve_refined_kernel(
+        pb19, opt, ir_steps=IR_STEPS, fused_init=False))
+    harness_launches["gi_loop"] += c19["gi_loop"] + c19_1["gi_loop"]
+    for k in ("status", "iterations"):
+        _require(torch.equal(getattr(res_c, k), getattr(res_1, k)),
+                 f"compacted solve: {k} differs from one K3 launch")
+    comp_err = float((res_c.x - res_1.x).abs().max())
+    _require(comp_err <= 1e-9, f"compacted solve: x differs by {comp_err}")
+    rate19, kkt19, _ = gate("compacted solve", res_c, pb19)
+    pb19_32 = pb19.with_dtype(f32)
+    st19 = fast._state_from_kernel_out(gi_kernel.run_loop(
+        pb19_32, fast._init_fast(pb19_32, opt.with_(
+            dtype=f32, zero_z_threshold=1e-6)), cap), BATCH)
+    capped = st19.term == MAX_ITER_REACHED
+    phase2, pending = int(capped.sum()), int((capped & st19.skip1).sum())
+    phase_line(19, "solve_refined_kernel_compacted", comp_ms, c19,
+               batch=BATCH, phase1_cap=cap, phase2_lanes=phase2,
+               phase2_pending_candidates=pending, pass_rate=rate19,
+               max_kkt=kkt19, same_status_and_iterations=True,
+               max_abs_x_err_vs_one_launch=comp_err,
+               best_of_3_ms=1e3 * _wall_s(
+                   lambda: solve_refined_kernel_compacted(
+                       pb19, opt, ir_steps=IR_STEPS, phase1_frac=0.45)),
+               one_launch_ms=one_ms, one_launch_best_of_3_ms=1e3 * _wall_s(
+                   lambda: solve_refined_kernel(pb19, opt, ir_steps=IR_STEPS,
+                                                fused_init=False)),
+               card=card)
+    del pb19, pb19_32, st19, res_c, res_1
+
+    # the host C++ readers (built in phase 1) against the Python parser
+    files = sorted(f for f in os.listdir(qdir) if f.endswith(".QPS"))
+    for f in files:
+        a = read_qps(os.path.join(qdir, f), engine="native")
+        b = read_qps(os.path.join(qdir, f), engine="python")
+        for k in ("G", "a", "C", "l", "u", "xl", "xu"):
+            x, y = getattr(a, k), getattr(b, k)
+            _require(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
+                     f"native reader: {f} {k} differs from the Python one")
+        _require((a.name, a.objcst, a.n_eq) == (b.name, b.objcst, b.n_eq),
+                 f"native reader: {f} header differs from the Python one")
+    print(json.dumps({"phase": 19, "path": "read_qps(native) vs "
+                      "read_qps(python)", "files": len(files),
+                      "bitwise_equal": True, "build": native.build_info}))
+    t19 = time.perf_counter() - t19
+    print(json.dumps({"phase": 19, "wall_s": t19}))
+
     src = "jrlqp_tpu_torch/csrc/gi_kernel.cu"
     pallas = "jrlqp_tpu/ops/pallas/gi_kernel.py"
     kernels = [
         {"name": "gi_fused", "route": "cuda", "source": src,
          "replaces": f"{pallas}:674",
-         "launches": main_counts["gi_fused"] + sharded_launches["gi_fused"],
+         "launches": (main_counts["gi_fused"] + sharded_launches["gi_fused"]
+                      + harness_launches["gi_fused"]),
          "launches_by_path": {"main": main_counts["gi_fused"],
-                              "solve_sharded": sharded_launches["gi_fused"]},
+                              "solve_sharded": sharded_launches["gi_fused"],
+                              "harness": harness_launches["gi_fused"]},
          "max_abs_err": k1_err,
+         "max_abs_err_by_sweep_size": k1_size_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None, **res_k1},
         {"name": "chol_inv_b", "route": "cuda",
@@ -1596,17 +1874,23 @@ def main() -> int:
         {"name": "gi_loop", "route": "cuda", "source": src,
          "replaces": f"{pallas}:628",
          "launches": (hint_counts["gi_loop"] + c17["gi_loop"]
-                      + sharded_launches["gi_loop"] + corpus_loop_launches),
+                      + sharded_launches["gi_loop"] + corpus_loop_launches
+                      + harness_launches["gi_loop"]),
          "launches_by_path": {"hint": hint_counts["gi_loop"],
                               "fused_init=False": c17["gi_loop"],
                               "solve_sharded": sharded_launches["gi_loop"],
-                              "run_corpus": corpus_loop_launches},
+                              "run_corpus": corpus_loop_launches,
+                              "harness and compacted":
+                                  harness_launches["gi_loop"]},
          "max_abs_err": k3_err, "max_abs_err_at_136x128": k3_136,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None, **res_k3},
         {"name": "gi_warm", "route": "cuda", "source": src,
          "replaces": f"{pallas}:836",
-         "launches": traj_counts["gi_warm"], "max_abs_err": k4_err,
+         "launches": traj_counts["gi_warm"] + harness_launches["gi_warm"],
+         "launches_by_path": {"trajectory": traj_counts["gi_warm"],
+                              "harness": harness_launches["gi_warm"]},
+         "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
          "bound_by": k4_bound[1], "library_ms": None, **res_k4},
         {"name": "gi_compact", "route": "cuda", "source": src,
@@ -1626,7 +1910,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": struct_src,
             "replaces": f"{struct_pallas}:{line}",
-            "launches": launched[name], "max_abs_err": struct_err[key],
+            "launches": launched[name] + harness_launches[name],
+            "launches_by_path": {"structured": launched[name],
+                                 "harness": harness_launches[name]},
+            "max_abs_err": struct_err[key],
             "ms": struct_ms[key][0], "plain_ms": struct_ms[key][1],
             "bound_ms": struct_bound[key][0],
             "bound_by": struct_bound[key][1],

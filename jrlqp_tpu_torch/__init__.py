@@ -47,6 +47,7 @@ from .solver.fast import (  # noqa: E402
     solve_refined_kernel,
     solve_refined_kernel_carry,
     solve_refined_kernel_compact,
+    solve_refined_kernel_compacted,
     solve_refined_kernel_rescued,
     solve_refined_warm_kernel,
 )
@@ -89,6 +90,7 @@ __all__ = [
     "StructuredG",
     "solve_refined_kernel_rescued",
     "solve_refined_kernel_compact",
+    "solve_refined_kernel_compacted",
     "LogFlags",
     "solve_traced",
     "solve_fast_traced",

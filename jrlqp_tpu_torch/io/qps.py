@@ -246,17 +246,21 @@ def parse_qps(text: str, name: str = "") -> QPSData:
 
 
 def read_qps(path: str, engine: str = "auto") -> QPSData:
-    """Read a QPS file. ``engine``: "auto" and "python" use this module's
-    parser; "native" (the C++ parser of the JAX package, native/qps_parser.cpp)
-    is not ported yet and raises."""
-    if engine == "native":
-        raise NotImplementedError(
-            "read_qps: the native QPS parser is not ported to "
-            "jrlqp_tpu_torch yet; use engine='python'")
-    if engine not in ("auto", "python"):
+    """Read a QPS file (qps.py:247-259). ``engine``: "native" uses the C++
+    parser (:mod:`jrlqp_tpu_torch.io.native`, built at first use) and
+    raises if it cannot be built; "auto" uses it where
+    ``native.available()`` and this module's parser otherwise; "python"
+    forces this module's parser. Both give the same arrays bit for bit."""
+    if engine not in ("auto", "native", "python"):
         raise ValueError(f"read_qps: unknown engine {engine!r}")
     with open(path) as fh:
-        return parse_qps(fh.read())
+        text = fh.read()
+    if engine != "python":
+        from . import native
+
+        if engine == "native" or native.available():
+            return native.parse_qps_native(text)
+    return parse_qps(text)
 
 
 def write_qps(name, G, a, C, l, u, xl, xu, objcst: float = 0.0) -> str:

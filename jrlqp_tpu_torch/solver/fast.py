@@ -1,6 +1,6 @@
 """Throughput GI engine: the f32 kernels plus f64 iterative refinement.
 
-Counterpart of :mod:`jrlqp_tpu.solver.fast` on five paths:
+Counterpart of :mod:`jrlqp_tpu.solver.fast` on six paths:
 
 - the main path ``solve_refined_kernel`` (``solve_refined_pallas(...,
   fused_init=True)``): the whole f32 solve in the fused kernel K1; with
@@ -19,6 +19,9 @@ Counterpart of :mod:`jrlqp_tpu.solver.fast` on five paths:
 - the rescue ``solve_refined_kernel_rescued``
   (``solve_refined_pallas_rescued``): the torch cold init and K3, then the
   f64 J/R engine (:mod:`.dense`) for the lanes that fail.
+- the compacted solve ``solve_refined_kernel_compacted``
+  (``solve_refined_pallas_compacted``): the torch cold init and K3 to a
+  reduced cap, then K3 again on the lanes that hit it.
 
 The kernels (:mod:`jrlqp_tpu_torch.ops.cuda.gi_kernel`) produce the
 explicit operators H = G^-1 (I - N N*) and N*; a few steps of
@@ -92,7 +95,8 @@ from .state import GIResult
 
 __all__ = ["FastState", "WarmCarry", "solve_refined_kernel",
            "solve_refined_warm_kernel", "solve_refined_kernel_carry",
-           "solve_refined_kernel_compact", "solve_refined_kernel_rescued",
+           "solve_refined_kernel_compact", "solve_refined_kernel_compacted",
+           "solve_refined_kernel_rescued",
            "fast_iteration", "solve_refined", "solve_fast", "solve_fast_warm"]
 
 
@@ -713,6 +717,53 @@ def solve_refined_kernel_compact(pbs: QPProblem,
     init falls back to the XLA init at pack 1, fast.py:725-734). A CPU
     batch runs K9's plain version."""
     return _solve_refined_from_init(pbs, opt, ir_steps, run_loop_compact)
+
+
+def _lanes(st: FastState, idx: torch.Tensor) -> FastState:
+    """The lanes ``idx`` of a batched state."""
+    return FastState(**{f.name: getattr(st, f.name)[idx]
+                        for f in dataclasses.fields(FastState)})
+
+
+def solve_refined_kernel_compacted(pbs: QPProblem,
+                                   opt: SolverOptions = SolverOptions(),
+                                   ir_steps: int = 3,
+                                   phase1_frac: float = 0.45) -> GIResult:
+    """Two-phase kernel solve with mid-solve compaction (counterpart of
+    ``solve_refined_pallas_compacted``, fast.py:1119-1168).
+
+    Phase 1 is the torch cold init and the loop in K3 up to the cap
+    ``max(1, min(int(max_iter * phase1_frac), max_iter))``. The lanes that
+    end it MAX_ITER_REACHED are gathered with their whole kernel state
+    (K = [H | N*^T], x, u, status, aorder, q, the pending candidate skip1 /
+    sc_idx / sc_status and the init-time hscale), and phase 2 runs K3
+    again on those lanes alone, RUNNING, with the full budget; they are
+    scattered back and the batch is refined ``ir_steps`` times. K3
+    rebuilds a pending candidate's normal at entry, so every lane ends as
+    in one launch of ``solve_refined_kernel(..., fused_init=False)``: the
+    same status and iterations. The sub-batch is exactly the unfinished
+    lanes: the JAX package's power-of-two padding only bounds its
+    compiles. A CUDA batch runs K3, a CPU batch its plain version."""
+    phase1 = max(1, min(int(opt.max_iter * phase1_frac), opt.max_iter))
+    pb32 = pbs.with_dtype(torch.float32)
+    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+    st = _state_from_kernel_out(
+        run_loop(pb32, _init_fast(pb32, opt32), phase1), pbs.batch)
+    idx = torch.nonzero(st.term == MAX_ITER_REACHED)[:, 0]
+    if phase1 < opt.max_iter and idx.numel():
+        sub = _lanes(st, idx)
+        sub = dataclasses.replace(sub, term=torch.full_like(sub.term,
+                                                            RUNNING))
+        fin = _state_from_kernel_out(
+            run_loop(pb32._map(lambda t: t[idx]), sub, opt.max_iter),
+            idx.numel())
+        merged = {}
+        for f in dataclasses.fields(FastState):
+            full = getattr(st, f.name).clone()
+            full[idx] = getattr(fin, f.name)
+            merged[f.name] = full
+        st = FastState(**merged)
+    return _refine_batch(pbs, st, ir_steps)
 
 
 def _batch_kkt(pbs: QPProblem, x, multipliers) -> torch.Tensor:

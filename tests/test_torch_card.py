@@ -2,7 +2,8 @@
 PyTorch versions on the same card; the launch counts of the structured
 path, the compact-slot path, the trajectory capture and the rescue; the
 box solve, the sharded solve on one card and K3 at the corpus's largest
-bucket; the default device; and the numpy batch generators that the CPU
+bucket; K1 at the size sweep's largest row, the compacted solve and the
+harness's kernel rows; the default device; and the numpy batch generators that the CPU
 tests share.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -27,9 +28,11 @@ from jrlqp_tpu_torch import (
     solve_batch,
     solve_box,
     solve_refined_kernel_compact,
+    solve_refined_kernel_compacted,
     solve_refined_kernel_rescued,
     stack_problems,
 )
+from jrlqp_tpu_torch.bench import bench_warm_start_trajectory, time_batch
 from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
 from jrlqp_tpu_torch.parallel import make_mesh, solve_sharded
 from jrlqp_tpu_torch.solver import fast
@@ -1029,3 +1032,107 @@ def test_rescued_corpus_bucket_on_card(cuda_device):
     assert float(resid.max()) <= 1e-8
     ref = solve_refined_kernel_rescued(pb, opt)
     assert torch.equal(res.status.cpu(), ref.status)
+
+
+def _assert_same_set_scaled(ours, ref, tol=1e-4):
+    """The same active constraints per lane, in any slot order; x, H and,
+    with the slots put in constraint order, u and the rows of N* within
+    tol * max(1, |lane|)."""
+    so, sr = ours["aorder"].sort(dim=1), ref["aorder"].sort(dim=1)
+    assert torch.equal(so.values, sr.values), "aorder as a set"
+    active = sr.values >= 0
+
+    def by_constraint(d, srt, k):
+        v = d[k]
+        if k == "u":
+            return torch.where(active, v.gather(1, srt.indices), 0)
+        idx = srt.indices[:, :, None].expand(-1, -1, v.shape[2])
+        return torch.where(active[:, :, None], v.gather(1, idx), 0)
+
+    for k in ("x", "H", "u", "Ns"):
+        a, b = ((by_constraint(ours, so, k), by_constraint(ref, sr, k))
+                if k in ("u", "Ns") else (ours[k], ref[k]))
+        err = (a - b).abs().flatten(1).amax(dim=1)
+        mag = b.abs().flatten(1).amax(dim=1).clamp_min(1.0)
+        assert float((err / mag).max()) <= tol, k
+
+
+@pytest.mark.cuda
+def test_gi_fused_kernel_at_the_size_sweep_top(cuda_device):
+    # K1 at n = 100, m = 200, the largest row of the harness's size sweep:
+    # one block per SM. Against its plain version on 256 lanes: the same
+    # status, iterations and active set on every lane. Among 200
+    # constraints two violations can tie within f32 rounding, and the two
+    # versions' sums then add them in the other order (one lane of 256 in
+    # each of three seeds on an H100, at an iteration past 100); so the
+    # activation order may differ on at most 1% of the lanes, and the
+    # per-slot state (u, the rows of N*) is compared with its slots in
+    # constraint order. x, H, u and N* within 1e-4 x max(1, |lane|).
+    lib = gi_kernel._build.library()
+    smem = lib.jrlqp_gi_smem_bytes(gi_kernel._round_up(101, 8), 200)
+    assert smem <= gi_kernel._SMEM_LIMIT
+    assert gi_kernel.residency("jrlqp_gi_fused", 100, 200)[1] >= 1
+    B = 256
+    pb = _f32_problem(np_qp_batch(100, B, 100, 200, 0.3), cuda_device)
+    before = gi_kernel.launches
+    ours = gi_kernel.run_loop_fused(pb, 500)
+    torch.cuda.synchronize()
+    assert gi_kernel.launches == before + 1
+    ref = gi_kernel.gi_fused_plain(pb, 500)
+    for k in ("term", "it", "q", "status"):
+        assert torch.equal(ours[k], ref[k]), k
+    assert int((ours["aorder"] != ref["aorder"]).any(dim=1).sum()) <= B // 100
+    _assert_same_set_scaled(ours, ref)
+    assert float((ours["term"] == 0).double().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_compacted_solve_matches_one_k3_launch(cuda_device):
+    # the compacted solve (K3 to 67 of 150 iterations, then K3 on the lanes
+    # that hit the cap) against one K3 launch (fused_init=False) on 1024
+    # lanes of the headline width: the same status, iterations and active
+    # set on every lane, x within 1e-9
+    pb = problem_from_numpy(**np_qp_batch(150, 1024, 50, 100, 0.3),
+                            device=cuda_device)
+    opt = SolverOptions(max_iter=150)
+    before = _launches()
+    res = solve_refined_kernel_compacted(pb, opt, phase1_frac=0.45)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(), before)] == [0, 2, 0, 0]
+    ref = fast.solve_refined_kernel(pb, opt, fused_init=False)
+    assert torch.equal(res.status, ref.status)
+    assert torch.equal(res.iterations, ref.iterations)
+    assert torch.equal(res.active_set, ref.active_set)
+    torch.testing.assert_close(res.x, ref.x, rtol=0, atol=1e-9)
+    assert int((res.iterations > 67).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,count", [("pallas", "launches"),
+                                          ("pallas_rescued",
+                                           "loop_launches")])
+def test_time_batch_pallas_rows_launch_their_kernel(cuda_device, solver,
+                                                    count):
+    # a warm-up call and n_rep timed calls, each one launch of the kernel
+    pb = problem_from_numpy(**np_qp_batch(7, 256, 20, 40, 0.3),
+                            device=cuda_device)
+    before = getattr(gi_kernel, count)
+    row = time_batch("t", pb, SolverOptions(max_iter=150), solver=solver,
+                     n_rep=2)
+    assert getattr(gi_kernel, count) == before + 3
+    assert row.kkt_pass_rate >= 0.99 and row.max_kkt_residual <= 1e-8
+    assert row.wall_s > 0
+
+
+@pytest.mark.cuda
+def test_warm_start_trajectory_runs_k4_steps(cuda_device):
+    # the "pallas" trajectory: one cold K1 step and steps - 1 K4 steps for
+    # the warm run, a K1 solve per step for the cold one
+    before = _launches()
+    row = bench_warm_start_trajectory(n=20, m=40, steps=4, batch=256,
+                                      solver="pallas", time_window=3,
+                                      device=cuda_device)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(), before)] == [5, 0, 3, 0]
+    assert row["warm_success"] >= 0.99 and row["cold_success"] >= 0.99
+    assert row["warm_mean_it"] < row["cold_mean_it"]

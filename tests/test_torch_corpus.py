@@ -73,8 +73,8 @@ def test_read_qps_engines(tmp_path):
     p.write_text(QPTEST)
     _assert_qps_equal(tio.read_qps(str(p), engine="python"),
                       tio.read_qps(str(p)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tio.read_qps(str(p), engine="native")
+    _assert_qps_equal(tio.read_qps(str(p), engine="native"),
+                      tio.read_qps(str(p), engine="python"))
     with pytest.raises(ValueError, match="unknown engine"):
         tio.read_qps(str(p), engine="rust")
 

@@ -1,6 +1,7 @@
 """The port's foundation: enums, options, the numpy carry-over, the device
 dispatch rule, and its independence from JAX."""
 import dataclasses
+import io
 import pathlib
 import re
 import subprocess
@@ -73,7 +74,9 @@ def test_importing_port_loads_no_jax():
             "jrlqp_tpu_torch.structured, jrlqp_tpu_torch.ops.linalg, "
             "jrlqp_tpu_torch.io, jrlqp_tpu_torch.parallel, "
             "jrlqp_tpu_torch.parallel.distributed, "
-            "jrlqp_tpu_torch.solver.box_single, jrlqp_tpu_torch.solver.mixed; "
+            "jrlqp_tpu_torch.solver.box_single, jrlqp_tpu_torch.solver.mixed, "
+            "jrlqp_tpu_torch.bench, jrlqp_tpu_torch.io.ikmat, "
+            "jrlqp_tpu_torch.io.native, jrlqp_tpu_torch.reference_impl; "
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jrlqp_tpu')))")
     out = subprocess.run([sys.executable, "-c", code, str(PKG.parent)],
@@ -113,6 +116,7 @@ def test_default_device_is_the_card():
                 xu=np.ones((1, 2)))
     blocks = dict(diag=np.eye(2)[None, None], off=np.zeros((1, 0, 2, 2)),
                   gtype=GType.TRI_BLOCK_DIAGONAL, blocks=np.ones((1, 1, 1, 2)))
+    from jrlqp_tpu_torch.bench import bench_box_single, bench_size_sweep
     from jrlqp_tpu_torch.io import run_corpus
     from jrlqp_tpu_torch.io.maros_meszaros import MAROS_MESZAROS
     from jrlqp_tpu_torch.parallel import make_mesh
@@ -125,6 +129,8 @@ def test_default_device_is_the_card():
         assert make_mesh().devices == tuple(
             torch.device("cuda", i) for i in range(torch.cuda.device_count()))
         assert run_corpus(qps_dir=qps_dir, entries=hs21)[0]["obj_ok"]
+        assert bench_size_sweep(sizes=(4,), batch=2,
+                                solver="pallas")[0].success_rate == 1.0
         return
     with pytest.raises((AssertionError, RuntimeError)):
         problem_from_numpy(**arrs)
@@ -134,6 +140,27 @@ def test_default_device_is_the_card():
         make_mesh()
     with pytest.raises((AssertionError, RuntimeError)):
         run_corpus(qps_dir=qps_dir, entries=hs21)
+    with pytest.raises((AssertionError, RuntimeError)):
+        bench_size_sweep(sizes=(4,), batch=2)
+    with pytest.raises((AssertionError, RuntimeError)):
+        bench_box_single(n=2, batch=2)
     assert problem_from_numpy(**arrs, device="cpu").G.device.type == "cpu"
     assert run_corpus(qps_dir=qps_dir, entries=hs21,
                       device="cpu")[0]["obj_ok"]
+
+
+def test_host_readers_and_spec_return_numpy():
+    # the IK and QPS readers, native or not, and the numpy spec make no
+    # tensor: nothing they return lands on a device
+    from jrlqp_tpu_torch.io import ikmat, native, read_qps
+    from jrlqp_tpu_torch.reference_impl import solve_np
+
+    qps = PKG.parent / "tests" / "data" / "qps" / "HS21.QPS"
+    for engine in ("python", "native"):
+        d = read_qps(str(qps), engine=engine)
+        assert all(isinstance(getattr(d, k), np.ndarray)
+                   for k in ("G", "a", "C", "l", "u", "xl", "xu"))
+    assert isinstance(ikmat.read_mat(io.StringIO("1 2\n3 4\n")), np.ndarray)
+    assert isinstance(native.parse_mat_native("1 2\n3 4\n"), np.ndarray)
+    res = solve_np(np.eye(2), np.ones(2), np.ones((1, 2)), [-1.0], [1.0])
+    assert isinstance(res.x, np.ndarray) and res.status == 0
