@@ -100,6 +100,16 @@ width (9 robots x 43 dof, n=387, m=36):
    QPS reader (built in phase 1) against the Python one on the vendored files. The kernel rows are gated where
    PERF.md section 2 gates the configuration and must show their kernel's
    launches; the other rows print their rates ungated.
+20. the missed lanes: every lane of ``tests/data/missed_lanes_port.npz``
+   (the lanes the port's kernels or their plain versions miss on the card,
+   from ``python3 -m jrlqp_tpu_torch.testing.miss_census``) and of
+   ``tests/data/missed_lanes_jax.npz`` (the lanes the JAX package misses on
+   its own draws) solved alone by its path's kernel (K1, K3 or K9) and the
+   kernel's plain version, each held to its recorded status, iterations,
+   pass or fail and active set; the main path's missed lanes of phase 4
+   held to the census's (the same lanes, the same arrays); one line with
+   the counts per set and how many lanes each package passes of the
+   other's misses.
 
 Every kernel's line in the JSON record carries ``bound_ms``, the least time
 the card could take for the kernel's work on this run's inputs: the larger
@@ -161,6 +171,10 @@ OBS_BATCH, SJR_BATCH = 256, 256
 BOX_BATCH, BOX_N = 16384, 16  # the box benchmark (harness.py:375-407)
 DEC_NB, DEC_S = 9, 48       # bench_decompositions' default chain
 SWEEP_SIZES = (10, 25, 50, 75, 100)  # bench_size_sweep's n, at m = 2n
+# phase 20's lanes, written by the miss census (tests/missed_lanes_census.py)
+MISSED_LANE_FILES = {w: os.path.join(ROOT, "tests", "data",
+                                     f"missed_lanes_{w}.npz")
+                     for w in ("port", "jax")}
 # the vendored corpus (tests/test_corpus.py:137-140) and the synthesized
 # large buckets, (n, n_ineq, n_strong_active, bounds, double_sided)
 # (tests/test_corpus.py:184-190), drawn with numpy seed 7 as that test does
@@ -304,6 +318,7 @@ def main() -> int:
     from jrlqp_tpu_torch.bench import harness
     from jrlqp_tpu_torch.io import native, read_qps
     from jrlqp_tpu_torch.types import MAX_ITER_REACHED
+    from jrlqp_tpu_torch.testing import miss_census
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -548,7 +563,15 @@ def main() -> int:
     # run inside K1's prologue, so its count stays 0 here
     print(f"main path launches: {main_counts}")
     _require(main_counts["gi_fused"] > 0, "main path did not launch K1")
-    rate, max_kkt, _ = gate("main path", res, pbs)
+    rate, max_kkt, passed4 = gate("main path", res, pbs)
+    # phase 20 holds these lanes to the census's record of the same draws
+    missed4 = torch.nonzero(~passed4)[:, 0].tolist()
+    census_lanes = {miss_census.lane_id(r): r for r in
+                    miss_census.load_lanes(MISSED_LANE_FILES["port"])[0]
+                    if r["set"] == "headline" and r["seed"] == SEED}
+    arrays4 = {r["lane"]: {k: getattr(pbs, k)[r["lane"]].cpu().numpy()
+                           for k in miss_census.ARRAYS}
+               for r in census_lanes.values()}
     mean_it = float(res.iterations.double().mean())
     max_it = int(res.iterations.max())
     print(f"main path: batch {BATCH}, n={N}, m={M}: KKT<=1e-8 & "
@@ -1847,6 +1870,55 @@ def main() -> int:
                       "bitwise_equal": True, "build": native.build_info}))
     t19 = time.perf_counter() - t19
     print(json.dumps({"phase": 19, "wall_s": t19}))
+
+    # ---- phase 20: the missed lanes of both packages ----
+    t20 = time.perf_counter()
+    k1_missed = sorted(r["lane"] for r in census_lanes.values()
+                       if not r["outcomes"]["kernel_card"]["passed"])
+    _require(missed4 == k1_missed,
+             f"main path misses lanes {missed4}, the census {k1_missed}")
+    for r in census_lanes.values():
+        for k in miss_census.ARRAYS:
+            _require(np.array_equal(arrays4[r["lane"]][k], r["arrays"][k]),
+                     f"{miss_census.lane_id(r)}: {k} is not phase 4's draw")
+    reset_counts()
+    per_set, cross = {}, {}
+    brief = ("status", "iterations", "passed")
+    for which, path in MISSED_LANE_FILES.items():
+        lanes20 = miss_census.load_lanes(path)[0]
+        for r in lanes20:
+            got = miss_census.solve_alone(r, dev)
+            for w in ("kernel", "plain"):
+                want = r["outcomes"][f"{w}_card_alone"]
+                _require(miss_census.same_outcome(got[w], want),
+                         f"{which} lane {miss_census.lane_id(r)}: {w} gives "
+                         f"{[got[w][k] for k in brief]}, recorded "
+                         f"{[want[k] for k in brief]}")
+            key = f"{which}:{r['set']}"
+            per_set[key] = per_set.get(key, 0) + 1
+        # port-missed lanes the JAX kernel passes, JAX-missed lanes the
+        # card's kernel passes (each lane alone)
+        if which == "port":
+            missed = [r for r in lanes20 if "kernel_card" in r["missed_by"]]
+            other = "jax_pallas_alone"
+        else:
+            missed = [r for r in lanes20 if "jax_pallas" in r["missed_by"]]
+            other = "kernel_card_alone"
+        cross[which] = [len(missed), sum(r["outcomes"][other]["passed"]
+                                         for r in missed)]
+    c20 = counts()
+    torch.cuda.synchronize()
+    for k in ("gi_fused", "gi_loop", "gi_compact"):
+        _require(c20[k] > 0, f"phase 20 did not launch {k}")
+    print(json.dumps({
+        "phase": 20, "lanes_per_file_and_set": per_set,
+        "launches": c20, "all_outcomes_as_recorded": True,
+        "main_path_missed_lanes": missed4,
+        "port_kernel_missed, of them passed by the JAX kernel":
+            cross["port"],
+        "jax_kernel_missed, of them passed by the card's kernel":
+            cross["jax"],
+        "wall_s": time.perf_counter() - t20, "card": card}))
 
     src = "jrlqp_tpu_torch/csrc/gi_kernel.cu"
     pallas = "jrlqp_tpu/ops/pallas/gi_kernel.py"

@@ -15,7 +15,12 @@ solve_refined_kernel_rescued`, ``"refined"`` the torch-loop engine
 :func:`~jrlqp_tpu_torch.solver.fast.solve_refined`, ``"mixed"``
 :func:`~jrlqp_tpu_torch.solver.mixed.solve_mixed` and ``"f64"`` the J/R
 engine :func:`~jrlqp_tpu_torch.solver.dense.solve_batch`; another name
-raises. Every function draws its problems on ``device`` (the card unless
+raises. ``"pallas"`` and the cold baseline of the warm trajectory run
+``solve_refined_kernel`` with its default ``fused_init=True`` (K1), where
+the JAX rows they mirror run ``solve_refined_pallas`` with its default
+``fused_init=False`` (the XLA init, then the loop kernel), so the two
+packages' rows of one name time different kernels
+(``jrlqp_tpu_torch/PARITY.md``). Every function draws its problems on ``device`` (the card unless
 the caller names another): ``random_qp_batch`` with a ``torch.Generator``
 seeded from ``seed`` there, or the JAX harness's numpy draws where it made
 them with numpy. A CUDA batch runs the kernels, a CPU batch their plain

@@ -3,21 +3,28 @@ an H100 (``tests/data/main_path_lane_11415.npz``: lane 11415 of
 ``random_qp_batch`` at seed 0, batch 16384, n=50, m=100, act_frac 0.3, as
 ``chip_smoke.py`` draws it, saved from the card with numpy).
 
-Verdict: a fault of the port's kernel on the card, not of the reference.
 On the CPU the JAX package passes the lane (the fused Pallas kernel in
 interpret mode and ``solve_refined``), and so does the port's plain main
 path: SUCCESS after 60 iterations, KKT residual under 1e-12. K1 on the
 card takes a 61st iteration: constraint 95 has a slack of +8.9e-7 at the
-60-iteration solution (about 4 f32 ulps of C x = 3.22), the kernel's f32
-sums see it violated and activate it at its lower bound, it comes out with
-a multiplier of 3.6e-7 of the wrong sign, and the f64 refinement of that
+f64 solution (3.7 f32 ulps of C x = 3.22), the kernel's f32 sums see it
+violated and activate it at its lower bound, it comes out with a
+multiplier of 3.6e-7 of the wrong sign, and the f64 refinement of that
 active set stalls at a KKT residual of 7.0e-8, over the 1e-8 gate,
-whatever ``ir_steps``. The card's side of this is
-``test_main_path_lane_on_card`` in ``tests/test_torch_card.py``, expected
-to fail: K1 and its plain version take the same path here and differ only
-in rounding, and every variant of K1's sums that passes this lane fails
-another one (PERF.md, section 6). ``solve_refined_kernel_rescued`` repairs
-such a lane."""
+whatever ``ir_steps``.
+
+Verdict: a shared f32 deviation, not a fault of the port. The miss census
+(``tests/missed_lanes_census.py``; ``tests/test_torch_missed_lanes.py``
+holds its lanes) saves every lane that either package misses on the
+headline set and solves it by the other: on 131,072 lanes each
+(seeds 0-7) K1 misses 10 of the card's draws and the JAX package's fused
+kernel 8 of its own; each passes about half of the other's misses and
+misses the rest the same way. This lane parts on a near-tie (3.7 ulps,
+within the 16 f32 ulps that the census calls a tie); the lanes where K1
+misses beyond a tie are an open item of ROADMAP queue 3. The card's side
+of this lane is the ``main-path-lane-11415-gate`` case of
+``test_missed_lane_on_card`` in ``tests/test_torch_card.py``, expected to
+fail. ``solve_refined_kernel_rescued`` repairs such a lane."""
 import pathlib
 
 import jax
