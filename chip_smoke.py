@@ -109,7 +109,13 @@ width (9 robots x 43 dof, n=387, m=36):
    pass or fail and active set; the main path's missed lanes of phase 4
    held to the census's (the same lanes, the same arrays); one line with
    the counts per set and how many lanes each package passes of the
-   other's misses.
+   other's misses; and K1's per-operation split on the three lanes of
+   queue 3d (``jrlqp_tpu_torch.testing.op_split``): its states at the
+   census's caps taken again on the card and held to
+   ``tests/data/split_states_card.npz`` bit for bit, each iteration
+   replayed in K1's order and held to the next state, and the deciding
+   slack's error at the parting split into the dot's own rounding, the x
+   error inherited from the previous vertex, and what the last step added.
 
 Every kernel's line in the JSON record carries ``bound_ms``, the least time
 the card could take for the kernel's work on this run's inputs: the larger
@@ -175,6 +181,14 @@ SWEEP_SIZES = (10, 25, 50, 75, 100)  # bench_size_sweep's n, at m = 2n
 MISSED_LANE_FILES = {w: os.path.join(ROOT, "tests", "data",
                                      f"missed_lanes_{w}.npz")
                      for w in ("port", "jax")}
+# the card's kernel states around each of its slack partings
+# (miss_census --states), and the three lanes of queue 3d whose split
+# phase 20 prints from this run's own states
+SPLIT_STATES_FILE = os.path.join(ROOT, "tests", "data",
+                                 "split_states_card.npz")
+SPLIT_3D_LANES = (("port", "headline-3-9615"),
+                  ("port", "size_sweep-0-n100-6448"),
+                  ("jax", "headline-6-13413"))
 # the vendored corpus (tests/test_corpus.py:137-140) and the synthesized
 # large buckets, (n, n_ineq, n_strong_active, bounds, double_sided)
 # (tests/test_corpus.py:184-190), drawn with numpy seed 7 as that test does
@@ -318,7 +332,7 @@ def main() -> int:
     from jrlqp_tpu_torch.bench import harness
     from jrlqp_tpu_torch.io import native, read_qps
     from jrlqp_tpu_torch.types import MAX_ITER_REACHED
-    from jrlqp_tpu_torch.testing import miss_census
+    from jrlqp_tpu_torch.testing import miss_census, op_split
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1906,6 +1920,45 @@ def main() -> int:
             other = "kernel_card_alone"
         cross[which] = [len(missed), sum(r["outcomes"][other]["passed"]
                                          for r in missed)]
+    # K1's per-operation split on the lanes of queue 3d: its states at the
+    # census's caps, taken again on this card and held to the committed
+    # ones bit for bit, each iteration replayed in K1's order and held to
+    # the next state, the deciding slack's error split at the parting
+    saved = {(r["file"], r["lane"]): r
+             for r in miss_census.load_lanes(SPLIT_STATES_FILE)[0]}
+    split3d = {}
+    for which, lane in SPLIT_3D_LANES:
+        rec = next(r for r in miss_census.load_lanes(
+            MISSED_LANE_FILES[which])[0] if miss_census.lane_id(r) == lane)
+        caps = [int(c) for c in saved[(which, lane)]["caps"]]
+        traj = miss_census.trajectory(rec["path"], miss_census.lane_problem(
+            rec, dev), rec["max_iter"], caps, full=True)
+        for k, v in saved[(which, lane)]["states"].items():
+            _require(np.array_equal(traj[k], v),
+                     f"split states of {lane}: {k} differs from the card's "
+                     f"committed states")
+        d = op_split.f32_data(rec["arrays"])
+        for i in range(len(caps) - 1):
+            if caps[i + 1] == caps[i] + 1:
+                st, nxt = op_split.states_at(traj, caps, caps[i:i + 2])
+                _require(op_split.same_next(op_split.k1_iteration(st, d),
+                                            nxt),
+                         f"{lane}: K1's replay of cap {caps[i]} differs")
+        lo = rec["verdict"]["iteration"] - 1
+        window = op_split.vertex_window(traj, caps, lo)
+        got = op_split.split_at_parting(
+            d, op_split.states_at(traj, caps, window),
+            rec["verdict"]["constraint"])
+        last = got["ops"][-2]
+        split3d[lane] = {
+            "caps": [window[0], lo], "replayed": got["replayed"],
+            "parts_ulps": {k: round(v, 3) for k, v in got["split"].items()},
+            "own_rounding_ulps": {
+                "slack": round(got["ops"][-1]["slack"], 3),
+                **{k: round(last[k], 3) for k in (
+                    "z", "t1", "t2", "x_update", "rank_one") if k in last}}}
+    print(json.dumps({"phase": 20, "k1_split_on_3d_lanes": split3d,
+                      "card": card}))
     c20 = counts()
     torch.cuda.synchronize()
     for k in ("gi_fused", "gi_loop", "gi_compact"):

@@ -2,6 +2,8 @@
 
     python3 -m jrlqp_tpu_torch.testing.miss_census --out PATH
     python3 -m jrlqp_tpu_torch.testing.miss_census --jax-lanes PATH --out PATH
+    python3 -m jrlqp_tpu_torch.testing.miss_census --states port=PATH jax=PATH \
+        --out PATH
 
 Without ``--jax-lanes`` it draws each set of :data:`SETS` on the card as
 ``chip_smoke.py`` draws it, solves it by the set's kernel path (K1 for the
@@ -25,6 +27,12 @@ With ``--jax-lanes PATH`` it reads a file of the same layout (the lanes the
 JAX package misses, ``tests/data/missed_lanes_jax.npz``), solves each lane
 alone on the card by its path's kernel and plain version, and writes their
 outcomes and the kernel's trajectory into ``--out``.
+
+With ``--states`` it reads the files of lanes named and, for each lane
+where the card's kernel parts from the JAX kernel on a slack, keeps the
+kernel's whole state at the caps of :func:`split_caps` (the repo keeps
+them as ``tests/data/split_states_card.npz``), from which
+``testing.op_split`` replays and splits each iteration.
 
 Runs on the card; without one it raises. Each set's counts are printed as
 one JSON line.
@@ -112,10 +120,14 @@ def solve_path(path: str, pbs: QPProblem, max_iter: int, ir_steps: int,
                                          _loop(path, plain))
 
 
-def trajectory(path: str, pb: QPProblem, max_iter: int, caps) -> dict:
+def trajectory(path: str, pb: QPProblem, max_iter: int, caps,
+               full: bool = False) -> dict:
     """A path's f32 loop on one lane at each iteration cap of ``caps`` (the
     kernel on the card, its plain version on the CPU): {status (T, m+n)
-    int8, x (T, n) f32, q, it, term (T,) int32}."""
+    int8, x (T, n) f32, q, it, term (T,) int32}; with ``full`` also the
+    rest of the state at each cap, as ``testing.op_split`` takes it: H and
+    N* (T, n, n) f32 (N*'s rows are the slots), u (T, n), aorder (T, n)
+    int32, skip1, sc_idx, sc_status (T,) int32 and hscale (T,) f32."""
     pb32 = pb.with_dtype(torch.float32)
     run = _loop(path)
     if path == "K1":
@@ -124,11 +136,21 @@ def trajectory(path: str, pb: QPProblem, max_iter: int, caps) -> dict:
         state0 = fast._init_fast(pb32, SolverOptions(max_iter=max_iter).with_(
             dtype=torch.float32, zero_z_threshold=1e-6))
         outs = [run(pb32, state0, c) for c in caps]
-    return {"status": np.stack([o["status"][0].cpu().numpy().astype(np.int8)
-                                for o in outs]),
-            "x": np.stack([o["x"][0].cpu().numpy() for o in outs]),
-            **{k: np.array([int(o[k].reshape(-1)[0]) for o in outs],
-                           np.int32) for k in ("q", "it", "term")}}
+    ints = ("q", "it", "term") + (("skip1", "sc_idx", "sc_status") if full
+                                  else ())
+    got = {"status": np.stack([o["status"][0].cpu().numpy().astype(np.int8)
+                               for o in outs]),
+           "x": np.stack([o["x"][0].cpu().numpy() for o in outs]),
+           **{k: np.array([int(o[k].reshape(-1)[0]) for o in outs],
+                          np.int32) for k in ints}}
+    if full:
+        for k, dt in (("H", np.float32), ("Ns", np.float32),
+                      ("u", np.float32), ("aorder", np.int32)):
+            got[k] = np.stack([o[k][0].cpu().numpy().astype(dt)
+                               for o in outs])
+        got["hscale"] = np.array([float(o["hscale"].reshape(-1)[0])
+                                  for o in outs], np.float32)
+    return got
 
 
 def outcomes(res, pbs: QPProblem) -> list[dict]:
@@ -174,6 +196,50 @@ def kernel_trajectory(rec: dict, device) -> dict:
     caps = range(0, min(last + 1, rec["max_iter"]) + 1)
     return trajectory(rec["path"], lane_problem(rec, device),
                       rec["max_iter"], caps)
+
+
+# ---- the card's own states around each parting, for op_split ----
+
+WINDOW = 6          # caps before a parting's last shared state
+
+
+def split_caps(rec: dict) -> list[int]:
+    """The caps whose whole state :func:`card_states` keeps for a lane
+    whose card kernel parts from the JAX kernel on a slack (its
+    ``verdict``): the last shared state lo and the ``WINDOW`` before it;
+    and, where the lane's ``verdict_stages`` follows the port's error
+    back, every cap of that range (from the cap where the port's error
+    stays above the JAX kernel's)."""
+    v = rec.get("verdict") or {}
+    if not str(v.get("kind", "")).startswith("select: slack"):
+        return []
+    lo = v["iteration"] - 1
+    caps = set(range(max(0, lo - WINDOW), lo + 1))
+    stages = rec.get("verdict_stages") or {}
+    start = stages.get("port_above_from_cap")
+    if start is not None:
+        caps |= set(range(start, lo + 1))
+    return sorted(caps)
+
+
+def card_states(lane_files: dict, device) -> list[dict]:
+    """For every lane of ``lane_files`` ({name: path}) with caps by
+    :func:`split_caps`, its path's kernel's whole state at those caps on
+    ``device``: {file, lane, path, caps, states}."""
+    out = []
+    for which, path in lane_files.items():
+        for rec in load_lanes(path)[0]:
+            caps = split_caps(rec)
+            if not caps:
+                continue
+            states = trajectory(rec["path"], lane_problem(rec, device),
+                                rec["max_iter"], caps, full=True)
+            out.append({"file": which, "lane": lane_id(rec),
+                        "path": rec["path"], "caps": np.array(caps, np.int32),
+                        "states": states})
+            print(json.dumps({"states": lane_id(rec), "file": which,
+                              "caps": caps}), flush=True)
+    return out
 
 
 # ---- the file: JSON for scalars, one array per key ----
@@ -301,6 +367,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True, help="the file to write")
     ap.add_argument("--jax-lanes", default=None,
                     help="a file of lanes to solve alone on the card")
+    ap.add_argument("--states", nargs="+", default=None, metavar="NAME=PATH",
+                    help="files of lanes whose kernel states to keep "
+                         "around each parting (split_caps)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("miss_census runs on a CUDA card; none is visible")
@@ -311,6 +380,10 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
+    if args.states:
+        files = dict(a.split("=", 1) for a in args.states)
+        save_lanes(args.out, card_states(files, device), {"card": card})
+        return 0
     if args.jax_lanes:
         lanes, summary = load_lanes(args.jax_lanes)
         card_outcomes(lanes, device)

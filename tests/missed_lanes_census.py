@@ -6,6 +6,8 @@ Run from the repo's root (this file is not a test)::
     python tests/missed_lanes_census.py --port
     python tests/missed_lanes_census.py --verdicts [--workers 3]
     python tests/missed_lanes_census.py --stages
+    python tests/missed_lanes_census.py --spread [--workers 4]
+    python tests/missed_lanes_census.py --split [--workers 6]
     python tests/missed_lanes_census.py --report
 
 ``--census`` draws each set of ``jrlqp_tpu_torch.testing.miss_census`` with
@@ -27,12 +29,31 @@ a parting within 16 ulps is a near-tie. It drops the kernel's trajectory
 from lanes where the card's kernel and the JAX kernel agree. ``--stages``
 follows each parting beyond 16 ulps in which the port misses back through
 the shared iterations: at each cap, how far each side's x and the deciding
-slack lie from the f64 iterate of the same active set. ``--report`` prints
-the census side by side.
+slack lie from the f64 iterate of the same active set.
+
+``--spread`` holds the JAX package against itself: on every lane of both
+files where its Pallas kernel and its XLA f32 loop (``_run_fast``, as
+``solve_refined`` calls it) end otherwise alone, the first parting of the
+two by the same bisection, written into the files as ``verdict_xla``; it
+prints each pairing with the JAX kernel (the XLA loop, the card's kernel,
+the port's plain path): partings, near-ties, partings beyond a tie by who
+misses, and the median deviation of each side's x along the deciding row.
+``--split`` splits the deciding error by operation
+(``jrlqp_tpu_torch.testing.op_split``): each side's iterations from its own
+f32 states (the card's from ``tests/data/split_states_card.npz``, written
+by ``miss_census --states`` on the card; the JAX kernel's by
+:func:`jax_capped`; the plain version's on the CPU) replayed in that
+side's order and held to its next state bit for bit, each operation's own
+rounding against f64 on the same inputs, the deciding slack's error split
+at every slack parting, and over the stage range of each lane the port
+misses beyond a tie. ``--report`` prints the census and the spread side by
+side.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
+import functools
 import multiprocessing
 import os
 import sys
@@ -47,9 +68,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from jrlqp_tpu import SolverOptions as JOptions  # noqa: E402
+from jrlqp_tpu.solver.fast import _run_fast  # noqa: E402
 from jrlqp_tpu.testing.batch_gen import random_qp_batch as j_random_qp_batch  # noqa: E402
 from jrlqp_tpu_torch import problem_from_numpy  # noqa: E402
 from jrlqp_tpu_torch.testing import miss_census as mc  # noqa: E402
+from jrlqp_tpu_torch.testing import op_split  # noqa: E402
 from test_torch_missed_lanes import (  # noqa: E402
     FILES,
     SOLVERS,
@@ -235,13 +258,8 @@ def _violations(rec: dict, x, f32_data: bool = True):
     """min(Cx - l, u - Cx) and min(x - xl, xu - x) per constraint in f64
     at x as given, on the f32-rounded data (or on the f64 data), with the
     scale |Cx| or |x| beside."""
-    a = _data(rec, np.float32 if f32_data else np.float64)
-    x = np.asarray(x, dtype=np.float64)
-    cx = a["C"] @ x
-    v = np.concatenate([np.minimum(cx - a["l"], a["u"] - cx),
-                        np.minimum(x - a["xl"], a["xu"] - x)])
-    scale = np.concatenate([np.abs(cx), np.abs(x)])
-    return v, scale
+    return op_split.violations(
+        _data(rec, np.float32 if f32_data else np.float64), x)
 
 
 def decide(rec: dict, prev: dict, nxt: dict, port_prev_x, port_next: dict
@@ -295,20 +313,6 @@ def decide(rec: dict, prev: dict, nxt: dict, port_prev_x, port_next: dict
     return out
 
 
-def _normal(rec: dict, a: dict, i: int, s: int):
-    """(signed normal, signed bound) of constraint ``i`` at status ``s``:
-    an upper side is negated."""
-    n, m = rec["n"], rec["m"]
-    upper = s in (2, 5)
-    row = a["C"][i] if i < m else np.eye(n)[i - m]
-    if i < m:
-        b = a["u"][i] if upper else a["l"][i]
-    else:
-        b = a["xu"][i - m] if upper else a["xl"][i - m]
-    sign = -1.0 if upper else 1.0
-    return sign * row, sign * b
-
-
 def _quantities(H, Ns, x, u, eligible, nplus, bp) -> dict:
     """z = H n+, r = N* n+; the step lengths t1 (partial: the least
     u_k / r_k over the eligible slots with r_k > 0) and t2 (full); nz =
@@ -326,27 +330,16 @@ def _iterate64(rec: dict, status):
     """(H, N*, x, u) in f64 on the f32-rounded data of the active set
     ``status`` alone: x and u of its equality-constrained minimizer, and
     the eligible slots (not equalities)."""
-    a = _data(rec)
-    act = np.nonzero(status != 0)[0]
-    rows = [_normal(rec, a, i, int(status[i])) for i in act]
-    N = np.array([r for r, _ in rows]).reshape(-1, rec["n"]).T
-    b = np.array([v for _, v in rows])
-    Gi = np.linalg.inv(a["G"])
-    if len(act):
-        Ns = np.linalg.solve(N.T @ Gi @ N, N.T @ Gi)
-        H = Gi - Gi @ N @ Ns
-    else:
-        Ns, H = np.zeros((0, rec["n"])), Gi
-    x = -H @ a["a"] + Ns.T @ b
-    u = Ns @ (a["G"] @ x + a["a"])
-    return H, Ns, x, u, ~np.isin(status[act], (3, 6))
+    it = op_split.iterate64(_data(rec), status)
+    return (it["H"], it["Ns"], it["x"], it["u"],
+            ~np.isin(np.asarray(status)[it["active"]], (3, 6)))
 
 
 def _exact(rec: dict, status, p: int, st: int) -> dict:
     """:func:`_quantities` of the active set ``status`` alone
     (:func:`_iterate64`) for the candidate p at status st."""
     return _quantities(*_iterate64(rec, status),
-                       *_normal(rec, _data(rec), p, st))
+                       *op_split.candidate_normal(_data(rec), p, st))
 
 
 def _f32_state(rec: dict, prev: dict, p: int, st: int) -> dict:
@@ -359,7 +352,7 @@ def _f32_state(rec: dict, prev: dict, p: int, st: int) -> dict:
                        prev["x"].astype(np.float64),
                        prev["u"].astype(np.float64),
                        (slot >= 0) & ~np.isin(kind, (3, 6)),
-                       *_normal(rec, _data(rec), p, st))
+                       *op_split.candidate_normal(_data(rec), p, st))
 
 
 def _candidate_of(rec: dict, prev: dict) -> tuple[int, int]:
@@ -651,6 +644,450 @@ def stages(workers: int) -> None:
         _save(w, lanes, summary)
 
 
+# ---- the reference's own spread: its Pallas kernel against its XLA loop ----
+
+@functools.partial(jax.jit, static_argnames="opt")
+def _xla_loop(pbs, opt):
+    return jax.vmap(lambda p: _run_fast(p.with_dtype(jnp.float32), opt))(pbs)
+
+
+def xla_capped(rec: dict, cap: int) -> dict:
+    """The JAX package's XLA f32 loop (``_run_fast``, compact slots) on the
+    lane alone, stopped after ``cap`` iterations, as ``solve_refined``
+    calls it under ``vmap``; numpy arrays."""
+    opt32 = JOptions(max_iter=cap).with_(dtype=jnp.float32,
+                                         zero_z_threshold=1e-6)
+    st = _xla_loop(jax_problem(lane_arrays(rec)), opt32)
+    return {f.name: np.asarray(getattr(st, f.name))[0]
+            for f in dataclasses.fields(st)}
+
+
+def _rename(v: dict, old: str, new: str) -> dict:
+    return {k.replace(old, new): val for k, val in v.items()}
+
+
+def _spread_job(item):
+    """(which, lane, the first parting of the JAX kernel and the XLA loop or
+    None where their outcomes agree, whether the uncapped XLA loop gives
+    ``jax_solve_refined_alone``'s iterations and active set)."""
+    which, lane = item
+    _setup_jax()
+    rec = next(r for r in _load(which)[0] if mc.lane_id(r) == lane)
+    o = rec["outcomes"]
+    j, s = o["jax_pallas_alone"], o["jax_solve_refined_alone"]
+    full = xla_capped(rec, rec["max_iter"])
+    same_run = bool(int(full["it"]) == s["iterations"] and np.array_equal(
+        full["status"] != 0, s["active_set"] != 0))
+    v = None
+    if not mc.same_outcome(j, s):
+        last = min(max(j["iterations"], s["iterations"]) + 1, rec["max_iter"])
+        v = _rename(first_parting(rec, lambda c: xla_capped(rec, c), last,
+                                  {j["iterations"], s["iterations"]}),
+                    "port", "xla")
+        v["near_tie"] = bool(v["ulps"] <= NEAR_TIE_ULPS)
+    print(which, lane, same_run, v, flush=True)
+    return which, lane, v, same_run
+
+
+def spread(workers: int) -> None:
+    """The first parting of the JAX package's Pallas kernel (the path's
+    flags) and its XLA loop on every lane of both files where their
+    outcomes alone differ, written into the files as ``verdict_xla``."""
+    items = [(w, mc.lane_id(r)) for w in FILES for r in _load(w)[0]]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as ex:
+        got = {(w, lane): (v, s) for w, lane, v, s in ex.map(_spread_job,
+                                                             items)}
+    bad = [k for k, (_, s) in got.items() if not s]
+    if bad:
+        raise RuntimeError(f"the capped XLA loop does not reproduce "
+                           f"solve_refined's outcome on {bad}")
+    for w in FILES:
+        lanes, summary = _load(w)
+        for rec in lanes:
+            rec.pop("verdict_xla", None)
+            v = got[(w, mc.lane_id(rec))][0]
+            if v is not None:
+                rec["verdict_xla"] = v
+        _save(w, lanes, summary)
+
+
+# (verdict key, the side held against the JAX kernel, its outcome alone,
+# the key of its deviations in the verdict)
+PAIRINGS = (("verdict_xla", "JAX XLA loop", "jax_solve_refined_alone", "xla"),
+            ("verdict", "K on the card", "kernel_card_alone", "port"),
+            ("verdict_cpu", "port plain, CPU", "port_plain_cpu_alone",
+             "port"))
+
+
+def spread_table() -> list[dict]:
+    """Per pairing with the JAX Pallas kernel, over both files: lanes
+    compared, partings, near-ties, partings beyond a tie by who misses,
+    and on the slack partings the median deviation of each side's x along
+    the deciding row (ulps of its |C x|)."""
+    recs = _load("port")[0] + _load("jax")[0]
+    rows = []
+    for key, name, side, dev in PAIRINGS:
+        got = [r for r in recs if key in r]
+        beyond = [r for r in got if not r[key]["near_tie"]]
+
+        def passed(r, w):
+            return r["outcomes"][w]["passed"]
+        slack = [r[key] for r in got if f"{dev}_deviation_ulps" in r[key]]
+        rows.append({
+            "pairing": f"JAX kernel vs {name}",
+            "lanes": sum(side in r["outcomes"] for r in recs),
+            "partings": len(got),
+            "near_ties": len(got) - len(beyond),
+            "beyond, the other misses": sorted(
+                mc.lane_id(r) for r in beyond if not passed(r, side)
+                and passed(r, "jax_pallas_alone")),
+            "beyond, the JAX kernel misses": sorted(
+                mc.lane_id(r) for r in beyond if passed(r, side)
+                and not passed(r, "jax_pallas_alone")),
+            "beyond, both miss": sorted(
+                mc.lane_id(r) for r in beyond if not passed(r, side)
+                and not passed(r, "jax_pallas_alone")),
+            "slack partings": len(slack),
+            "median deviation ulps (JAX kernel, other)": [
+                float(np.median([v["jax_deviation_ulps"] for v in slack])),
+                float(np.median([v[f"{dev}_deviation_ulps"] for v in slack]))]
+            if slack else None})
+    for row in rows:
+        print(_r(row))
+    return rows
+
+
+# ---- the per-operation split of the deciding error ----
+
+CARD_STATES = FILES["port"].parent / "split_states_card.npz"
+# the lanes of ROADMAP queue 3d and the reverse lanes (PERF.md section 6):
+# (file, lane, the verdict that parts)
+SPLIT_LANES = (("port", "headline-3-9615", "verdict"),
+               ("port", "size_sweep-0-n100-6448", "verdict"),
+               ("jax", "headline-6-13413", "verdict"),
+               ("jax", "headline-6-13413", "verdict_cpu"),
+               ("jax", "size_sweep-0-n100-3536", "verdict_cpu"),
+               ("jax", "size_sweep-0-n100-3525", "verdict_cpu"),
+               ("jax", "size_sweep-0-n100-5043", "verdict"),
+               ("jax", "size_sweep-0-n75-8518", "verdict"),
+               ("jax", "non_fused-0-11024", "verdict"),
+               ("jax", "size_sweep-0-n100-5043", "verdict_cpu"),
+               ("jax", "size_sweep-0-n75-8518", "verdict_cpu"),
+               ("jax", "non_fused-0-11024", "verdict_cpu"),
+               ("port", "headline-2-7532", "verdict_cpu"),
+               ("jax", "headline-7-1527", "verdict_cpu"))
+OPS = ("slack", "z", "t1", "t2", "x_update", "rank_one")
+PARTS = ("dot", "inherited", "x_update", "directions", "step_length",
+         "state")
+
+
+def _pack(rec: dict) -> int:
+    from jrlqp_tpu.ops.pallas import gi_kernel as gk
+    key = (gk._round_up(rec["n"] + 1, 8), gk._round_up(max(rec["m"], 1), 8))
+    return gk._PROVEN_PACK.get(key) or gk._auto_pack(*key)
+
+
+class JaxOrder:
+    """The JAX kernel's reductions (``_packed_iterate``, interpret mode on
+    the CPU): its ``_vecmat`` and ``_bmv`` on the padded operands of a pack
+    of ``P`` copies of the lane (``run_loop_pallas`` pads a batch of one
+    by wrapping), and ``jnp.sum`` of products over np slots; XLA on the
+    CPU contracts each update a - b c into one FMA. The interface of
+    ``op_split.K1Order``."""
+
+    fused = True
+
+    def __init__(self, rec: dict):
+        from jrlqp_tpu.ops.pallas import gi_kernel as gk
+        self.n, self.m, self.P = rec["n"], rec["m"], _pack(rec)
+        self.np = gk._round_up(self.n + 1, 8)
+        self.mp = gk._round_up(max(self.m, 1), 8)
+        self._vecmat = jax.jit(gk._vecmat)
+        self._bmv = jax.jit(gk._bmv)
+        self._sum = jax.jit(lambda a, b: jnp.sum(a * b, axis=1,
+                                                  keepdims=True))
+
+    def _tile(self, A, rows, cols):
+        out = np.zeros((self.P, rows, cols), np.float32)
+        out[:, :A.shape[0], :A.shape[1]] = A
+        return jnp.asarray(out)
+
+    def _vec(self, v):
+        out = np.zeros((self.P, self.np), np.float32)
+        out[:, :len(v)] = v
+        return jnp.asarray(out)
+
+    def dot(self, vec, A, which):
+        n, np_ = self.n, self.np
+        v = self._vec(np.asarray(vec, np.float32))
+        A = np.asarray(A, np.float32)
+        if which == "G^T":
+            return np.asarray(self._bmv(self._tile(A.T, np_, np_), v))[0, :n]
+        if which == "Ct":
+            return np.asarray(self._vecmat(v, self._tile(A, np_, self.mp))
+                              )[0, :self.m]
+        K = np.zeros((np_, 2 * np_), np.float32)
+        if which == "K":
+            K[:n, :n] = A[:, :n]
+            K[:n, np_:np_ + n] = A[:, n:]
+        else:
+            K[:n, np_:np_ + n] = A
+        zr = np.asarray(self._vecmat(v, self._tile(K, np_, 2 * np_)))[0]
+        right = zr[np_:np_ + n]
+        return np.concatenate([zr[:n], right]) if which == "K" else right
+
+    def sum(self, a, b):
+        return np.float32(np.asarray(self._sum(
+            self._vec(np.asarray(a, np.float32)),
+            self._vec(np.asarray(b, np.float32))))[0, 0])
+
+
+def _side_states(rec: dict, side: str, caps) -> list[dict]:
+    """Each side's whole state at ``caps``: "card" from the card's states
+    file, "jax" from :func:`jax_capped`, "plain" from the port's plain
+    version on the CPU."""
+    if side == "jax":
+        return [jax_capped(rec, c) for c in caps]
+    if side == "plain":
+        t = mc.trajectory(rec["path"], mc.lane_problem(rec, "cpu"),
+                          rec["max_iter"], caps, full=True)
+        return [{k: v[i] for k, v in t.items()} for i in range(len(caps))]
+    got = _card_record(rec)
+    idx = [int(np.flatnonzero(got["caps"] == c)[0]) for c in caps]
+    return [{k: v[i] for k, v in got["states"].items()} for i in idx]
+
+
+@functools.cache
+def _card_file() -> dict:
+    return {(r["file"], r["lane"]): r
+            for r in mc.load_lanes(str(CARD_STATES))[0]}
+
+
+def _card_record(rec: dict) -> dict:
+    return _card_file()[(rec["file"], mc.lane_id(rec))]
+
+
+def _order(rec: dict, side: str):
+    return {"card": op_split.K1Order, "plain": op_split.PlainOrder(
+        rec["n"], rec["m"])}.get(side) or JaxOrder(rec)
+
+
+def _replayable(rec: dict, side: str) -> bool:
+    """Whether ``op_split.gi_iteration`` replays this side's loop: the
+    hole-based loops (K1, K3, their plain versions, the JAX packed
+    kernels) and K9's adds, not the JAX pack-1 kernel (K9's counterpart,
+    another layout)."""
+    return not (rec["path"] == "K9" and side == "jax")
+
+
+def _vertex_window(rec: dict, lo: int) -> list[int]:
+    """The caps from the previous vertex (skip1 = 0) before ``lo`` to
+    ``lo``, found on the JAX kernel's shared states."""
+    c = lo - 1
+    while c > 0 and int(jax_capped(rec, c)["skip1"]):
+        c -= 1
+    return list(range(max(c, 0), lo + 1))
+
+
+def split_lane(rec: dict, key: str, side: str) -> dict:
+    """``op_split.split_at_parting`` of one side at the parting ``rec[key]``
+    (a slack), from the side's states at the previous vertex up to the
+    parting's shared state."""
+    v = rec[key]
+    caps = _vertex_window(rec, v["iteration"] - 1)
+    out = op_split.split_at_parting(op_split.f32_data(rec["arrays"]),
+                                    _side_states(rec, side, caps),
+                                    v["constraint"], _order(rec, side))
+    return {"caps": caps, **out}
+
+
+def _t_split(rec: dict, key: str, side: str) -> dict:
+    """A step-choice parting (``t2 <= t1``): the side's f32 t2 - t1 at the
+    shared state against the exact iterate's, split into the iteration's
+    own rounding (f32 against f64 on the side's f32 state) and the state's
+    error (f64 on the f32 state against the exact iterate); ulps of max(|t1|,
+    |t2|)."""
+    v = rec[key]
+    lo = v["iteration"] - 1
+    st = _side_states(rec, side, [lo])[0]
+    d = op_split.f32_data(rec["arrays"])
+    it = op_split.gi_iteration(st, d, _order(rec, side))
+    q = _f32_state(rec, dict(st, u=np.asarray(st["u"])[:rec["n"]]),
+                   it["sc_idx"], it["sc_status"])
+    ex = _exact(rec, st["status"], it["sc_idx"], it["sc_status"])
+    us = _ulp(max(abs(ex["t1"]), abs(ex["t2"])))
+    own = (float(it["t2"]) - float(it["t1"])) - (q["t2"] - q["t1"])
+    state = (q["t2"] - q["t1"]) - (ex["t2"] - ex["t1"])
+    return {"caps": [lo], "own_rounding": own / us, "state": state / us,
+            "total": (own + state) / us,
+            "ops": [op_split.op_roundings(st, it, d, 0)]}
+
+
+def _lane(which: str, lane: str) -> dict:
+    rec = next(r for r in _load(which)[0] if mc.lane_id(r) == lane)
+    return dict(rec, file=which)
+
+
+def _split_job(item):
+    which, lane, key, sides = item
+    _setup_jax()
+    torch.set_num_threads(1)
+    rec = _lane(which, lane)
+    slack = "constraint" in rec[key] and rec[key]["kind"].startswith(
+        "select: slack")
+    out = {}
+    for side in sides:
+        if not _replayable(rec, side):
+            out[side] = None
+            continue
+        out[side] = (split_lane if slack else _t_split)(rec, key, side)
+    print(which, lane, key, {s: o and (o.get("split") or {
+        k: o[k] for k in ("own_rounding", "state", "total")})
+        for s, o in out.items()}, flush=True)
+    return which, lane, key, out
+
+
+def _range_job(item):
+    """Over the stage range of a lane where the port misses beyond a tie
+    (from the cap where its error stays above the JAX kernel's to the
+    parting), each side's iterations replayed and held to its next state,
+    each operation's own rounding at every cap, and, at a slack parting,
+    ``op_split.range_split`` of the deciding slack."""
+    which, lane, key = item
+    _setup_jax()
+    torch.set_num_threads(1)
+    rec = _lane(which, lane)
+    v = rec[key]
+    lo = v["iteration"] - 1
+    caps = list(range(rec[f"{key}_stages"]["port_above_from_cap"], lo + 1))
+    slack = v["kind"].startswith("select: slack")
+    p = v["constraint"]
+    d = op_split.f32_data(rec["arrays"])
+    out = {"caps": caps}
+    for side in ("card" if key == "verdict" else "plain", "jax"):
+        states = _side_states(rec, side, caps)
+        order = _order(rec, side)
+        its = [op_split.gi_iteration(st, d, order) for st in states]
+        ok = sum(op_split.same_next(a, b) for a, b in zip(its, states[1:]))
+        got = {"replayed": [int(ok), len(caps) - 1],
+               "ops": [op_split.op_roundings(st, it, d, p)
+                       for st, it in zip(states[:-1], its[:-1])]}
+        if slack:
+            x64 = {i: op_split.iterate64(d, st["status"])["x"]
+                   for i, st in enumerate(states) if int(st["skip1"]) == 0}
+            got["range_split"] = op_split.range_split(
+                d, p, float(its[-1]["sel"][p]), states, its, x64)
+        out[side] = got
+    print(which, lane, key, "range", caps[0], caps[-1],
+          {s_: o.get("range_split") for s_, o in out.items()
+           if isinstance(o, dict)}, flush=True)
+    return which, lane, key, out
+
+
+def _r(v):
+    """``v`` with every float rounded to 2 decimals, for printing."""
+    if isinstance(v, dict):
+        return {k: _r(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_r(x) for x in v]
+    return round(float(v), 2) if isinstance(v, (float, np.floating)) else v
+
+
+def _median_ops(ops: list[dict], keys=OPS) -> dict:
+    return {k: float(np.median([abs(o[k]) for o in ops if k in o]))
+            for k in keys if any(k in o for o in ops)}
+
+
+def split(workers: int) -> dict:
+    """Part 2: the split at each 3d and reverse lane (K1 on the card, the
+    JAX kernel, the port's plain version on the CPU), over the population
+    of slack partings (the card's kernel's and the plain path's), and the
+    operations' own rounding over the 3d lanes' stage ranges. Prints every
+    number and returns them."""
+    recs = {(w, mc.lane_id(r)): r for w in FILES for r in _load(w)[0]}
+    items = []
+    for (w, lane), r in recs.items():
+        for key, side in (("verdict", "card"), ("verdict_cpu", "plain")):
+            v = r.get(key)
+            if v and (v["kind"].startswith("select: slack") or (
+                    w, lane, key) in set(SPLIT_LANES)):
+                items.append((w, lane, key, (side, "jax")))
+    ranges = [(w, lane, key) for w, lane, key in SPLIT_LANES
+              if f"{key}_stages" in recs[(w, lane)]]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as ex:
+        fs = [ex.submit(_split_job, i) for i in items]
+        rs = [ex.submit(_range_job, i) for i in ranges]
+        got = {(w, lane, key): out for w, lane, key, out in
+               (f.result() for f in fs)}
+        ranged = {(w, lane, key): out for w, lane, key, out in
+                  (f.result() for f in rs)}
+    return split_tables(recs, got, ranged)
+
+
+def _oriented(parts: dict, total: float) -> dict:
+    return {k: float(np.sign(total) * parts[k]) for k in PARTS}
+
+
+def split_tables(recs: dict, got: dict, ranged: dict) -> dict:
+    out = {"lanes": {}, "population": {}, "ranges": {}}
+    for (w, lane, key), o in sorted(got.items()):
+        side = "card" if key == "verdict" else "plain"
+        if (w, lane, key) not in {s[:3] for s in SPLIT_LANES}:
+            continue
+        row = {}
+        for s in (side, "jax"):
+            if o.get(s) is None:
+                row[s] = None
+                continue
+            if "split" in o[s]:
+                row[s] = {**o[s]["split"], "replayed": o[s]["replayed"]}
+            else:
+                row[s] = {k: o[s][k] for k in ("own_rounding", "state",
+                                                "total")}
+        if row[side] and row["jax"] and "dot" in row[side]:
+            # each part's share of the excess |E_port| - |E_jax|
+            a, b = row[side], row["jax"]
+            oa, ob = _oriented(a, a["total"]), _oriented(b, b["total"])
+            row["excess"] = abs(a["total"]) - abs(b["total"])
+            row["excess_by_part"] = {k: oa[k] - ob[k] for k in PARTS}
+        out["lanes"][f"{lane} ({key})"] = row
+        print("split", lane, key, _r(row))
+    for key, side in (("verdict", "card"), ("verdict_cpu", "plain")):
+        pop = [(lane, o) for (w, ln, k), o in got.items() if k == key
+               for lane in [ln] if o.get(side) and "split" in o[side]
+               and o.get("jax") and "split" in o["jax"]]
+        rowp = {"slack partings": len(pop)}
+        for s in (side, "jax"):
+            last = [o[s]["ops"][-2] | {"slack": o[s]["ops"][-1]["slack"]}
+                    for _, o in pop]
+            rowp[f"{s} median own rounding, last step (ulps)"] = \
+                _median_ops(last)
+            rowp[f"{s} median |part| (ulps)"] = {
+                k: float(np.median([abs(o[s]["split"][k]) for _, o in pop]))
+                for k in PARTS + ("total",)}
+            rowp[f"{s} replayed"] = [sum(o[s]["replayed"][0] for _, o in pop),
+                                     sum(o[s]["replayed"][1] for _, o in pop)]
+        rowp["ratio of medians (port / jax)"] = {
+            k: rowp[f"{side} median own rounding, last step (ulps)"][k]
+            / rowp["jax median own rounding, last step (ulps)"][k]
+            for k in rowp["jax median own rounding, last step (ulps)"]
+            if rowp["jax median own rounding, last step (ulps)"][k] > 0}
+        out["population"][key] = rowp
+        print("population", key, _r(rowp))
+    for (w, lane, key), o in ranged.items():
+        side = "card" if key == "verdict" else "plain"
+        row = {"caps": [o["caps"][0], o["caps"][-1]]}
+        for s_ in (side, "jax"):
+            row[s_] = {"replayed": o[s_]["replayed"],
+                       "median own rounding (ulps)": _median_ops(o[s_]["ops"]),
+                       "range split (ulps)": o[s_].get("range_split")}
+        out["ranges"][f"{lane} ({key})"] = row
+        print("range", lane, key, _r(row))
+    return out
+
+
 def report() -> None:
     """The census side by side: per set the lanes drawn, each package's
     misses on its own draws, how many of them the other package passes
@@ -658,6 +1095,7 @@ def report() -> None:
     beyond 16 ulps by who misses, and each lane's outcomes and parting."""
     port, psum = _load("port")
     jaxl, jsum = _load("jax")
+    spread_table()
 
     def group(key):
         name = key.split("/")[0]
@@ -755,6 +1193,8 @@ if __name__ == "__main__":
     ap.add_argument("--verdicts", action="store_true")
     ap.add_argument("--stages", action="store_true")
     ap.add_argument("--report", action="store_true")
+    ap.add_argument("--spread", action="store_true")
+    ap.add_argument("--split", action="store_true")
     ap.add_argument("--workers", type=int, default=3)
     args = ap.parse_args()
     _setup_jax()
@@ -767,5 +1207,10 @@ if __name__ == "__main__":
         verdicts(args.workers)
     if args.stages:
         stages(args.workers)
+    if args.spread:
+        spread(args.workers)
+        spread_table()
+    if args.split:
+        split(args.workers)
     if args.report:
         report()
