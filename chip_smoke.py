@@ -109,7 +109,11 @@ width (9 robots x 43 dof, n=387, m=36):
    pass or fail and active set; the main path's missed lanes of phase 4
    held to the census's (the same lanes, the same arrays); one line with
    the counts per set and how many lanes each package passes of the
-   other's misses; and K1's per-operation split on the three lanes of
+   other's misses; K1's whole solve replayed on this host's CPU in K1's
+   own order (``jrlqp_tpu_torch.testing.k1_replay.k1_order_solve``) on
+   every K1 lane of both files and held to K1's own launch on the same
+   lane, the whole f32 state bit for bit, with the replay's CPU seconds;
+   and K1's per-operation split on the three lanes of
    queue 3d (``jrlqp_tpu_torch.testing.op_split``): its states at the
    census's caps taken again on the card and held to
    ``tests/data/split_states_card.npz`` bit for bit, each iteration
@@ -332,7 +336,7 @@ def main() -> int:
     from jrlqp_tpu_torch.bench import harness
     from jrlqp_tpu_torch.io import native, read_qps
     from jrlqp_tpu_torch.types import MAX_ITER_REACHED
-    from jrlqp_tpu_torch.testing import miss_census, op_split
+    from jrlqp_tpu_torch.testing import k1_replay, miss_census, op_split
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1920,6 +1924,37 @@ def main() -> int:
             other = "kernel_card_alone"
         cross[which] = [len(missed), sum(r["outcomes"][other]["passed"]
                                          for r in missed)]
+    # K1's order-exact replay (testing.k1_replay) on this host's CPU
+    # against K1's own launch on every K1 lane of both files, the whole f32
+    # state bit for bit (raw x by its bits)
+    replay_lanes = replay_cpu_s = replay_wall_s = 0
+    for which, path in MISSED_LANE_FILES.items():
+        for r in miss_census.load_lanes(path)[0]:
+            if r["path"] != "K1":
+                continue
+            pb32 = miss_census.lane_problem(r, dev).with_dtype(torch.float32)
+            out = gi_kernel.run_loop_fused(pb32, r["max_iter"])
+            card_raw = {k: (v[0] if v.dim() > 1 else v.reshape(-1)[0])
+                        .cpu().numpy() for k, v in out.items()}
+            t0, c0 = time.perf_counter(), time.process_time()
+            rep = k1_replay.k1_order_solve(r["arrays"], r["max_iter"],
+                                           r["ir_steps"])["raw"]
+            replay_cpu_s += time.process_time() - c0
+            replay_wall_s += time.perf_counter() - t0
+            lane = f"{which} lane {miss_census.lane_id(r)}"
+            _require(np.array_equal(rep["x"].view(np.int32),
+                                    card_raw["x"].view(np.int32)),
+                     f"{lane}: the replay's raw x differs from K1's")
+            for k in k1_replay.STATE_KEYS:
+                _require(np.array_equal(np.asarray(rep[k]), card_raw[k]),
+                         f"{lane}: the replay's {k} differs from K1's")
+            replay_lanes += 1
+    _require(replay_lanes > 0, "phase 20 replayed no K1 lane")
+    print(json.dumps({"phase": 20, "k1_order_solve_vs_k1_launch": {
+        "lanes_equal_bit_for_bit": replay_lanes, "cpu_s": replay_cpu_s,
+        "wall_s": replay_wall_s, "cpu_s_per_lane": replay_cpu_s / replay_lanes,
+        "host_cpus": os.cpu_count(), "torch_threads":
+            torch.get_num_threads()}, "card": card}))
     # K1's per-operation split on the lanes of queue 3d: its states at the
     # census's caps, taken again on this card and held to the committed
     # ones bit for bit, each iteration replayed in K1's order and held to

@@ -115,13 +115,33 @@ def iterate64(d: dict, status) -> dict:
 
 # ---- K1's order ----
 
+# f64 bits below f32's last place: 1 then 28 zeros is halfway between two
+# f32 (in f32's normal range)
+_LOW29, _HALF29 = np.int64((1 << 29) - 1), np.int64(1 << 28)
+_TINY = 2.0 ** -125
+
+
 def _chain(vec: np.ndarray, A: np.ndarray) -> np.ndarray:
-    """sum_k vec[k] A[k, :], one FMA chain per output in k ascending."""
-    acc = torch.zeros(A.shape[1], dtype=torch.float32)
-    At, vt = torch.from_numpy(np.ascontiguousarray(A)), torch.from_numpy(vec)
+    """sum_k vec[k] A[k, :], one FMA chain per output in k ascending. Each
+    step adds the exact f64 product to the f32 sum in f64 and rounds to
+    f32, which is the FMA's own rounding unless the f64 sum lies exactly
+    halfway between two f32 or below f32's normal range; those entries
+    take :func:`fma32`."""
+    vec = np.asarray(vec, _f32)
+    A = np.asarray(A, _f32)
+    A64 = A.astype(np.float64)
+    acc = np.zeros(A.shape[1], _f32)
     for k in range(A.shape[0]):
-        acc = fma32(vt[k].expand_as(acc), At[k], acc)
-    return acc.numpy()
+        s = np.float64(vec[k]) * A64[k] + acc
+        r = s.astype(_f32)
+        odd = (((s.view(np.int64) & _LOW29) == _HALF29)
+               | (np.abs(s) < _TINY))
+        if odd.any():
+            r[odd] = fma32(torch.full((int(odd.sum()),), float(vec[k])),
+                           torch.from_numpy(A[k][odd]),
+                           torch.from_numpy(acc[odd])).numpy()
+        acc = r
+    return acc
 
 
 def _block_sum(vals: np.ndarray) -> np.float32:
@@ -248,12 +268,19 @@ def gi_iteration(st: dict, d: dict, order=K1Order) -> dict:
     implementations take them. Returns each operation's f32 result:
     ``sel`` (every constraint's selection value, on a fresh selection),
     ``p``, ``npl`` (n+), ``zr`` (z and the masked r), the four sums, ``t1``,
-    ``t2``, ``t``, ``lpos``, the step kind, and ``next``, the state after
-    the iteration (``it`` not counted)."""
+    ``t2``, ``t``, ``lpos``, the step kind, ``stop`` and ``success``, and
+    ``next``, the state after the iteration (``it`` not counted).
+
+    The state's slots (u, aorder and the rows of N*) may be more than n:
+    the kernels keep np = round_up(n + 1, 8), and a candidate takes slot n
+    when the n real ones are full. A pending candidate's slot is the
+    state's ``sc_slot`` where it has one (the loop's own register), else
+    :func:`pending_slot`."""
     m, n = d["C"].shape
     C, G = d["C"], d["G"]
     x = np.asarray(st["x"], _f32)
     u = np.asarray(st["u"], _f32)
+    slots = np.arange(len(u))
     H = np.asarray(st["H"], _f32)
     NsT = np.ascontiguousarray(np.asarray(st["Ns"], _f32).T)
     K = np.concatenate([H, NsT], axis=1)
@@ -281,7 +308,8 @@ def gi_iteration(st: dict, d: dict, order=K1Order) -> dict:
         sc_slot = int(np.flatnonzero(statk == 0)[0])
     else:
         sc_idx, sc_st = int(st["sc_idx"]), int(st["sc_status"])
-        sc_slot = pending_slot(st)
+        sc_slot = (int(st["sc_slot"]) if "sc_slot" in st
+                   else pending_slot(st))
     neg = sc_st in (UPPER, UPPER_BOUND)
     is_bnd = sc_st >= LOWER_BOUND
     vec = (np.eye(n, dtype=_f32)[sc_idx - m] if is_bnd
@@ -315,7 +343,8 @@ def gi_iteration(st: dict, d: dict, order=K1Order) -> dict:
     full = not infeasible and not dual and bool(t2 <= t1)
     out.update(zr=zr, z=z, r=r, npl=npl, znorm2=znorm2, nz=nz, nx=nx, nn=nn,
                t1=t1, t2=_f32(t2), t=t, lpos=lpos, full=full, dual=dual,
-               stop=success or infeasible, sc_idx=sc_idx, sc_status=sc_st,
+               stop=success or infeasible, success=success,
+               sc_idx=sc_idx, sc_status=sc_st,
                sc_slot=sc_slot, bsel=_f32(bsel))
     if out["stop"]:
         return out
@@ -342,15 +371,15 @@ def gi_iteration(st: dict, d: dict, order=K1Order) -> dict:
         v = order.dot(nl, np.ascontiguousarray(G.T), "G^T")
         w = order.dot(v, np.ascontiguousarray(K[:, n:]), "N*^T")
         wl = w[lpos] if abs(w[lpos]) > 0 else _f32(1)
-        keep = act & (np.arange(n) != lpos)
+        keep = act & (slots != lpos)
         vq = np.concatenate([-nl, np.where(keep, w, _f32(0))]) / wl
         K_n = _sub_mul(K, nl[:, None], vq[None, :], fused)
         K_n[:, n + lpos] = 0
         status[min(max(int(aorder[lpos]), 0), m + n - 1)] = 0
         aorder[lpos] = -1
         uk[sc_slot] = _f32(uk[sc_slot] + t)
-        u_n = np.where(np.arange(n) == lpos, cand_val,
-                       np.where(np.arange(n) == sc_slot, _f32(0), uk))
+        u_n = np.where(slots == lpos, cand_val,
+                       np.where(slots == sc_slot, _f32(0), uk))
         x_n = x if dual else _sub_mul(x, -t, z, fused)
         out.update(nl=nl, w=w, wl=_f32(wl))
         q -= 1

@@ -47,6 +47,7 @@ from jrlqp_tpu_torch.structured import (
 )
 from jrlqp_tpu_torch.testing import (
     ProblemCharacteristics,
+    k1_replay,
     miss_census,
     order_exact,
     random_problem,
@@ -237,6 +238,26 @@ def test_gi_fused_kernel_matches_plain(cuda_device, name):
     torch.cuda.synchronize()
     assert gi_kernel.launches == before + 1
     _assert_kernel_matches_plain(ours, gi_kernel.gi_fused_plain(pb, max_iter))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_k1_order_solve_is_the_kernel(cuda_device, name):
+    # K1's whole solve replayed on the CPU in K1's own order
+    # (testing.k1_replay) on batches with equalities, fixed variables, a
+    # non-SPD G and vertices of many rows: every lane's f32 state bit for
+    # bit
+    d, max_iter = make_case(name)
+    ours = gi_kernel.run_loop_fused(_f32_problem(d, cuda_device), max_iter)
+    torch.cuda.synchronize()
+    for i in range(d["G"].shape[0]):
+        raw = k1_replay.k1_order_solve({k: v[i] for k, v in d.items()},
+                                       max_iter, 1)["raw"]
+        for k in k1_replay.STATE_KEYS:
+            assert np.array_equal(np.asarray(raw[k]),
+                                  ours[k][i].cpu().numpy()), (i, k)
+        assert np.array_equal(raw["x"].view(np.int32),
+                              ours["x"][i].cpu().numpy().view(np.int32)), i
 
 
 @pytest.mark.cuda
