@@ -69,10 +69,15 @@ width (9 robots x 43 dof, n=387, m=36):
    path and held against the f64 ``solve_batch``;
 17. ``solve_refined_kernel(..., fused_init=False)`` (the torch init, then
    K3) at batch 16384, gated like the main path; ``solve_sharded`` with the
-   engines "pallas" (K1, then K3) and "f64" over ``make_mesh()`` (the one
-   card) and over four shards on ``cuda:0``, each lane for lane against
-   its unsharded solve, its ``BatchStats`` against the result's sums; the
-   one-card mesh's overhead against the bare engine;
+   engines "pallas" (K1, then K3) and "f64" over ``make_mesh()`` (every
+   card; the cards' K1 and K3 shards solved at the same time, a host thread
+   per card) and over four shards on ``cuda:0`` (one after another on the
+   card's one stream), each lane for lane
+   against its unsharded solve and bit for bit against its shards solved
+   alone, its ``BatchStats`` against the result's sums, with each shard's
+   engine call and kernel start and end (ms, CUDA events on a clock shared
+   by the cards, ``testing.shard_timeline``) and how far the shards'
+   kernels overlap; the one-card mesh's overhead against the bare engine;
 18. the corpus: ``run_corpus`` over the vendored Maros-Meszaros files of
    ``tests/data/qps/`` -- the 8 strictly convex ones through "f64" and
    "pallas_rescued" (SUCCESS, f* within 1e-6, KKT <= 1e-8) and through
@@ -329,7 +334,8 @@ def main() -> int:
         MAROS_MESZAROS,
         MarosMeszarosEntry,
     )
-    from jrlqp_tpu_torch.parallel import make_mesh, solve_sharded
+    from jrlqp_tpu_torch.parallel import make_mesh, shard_batch, solve_sharded
+    from jrlqp_tpu_torch.testing import shard_timeline
     from jrlqp_tpu_torch.solver.box_single import box_qp_problem, solve_box_gi
     from jrlqp_tpu_torch.testing import ProblemCharacteristics, random_problem
     from jrlqp_tpu_torch import solve_refined_kernel_compacted
@@ -1547,8 +1553,11 @@ def main() -> int:
                 ("pallas", False, pb17, refs17[False]),
                 ("f64", False, pb16, ref16)):
             name = f"solve_sharded({engine}, fused_init={fused}) over {label}"
-            (res, stats), ms, cnt = timed(lambda: solve_sharded(
-                pb_, opt, mesh=mesh, engine=engine, fused_init=fused))
+            # the timeline's events are recorded in the timed call itself
+            # (two per shard and two per kernel; they launch nothing)
+            with shard_timeline.record() as tl17:
+                (res, stats), ms, cnt = timed(lambda: solve_sharded(
+                    pb_, opt, mesh=mesh, engine=engine, fused_init=fused))
             want = ({} if engine == "f64" else
                     {"gi_fused" if fused else "gi_loop": mesh.size})
             _require({k: v for k, v in cnt.items() if v} == want,
@@ -1556,13 +1565,29 @@ def main() -> int:
             for k, v in want.items():
                 sharded_launches[k] += v
             err = same_lanes(name, res, ref, 1e-10)
+            alone = [solve_refined_kernel(shard, opt, fused_init=fused)
+                     if engine == "pallas" else solve_batch(shard, opt)
+                     for shard in shard_batch(pb_, mesh)]
+            for f in dataclasses.fields(res):
+                _require(torch.equal(getattr(res, f.name), torch.cat(
+                    [getattr(r, f.name) for r in alone])),
+                    f"{name}: {f.name} is not its shards' solved alone")
             it = res.iterations.long()
             _require((stats.total_iterations, stats.n_success,
                       stats.max_iterations)
                      == (int(it.sum()), int((res.status == 0).sum()),
                          int(it.max())), f"{name}: BatchStats {stats}")
+            ov17 = tl17.overlap()
+            _require(len(tl17.shards) == mesh.size
+                     and ov17["shards_with_kernels"]
+                     == (mesh.size if want else 0),
+                     f"{name}: timeline {ov17}")
+            print(json.dumps({"phase": 17, "timeline": name,
+                              "overlap": ov17, "shards": tl17.shards}))
             phase_line(17, name, ms, cnt, batch=pb_.batch, shards=mesh.size,
                        max_abs_x_err_vs_unsharded=err,
+                       bit_for_bit_vs_shards_alone=True,
+                       kernel_concurrency=ov17["concurrency"],
                        stats=dataclasses.asdict(stats), card=card)
     bare17 = _wall_s(lambda: solve_refined_kernel(pb17, opt))
     mesh17 = _wall_s(lambda: solve_sharded(pb17, opt, mesh=mesh1,

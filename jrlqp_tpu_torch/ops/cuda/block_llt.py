@@ -33,6 +33,8 @@ the pivot at 1e-30 and let :func:`posdef_plain` flag the block.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
@@ -46,7 +48,8 @@ __all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain",
            "padded_rhs", "identity_rhs"]
 
 # launches of each CUDA kernel since the last reset (set to 0 to reset):
-# K2 (chol_inv_b), K5, K6, K7 and K8
+# K2 (chol_inv_b), K5, K6, K7 and K8, each counted under _count_lock
+_count_lock = threading.Lock()
 launches = 0
 tri_llt_launches = 0
 tri_solve_launches = 0
@@ -113,7 +116,8 @@ def _chol_inv_b_cuda(A: torch.Tensor):
                                     Li.data_ptr(), pd.data_ptr(), B, s,
                                     stream)
     _build.check(code, "chol_inv_b")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return L, Li, pd.bool()
 
 
@@ -400,7 +404,8 @@ def tri_block_llt(diag: torch.Tensor, off: torch.Tensor):
     if not _chain_on_cuda("tri_block_llt", diag.shape[-1], diag, off):
         return tri_block_llt_plain(diag, off)
     out = _tri_llt_cuda(diag.contiguous(), off.contiguous())
-    tri_llt_launches += 1
+    with _count_lock:
+        tri_llt_launches += 1
     return out
 
 
@@ -416,7 +421,8 @@ def tri_block_solve(L_off: torch.Tensor, Linv: torch.Tensor, r: torch.Tensor,
     if not _chain_on_cuda("tri_block_solve", r.shape[2], L_off, Linv, r):
         return tri_block_solve_plain(L_off, Linv, r, lower_only)
     y = _tri_solve_cuda(L_off, Linv, r, lower_only)
-    tri_solve_launches += 1
+    with _count_lock:
+        tri_solve_launches += 1
     return y
 
 
@@ -432,7 +438,8 @@ def block_arrow_llt(diag: torch.Tensor, side: torch.Tensor, up: bool = False):
     if not _chain_on_cuda("block_arrow_llt", diag.shape[-1], diag, side):
         return block_arrow_llt_plain(diag, side, up)
     out = _arrow_llt_cuda(diag.contiguous(), side.contiguous(), up)
-    arrow_llt_launches += 1
+    with _count_lock:
+        arrow_llt_launches += 1
     return out
 
 
@@ -448,5 +455,6 @@ def block_arrow_solve(L_side: torch.Tensor, Linv: torch.Tensor,
         return block_arrow_solve_plain(L_side, Linv, r, up)
     y = _arrow_solve_cuda(L_side.contiguous(), Linv.contiguous(),
                           r.contiguous(), up)
-    arrow_solve_launches += 1
+    with _count_lock:
+        arrow_solve_launches += 1
     return y

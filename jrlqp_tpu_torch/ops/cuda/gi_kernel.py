@@ -28,6 +28,8 @@ without changing any lane's result, is left out.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ...types import (
@@ -59,7 +61,10 @@ INF_BOUND = 1e31     # infinite bounds in the padded f32 inputs
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 
 # launches of each CUDA kernel since the last reset (set to 0 to reset):
-# K1 (gi_fused), K3 (gi_loop), K4 (gi_warm) and K9 (gi_compact)
+# K1 (gi_fused), K3 (gi_loop), K4 (gi_warm) and K9 (gi_compact); each is
+# counted under _count_lock, as the shards of a sharded solve launch from
+# threads of their own
+_count_lock = threading.Lock()
 launches = 0
 loop_launches = 0
 warm_launches = 0
@@ -726,7 +731,8 @@ def _gi_fused_cuda_raw(*args):
     global launches
     *ins, n, m, max_iter = args
     outs = _launch("jrlqp_gi_fused", _FUSED_IN, ins, n, m, max_iter)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return outs
 
 
@@ -734,7 +740,8 @@ def _gi_loop_cuda_raw(*args):
     global loop_launches
     *ins, n, m, max_iter = args
     outs = _launch("jrlqp_gi_loop", _LOOP_IN, ins, n, m, max_iter)
-    loop_launches += 1
+    with _count_lock:
+        loop_launches += 1
     return outs
 
 
@@ -742,7 +749,8 @@ def _gi_compact_cuda_raw(*args):
     global compact_launches
     *ins, n, m, max_iter = args
     outs = _launch("jrlqp_gi_compact", _LOOP_IN, ins, n, m, max_iter)
-    compact_launches += 1
+    with _count_lock:
+        compact_launches += 1
     return outs
 
 
@@ -750,7 +758,8 @@ def _gi_warm_cuda_raw(*args):
     global warm_launches
     *ins, n, m, max_iter = args
     outs = _launch("jrlqp_gi_warm", _WARM_IN, ins, n, m, max_iter)
-    warm_launches += 1
+    with _count_lock:
+        warm_launches += 1
     return outs
 
 

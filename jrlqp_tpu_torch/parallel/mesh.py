@@ -8,6 +8,18 @@ accounting of :class:`BatchStats`, a sum and a max over the shards and, when
 ``torch.distributed`` is initialized, one ``all_reduce(SUM)`` and one
 ``all_reduce(MAX)`` across the processes.
 
+As the JAX package's ``shard_map`` program runs every shard at once, the
+kernel engine's shards are solved at the same time: one host thread per
+card (per shard on a CPU mesh), started for the solve, moves its shard to
+its device, waits until every thread has issued its move, and runs the
+engine there (a wait, a ctypes launch and most torch ops release the GIL),
+on the caller's current stream of each card.
+A card that the mesh names several times gets one thread, which solves its
+shards one after another. The caller joins every thread, then gathers and
+reduces. The host-loop engines ("f64", "refined") solve their shards one
+after another in the caller's thread (``_THREADED_ENGINES``): their Python
+loop, not the card, bounds them, and threads made them slower.
+
 A :class:`Mesh` is an ordered list of ``torch.device``s and an axis name.
 :func:`make_mesh` takes the CUDA devices and raises where there are fewer
 than asked; a mesh of CPU devices must be asked for by name
@@ -17,7 +29,9 @@ several times (four shards on ``cuda:0``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -69,15 +83,28 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "batch",
     return Mesh(devices=devices, axis=axis)
 
 
+def _split(pbs: QPProblem, size: int) -> list[QPProblem]:
+    """The batch split along its leading dimension into ``size`` contiguous
+    shards of near-equal size (the first ones one lane larger where it does
+    not divide), where it lies."""
+    parts = [torch.tensor_split(getattr(pbs, f.name), size)
+             for f in dataclasses.fields(QPProblem)]
+    return [QPProblem(**{f.name: parts[k][i] for k, f in
+                         enumerate(dataclasses.fields(QPProblem))})
+            for i in range(size)]
+
+
+def _to(pb: QPProblem, dev: torch.device) -> QPProblem:
+    return QPProblem(**{f.name: getattr(pb, f.name).to(dev)
+                        for f in dataclasses.fields(QPProblem)})
+
+
 def shard_batch(pbs: QPProblem, mesh: Mesh) -> list[QPProblem]:
     """The batch split along its leading dimension into ``mesh.size``
     contiguous shards of near-equal size (the first ones one lane larger
     where it does not divide), each moved to its device."""
-    parts = [torch.tensor_split(getattr(pbs, f.name), mesh.size)
-             for f in dataclasses.fields(QPProblem)]
-    return [QPProblem(**{f.name: parts[k][i].to(dev) for k, f in
-                         enumerate(dataclasses.fields(QPProblem))})
-            for i, dev in enumerate(mesh.devices)]
+    return [_to(part, dev)
+            for part, dev in zip(_split(pbs, mesh.size), mesh.devices)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +125,115 @@ def _solve_shard(pb: QPProblem, opt: SolverOptions, engine: str,
     if engine == "refined":
         return solve_refined(pb, opt)
     return solve_batch(pb, opt)
+
+
+# The engines whose shards run on a thread per card. The host-loop engines
+# ("f64", "refined": a Python loop of masked passes that waits on the card
+# at every pass) solve their shards one after another in the caller's
+# thread: their host work is the bottleneck, and on four H100s a thread
+# per card ran the f64 engine 5.8x slower than one thread (PERF.md §6)
+_THREADED_ENGINES = ("pallas",)
+
+
+def _workers(devices) -> list[list[int]]:
+    """The shards each worker solves, in order: one worker per CUDA card (a
+    card the mesh names several times runs its shards one after another,
+    as the card would queue them anyway), one per shard on the CPU (each
+    entry a device of its own, as the JAX package's virtual CPU devices
+    are)."""
+    groups: dict = {}
+    for i, d in enumerate(devices):
+        key = (d.type, d.index) if d.type == "cuda" else (d.type, i)
+        groups.setdefault(key, []).append(i)
+    return list(groups.values())
+
+
+def _caller_streams(pbs: QPProblem, devices) -> list:
+    """The calling thread's current stream of each card that the solve
+    touches (the input's and the mesh's). A worker runs on them: its reads
+    of the input and the caller's gather of its result are then ordered
+    with the caller's work, as they are in the caller's own thread."""
+    cards = [d for d in devices if d.type == "cuda"] + [
+        getattr(pbs, f.name).device for f in dataclasses.fields(QPProblem)
+        if getattr(pbs, f.name).is_cuda]
+    streams = {}
+    for d in cards:
+        s = torch.cuda.current_stream(d)
+        streams[s.device_index] = s
+    return list(streams.values())
+
+
+def _in_order(items, streams, ready, opt, engine, fused_init) -> list:
+    """One worker's shards on ``streams``: each moved to its device, then,
+    once every worker has issued its moves (``ready``, a barrier of the
+    workers, or None), each solved there, one after another: (result,
+    error) of each. The moves come first so that no card's solve is queued
+    ahead of a copy to another card on the stream of the card that holds
+    the input."""
+    moved, out = [], []
+    with contextlib.ExitStack() as on:
+        for s in streams:
+            on.enter_context(torch.cuda.stream(s))
+        for part, dev in items:
+            try:
+                moved.append((_to(part, dev), None))
+            except Exception as e:  # raised in the caller, with the others
+                moved.append((None, e))
+        if ready is not None:
+            ready.wait()
+        for (pb, err), (_, dev) in zip(moved, items):
+            if err is None:
+                try:
+                    with (torch.cuda.device(dev) if dev.type == "cuda"
+                          else contextlib.nullcontext()):
+                        out.append((_solve_shard(pb, opt, engine,
+                                                 fused_init), None))
+                    continue
+                except Exception as e:
+                    err = e
+            out.append((None, err))
+    return out
+
+
+def _solve_shards(parts, devices, streams, opt, engine,
+                  fused_init) -> list[GIResult]:
+    """Every worker's shards moved, then solved at the same time, on a
+    thread each started here and joined (in the caller where there is one
+    worker, and for an engine outside _THREADED_ENGINES); once every worker
+    has ended,
+    the first shard's error (in shard order) is raised, with the others'
+    noted on it."""
+    workers = (_workers(devices) if engine in _THREADED_ENGINES
+               else [list(range(len(parts)))])
+    jobs = [[(parts[i], devices[i]) for i in idx] for idx in workers]
+    done = [None] * len(jobs)
+    ready = threading.Barrier(len(jobs)) if len(jobs) > 1 else None
+
+    def run(w):
+        done[w] = _in_order(jobs[w], streams, ready, opt, engine, fused_init)
+
+    if len(jobs) == 1:
+        run(0)
+    else:
+        threads = [threading.Thread(target=run, args=(w,),
+                                    name=f"solve_sharded-{w}")
+                   for w in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    outcomes = [None] * len(parts)
+    for idx, outs in zip(workers, done):
+        for i, out in zip(idx, outs):
+            outcomes[i] = out
+    errors = [(i, e) for i, (_, e) in enumerate(outcomes) if e is not None]
+    if errors:
+        first = errors[0][1]
+        for i, e in errors[1:]:
+            first.add_note(f"solve_sharded: shard {i} on {devices[i]} "
+                           f"failed too: {e!r}")
+        raise first
+    return [r for r, _ in outcomes]
 
 
 def _stats(res: GIResult) -> BatchStats:
@@ -136,19 +272,28 @@ def solve_sharded(
     the kernel path :func:`~jrlqp_tpu_torch.solver.fast.
     solve_refined_kernel` with ``fused_init`` (``False``, the JAX default:
     the torch init and K3; ``True``: K1). A shard on a CUDA device launches
-    its kernels there or raises; another engine name raises. The shards run
-    one after another from the calling thread. Returns ``(result,
-    stats)``: the result in input order on the first shard's device, and
-    :class:`BatchStats`. ``mesh`` defaults to :func:`make_mesh` over every
-    CUDA device.
+    its kernels there or raises; another engine name raises. The "pallas"
+    engine's shards are solved at the same time, each card's (each CPU
+    shard's) on a thread of its own, a card's several shards one after
+    another; the host-loop engines' shards one after another in this
+    thread. Every shard's work is on this thread's current stream of its
+    card. An error in any shard is raised here once every shard has
+    ended. Each lane is what solving its shard alone gives.
+    Returns ``(result, stats)``: the result in input order on the first
+    shard's device, and :class:`BatchStats`. ``mesh`` defaults to
+    :func:`make_mesh` over every CUDA device.
     """
     if engine not in ENGINES:
         raise ValueError(f"solve_sharded: unknown engine {engine!r}, "
                          f"expected one of {ENGINES}")
     if mesh is None:
         mesh = make_mesh(axis=axis)
-    results = [_solve_shard(shard, opt, engine, fused_init)
-               for shard in shard_batch(pbs, mesh) if shard.batch]
+    shards = [(part, dev) for part, dev in
+              zip(_split(pbs, mesh.size), mesh.devices) if part.batch]
+    devices = [d for _, d in shards]
+    results = _solve_shards([p for p, _ in shards], devices,
+                            _caller_streams(pbs, devices), opt, engine,
+                            fused_init)
     dev0 = mesh.devices[0]
     res = GIResult(**{f.name: torch.cat([getattr(r, f.name).to(dev0)
                                          for r in results])

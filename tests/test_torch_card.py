@@ -1,7 +1,8 @@
 """The port's kernels (K1-K9) on a CUDA card, held against their plain
 PyTorch versions on the same card; the launch counts of the structured
 path, the compact-slot path, the trajectory capture and the rescue; the
-box solve, the sharded solve on one card and K3 at the corpus's largest
+box solve, the sharded solve on one card and on several (its shards at the
+same time, by CUDA events) and K3 at the corpus's largest
 bucket; K1 at the size sweep's largest row, the compacted solve and the
 harness's kernel rows; the default device; the lanes of the miss census
 (``tests/data/missed_lanes_port.npz`` and ``missed_lanes_jax.npz``), each
@@ -17,6 +18,8 @@ Without a card every test here skips.
 """
 import dataclasses
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -36,7 +39,8 @@ from jrlqp_tpu_torch import (
 )
 from jrlqp_tpu_torch.bench import bench_warm_start_trajectory, time_batch
 from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
-from jrlqp_tpu_torch.parallel import make_mesh, solve_sharded
+from jrlqp_tpu_torch.parallel import make_mesh, shard_batch, solve_sharded
+from jrlqp_tpu_torch.parallel import mesh as mesh_mod
 from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.structured import (
     GType,
@@ -51,7 +55,9 @@ from jrlqp_tpu_torch.testing import (
     miss_census,
     order_exact,
     random_problem,
+    shard_timeline,
 )
+from jrlqp_tpu_torch.testing.batch_gen import random_qp_batch
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
 
@@ -986,12 +992,24 @@ def test_solve_box_on_card_matches_cpu(cuda_device):
                                rtol=0, atol=1e-12)
 
 
+def _solve_engine(pb, opt, engine, fused_init):
+    if engine == "pallas":
+        return fast.solve_refined_kernel(pb, opt, fused_init=fused_init)
+    if engine == "refined":
+        return fast.solve_refined(pb, opt)
+    return solve_batch(pb, opt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine,fused_init", [("f64", False),
                                                ("pallas", False),
-                                               ("pallas", True)])
+                                               ("pallas", True),
+                                               ("refined", False)])
 @pytest.mark.parametrize("shards", [1, 4])
 def test_solve_sharded_on_card(cuda_device, engine, fused_init, shards):
+    # four shards on one card run one after another on its one worker:
+    # the launch counts stay exact, and every lane is bit for bit its
+    # shard's alone
     d = np_qp_batch(6, 64, 12, 24, 0.3)
     pb = problem_from_numpy(**d, device=cuda_device)
     opt = SolverOptions(max_iter=100)
@@ -1007,14 +1025,136 @@ def test_solve_sharded_on_card(cuda_device, engine, fused_init, shards):
                         else [0, shards, 0, 0])
     else:
         assert grew == [0, 0, 0, 0]
-    ref = (fast.solve_refined_kernel(pb, opt, fused_init=fused_init)
-           if engine == "pallas" else solve_batch(pb, opt))
+    ref = _solve_engine(pb, opt, engine, fused_init)
     _assert_same_result(res, dataclasses.replace(
         ref, **{f.name: getattr(ref, f.name).cpu()
                 for f in dataclasses.fields(ref)}), x_tol=1e-10)
+    alone = [_solve_engine(shard, opt, engine, fused_init)
+             for shard in shard_batch(pb, mesh)]
+    for f in dataclasses.fields(res):
+        assert torch.equal(getattr(res, f.name),
+                           torch.cat([getattr(r, f.name) for r in alone])), \
+            f.name
     it = res.iterations.long()
     assert (stats.total_iterations, stats.n_success, stats.max_iterations) \
         == (int(it.sum()), int((res.status == 0).sum()), int(it.max()))
+
+
+@pytest.mark.cuda
+def test_first_use_from_four_threads_loads_the_kernels_once(cuda_device):
+    # a fresh process whose first kernel use is four threads solving at
+    # once, as the workers of a four-card sharded solve do: the library is
+    # built or loaded once, and each K1 launch is counted
+    code = (
+        "from concurrent.futures import ThreadPoolExecutor\n"
+        "import torch\n"
+        "from jrlqp_tpu_torch import SolverOptions, solve_refined_kernel\n"
+        "from jrlqp_tpu_torch.ops.cuda import _build, gi_kernel\n"
+        "from jrlqp_tpu_torch.testing.batch_gen import random_qp_batch\n"
+        "dev = torch.device('cuda', 0)\n"
+        "gen = torch.Generator(device=dev).manual_seed(0)\n"
+        "pb = random_qp_batch(gen, 256, 12, 24, 0.3, dtype=torch.float32,\n"
+        "                     device=dev).with_dtype(torch.float64)\n"
+        "opt = SolverOptions(max_iter=100)\n"
+        "with ThreadPoolExecutor(4) as ex:\n"
+        "    res = list(ex.map(lambda _: solve_refined_kernel(pb, opt),\n"
+        "                      range(4)))\n"
+        "torch.cuda.synchronize()\n"
+        "assert all(torch.equal(r.x, res[0].x) for r in res)\n"
+        "print(_build.loads, gi_kernel.launches)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["1", "4"], out.stdout
+
+
+def _headline_chunks(cards, batch, device):
+    """One chunk of ``batch`` headline problems (n=50, m=100, made in f32,
+    solved in f64) per card, chunk c drawn from seed c."""
+    def chunk(c):
+        gen = torch.Generator(device=device).manual_seed(c)
+        return random_qp_batch(gen, batch, 50, 100, 0.3, dtype=torch.float32,
+                               device=device).with_dtype(torch.float64)
+    return [chunk(c) for c in range(cards)]
+
+
+@pytest.mark.cuda
+def test_shards_run_at_the_same_time_on_several_cards(cuda_device):
+    # K1 on every card of a mesh of up to four: by CUDA events per shard
+    # (testing.shard_timeline), every shard's kernel runs while every
+    # other's does, and the lanes equal each card's chunk solved alone
+    cards = min(torch.cuda.device_count(), 4)
+    if cards < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = make_mesh(cards)
+    opt = SolverOptions(max_iter=150)
+    chunks = _headline_chunks(cards, 8192, cuda_device)
+    pbs = stack_problems(chunks)
+    solve_sharded(pbs, opt, mesh=mesh, engine="pallas", fused_init=True)
+    before = _launches()
+    with shard_timeline.record() as tl:
+        res, stats = solve_sharded(pbs, opt, mesh=mesh, engine="pallas",
+                                   fused_init=True)
+    assert [a - b for a, b in zip(_launches(), before)] == [cards, 0, 0, 0]
+    ov = tl.overlap()
+    assert sorted(sh["device"] for sh in tl.shards) == [
+        str(d) for d in mesh.devices]
+    assert ov["shards_with_kernels"] == cards and ov["common_ms"] > 0, (
+        ov, [(sh["device"], sh["start_ms"], sh["kernels"])
+             for sh in tl.shards])
+    alone = [fast.solve_refined_kernel(c, opt) for c in chunks]
+    for f in dataclasses.fields(res):
+        assert torch.equal(getattr(res, f.name),
+                           torch.cat([getattr(r, f.name) for r in alone])), \
+            f.name
+    assert stats.n_success == int((res.status == 0).sum())
+
+
+@pytest.mark.cuda
+def test_solve_sharded_on_a_side_stream(cuda_device, monkeypatch):
+    # the caller solves on a stream of its own, on which the input is
+    # written only after a long sleep: every shard's engine call runs on
+    # the caller's current stream of its card and of the input's card, and
+    # the lanes are each card's chunk solved alone
+    cards = min(torch.cuda.device_count(), 4)
+    mesh = make_mesh(cards)
+    opt = SolverOptions(max_iter=150)
+    chunks = _headline_chunks(cards, 2048, cuda_device)
+    pbs = stack_problems(chunks)
+    # solved first, so that no first build or load of the kernels waits
+    # out the sleep below
+    alone = [fast.solve_refined_kernel(c, opt) for c in chunks]
+    late = dataclasses.replace(pbs, **{
+        f.name: torch.full_like(getattr(pbs, f.name), float("nan"))
+        for f in dataclasses.fields(pbs)})
+    torch.cuda.synchronize()
+    solve_shard, seen = mesh_mod._solve_shard, []
+
+    def noting(pb, *args):
+        dev = pb.G.device
+        seen.append((dev, torch.cuda.current_stream(dev),
+                     torch.cuda.current_stream(cuda_device)))
+        return solve_shard(pb, *args)
+
+    monkeypatch.setattr(mesh_mod, "_solve_shard", noting)
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        want = {d: torch.cuda.current_stream(d) for d in mesh.devices}
+        torch.cuda._sleep(1_000_000_000)
+        for f in dataclasses.fields(pbs):
+            getattr(late, f.name).copy_(getattr(pbs, f.name))
+        res, stats = solve_sharded(late, opt, mesh=mesh, engine="pallas",
+                                   fused_init=True)
+    torch.cuda.synchronize()
+    assert want[mesh.devices[0]] == side and len(seen) == cards
+    for dev, on_card, on_input_card in seen:
+        assert on_card == want[dev] and on_input_card == side, dev
+    for f in dataclasses.fields(res):
+        assert torch.equal(getattr(res, f.name),
+                           torch.cat([getattr(r, f.name) for r in alone])), \
+            f.name
+    assert stats.n_success == int((res.status == 0).sum()) > 0
 
 
 def np_large_bucket(seed, batch, generator="headline"):

@@ -255,19 +255,90 @@ def test_exact_ties_resolve_as_the_reference(path):
         np.testing.assert_array_equal(o["x"], [1.0, 1.0], err_msg=w)
 
 
-def test_jax_lanes_are_the_jax_draws(seed):
+# how far this host's f32 draw of a saved lane may lie from the saved one,
+# in f32 ulps: jax.random's polynomials and XLA's dots round otherwise with
+# and without FMA (up to 2 ulps of the array's largest |element|, and up to
+# 3 ulps of max(|element|, term_floor) per element, under a no-FMA ISA
+# setting). An entry that cancels to near 0 (an off-diagonal of G, a bound
+# near 0) keeps the error of the sum that made it, so its own ulps (up to
+# 5323) measure nothing of the draw; term_floor gives the sum's size
+DRAW_ULPS = 8
+
+
+def f32_ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance between two f32 arrays in their elements' own
+    units in the last place (0 for equal infinities)."""
+    def ordered(v):
+        i = v.astype(np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(ordered(a) - ordered(b)).max(initial=0))
+
+
+def term_floor(k: str, arrays: dict):
+    """For each element of array ``k`` of a draw (batch_gen.random_qp_batch),
+    a bound of the sum of |terms| that made it, from the draw itself; 0 for
+    an element drawn alone. G = A Aᵀ/n + I: Σ_k |A_ik A_jk|/n is at most
+    sqrt((G_ii - 1)(G_jj - 1)) (Cauchy-Schwarz). l and u are C x0 less or
+    plus an offset, |x0| < 1: Σ_k |C_ik x0_k| is at most Σ_k |C_ik|."""
+    if k == "G":
+        d = np.sqrt(np.abs(np.diagonal(arrays["G"]) - 1.0))
+        return np.outer(d, d)
+    if k in ("l", "u"):
+        return np.abs(arrays["C"]).sum(-1)
+    return 0.0
+
+
+def draw_ulps(saved: np.ndarray, drawn: np.ndarray, floor=None) -> float:
+    """The largest distance between two f32 draws of one array over its
+    finite elements, each in f32 ulps of max(|element|, ``floor``) (by
+    default the array's largest finite |element|); their infinities must
+    be equal."""
+    fin = np.isfinite(saved)
+    np.testing.assert_array_equal(np.isfinite(drawn), fin)
+    np.testing.assert_array_equal(saved[~fin], drawn[~fin])
+    if not fin.any():
+        return 0.0
+    if floor is None:
+        floor = np.abs(saved[fin]).max()
+    mag = np.broadcast_to(np.maximum(np.abs(saved), floor), saved.shape)
+    ulp = np.spacing(mag[fin].astype(np.float32)).astype(np.float64)
+    return float((np.abs(saved[fin].astype(np.float64) - drawn[fin])
+                  / ulp).max())
+
+
+def test_jax_lanes_are_the_jax_draws(seed, record_property):
     # the saved arrays are the JAX package's draws: lane i of
     # random_qp_batch(key(seed), 16384, 50, 100, act_frac=0.3), made in
-    # f32 and cast to f64 (bench.py:95-97)
+    # f32 and cast to f64 (bench.py:95-97), held to this host's draw of
+    # lane i within DRAW_ULPS; lane i + 1's draw is O(1) away
     recs = [r for r in lanes("jax")
             if r["set"] != "size_sweep" and r["seed"] == seed]
     pbs = j_random_qp_batch(jax.random.key(seed), mc.BATCH, mc.N, mc.M,
                             act_frac=mc.ACT_FRAC, dtype=jnp.float32)
     idx = np.array([r["lane"] for r in recs])
-    drawn = {k: np.asarray(getattr(pbs, k)[idx]).astype(np.float64)
-             for k in mc.ARRAYS}
+    drawn = {k: np.asarray(getattr(pbs, k)[idx]) for k in mc.ARRAYS}
+    other = {k: np.asarray(getattr(pbs, k)[(idx + 1) % mc.BATCH])
+             for k in ("G", "a", "C")}
     del pbs
+    worst, worst_term, worst_el = 0.0, 0.0, 0
     for j, r in enumerate(recs):
-        for k in mc.ARRAYS:
-            np.testing.assert_array_equal(r["arrays"][k], drawn[k][j],
-                                          err_msg=f"{mc.lane_id(r)} {k}")
+        f32 = {k: r["arrays"][k].astype(np.float32) for k in mc.ARRAYS}
+        for k, saved in f32.items():
+            np.testing.assert_array_equal(saved.astype(np.float64),
+                                          r["arrays"][k],
+                                          err_msg=f"{mc.lane_id(r)} {k}: "
+                                                  f"not an f32 draw")
+            ulps = draw_ulps(saved, drawn[k][j])
+            assert ulps <= DRAW_ULPS, f"{mc.lane_id(r)} {k}: {ulps} ulps"
+            per_el = draw_ulps(saved, drawn[k][j], term_floor(k, f32))
+            assert per_el <= DRAW_ULPS, (
+                f"{mc.lane_id(r)} {k}: {per_el} ulps of an element's sum")
+            worst = max(worst, ulps)
+            worst_term = max(worst_term, per_el)
+            worst_el = max(worst_el, f32_ulps(saved, drawn[k][j]))
+        for k, v in other.items():
+            assert np.abs(r["arrays"][k] - v[j]).max() > 0.1, (
+                f"{mc.lane_id(r)} {k}: the next lane's draw is as near")
+    record_property("max_draw_ulps", worst)
+    record_property("max_term_ulps", worst_term)
+    record_property("max_elementwise_ulps", worst_el)
