@@ -53,25 +53,35 @@ width (9 robots x 43 dof, n=387, m=36):
    main path's and the split: init, prepare, K9, remap, refinement;
 13. the rescue ``solve_refined_kernel_rescued`` at batch 16384: pass rate
    1.0 at act_frac 0.3 and >= 0.9999 at act_frac 0.9, with the rescued
-   count and the rescue's wall ms;
-14. the J/R engines: ``solve_batch`` at batch 1024 against the main path
-   (same status and active set, x within 1e-7), ``solve_warm`` from its
-   active set (0 iterations), and ``solve_structured`` at the IK width,
-   batch 256, against ``solve_structured_fast_batch``;
-15. observability on 256 lanes: ``solve_fast_traced`` and ``solve_traced``
-   against their untraced solves, ``capture_kernel_trajectory`` on one lane
+   count, the rescue's wall ms and its launches (K3 once, K10 once when a
+   lane is rescued);
+14. the J/R engines: ``solve_batch`` at batch 1024 (the torch init, then
+   K10 once and no other kernel), K10 against its plain version on the same
+   state (the same status, iterations and active set on >= 0.999 of the
+   lanes, x within 1e-10 on those, KKT <= 1e-8 on every SUCCESS lane; the
+   plain version run as the traced pass loop, which launches no kernel),
+   K10's device ms beside its plain version's and its bound, in f64 and in
+   f32 (``solve_mixed``'s first stage; >= 0.99 of the lanes the same);
+   ``solve_batch`` against the main path (same status and active set, x
+   within 1e-7), ``solve_warm`` from its active set (0 iterations), and
+   ``solve_structured`` at the IK width, batch 256, against
+   ``solve_structured_fast_batch``;
+15. observability on 256 lanes: ``solve_fast_traced`` against its
+   untraced solve and ``solve_traced`` against K10's plain version (bit for
+   bit) and ``solve_batch`` (K10, lane for lane),
+   ``capture_kernel_trajectory`` on one lane
    (one K9 launch per cap) against the f32 fast trace, ``dump_matlab``, and
    ``no_retrace`` around repeated solves at two shapes;
 16. the small solvers: the closed-form ``solve_box`` at batch 16384, n=16
    (the box benchmark's data, numpy seed 0), KKT <= 1e-8 on every SUCCESS
    lane and held against ``solve_box_gi`` on 1024 lanes, with solves/s;
-   ``solve_mixed`` at batch 1024 of the headline set, gated like the main
-   path and held against the f64 ``solve_batch``;
+   ``solve_mixed`` at batch 1024 of the headline set (K10 in f32, then in
+   f64), gated like the main path and held against the f64 ``solve_batch``;
 17. ``solve_refined_kernel(..., fused_init=False)`` (the torch init, then
    K3) at batch 16384, gated like the main path; ``solve_sharded`` with the
-   engines "pallas" (K1, then K3) and "f64" over ``make_mesh()`` (every
-   card; the cards' K1 and K3 shards solved at the same time, a host thread
-   per card) and over four shards on ``cuda:0`` (one after another on the
+   engines "pallas" (K1, then K3) and "f64" (K10) over ``make_mesh()``
+   (every card; the cards' K1 and K3 shards solved at the same time, a host
+   thread per card) and over four shards on ``cuda:0`` (one after another on the
    card's one stream), each lane for lane
    against its unsharded solve and bit for bit against its shards solved
    alone, its ``BatchStats`` against the result's sums, with each shard's
@@ -124,15 +134,19 @@ width (9 robots x 43 dof, n=387, m=36):
    ``tests/data/split_states_card.npz`` bit for bit, each iteration
    replayed in K1's order and held to the next state, and the deciding
    slack's error at the parting split into the dot's own rounding, the x
-   error inherited from the previous vertex, and what the last step added.
+   error inherited from the previous vertex, and what the last step added;
+   and every lane with an f64 J/R record (``f64_jr_card``) solved alone by
+   ``solve_batch`` (K10) and held to its status, pass and x within 1e-7.
 
 Every kernel's line in the JSON record carries ``bound_ms``, the least time
 the card could take for the kernel's work on this run's inputs: the larger
 of the bytes it must move (each input read once, each output written once)
 at 3.35 TB/s and its operations at 67 TFLOP/s (f32 outside the tensor
-cores; H100 SXM data sheet). Both are counted at the unpadded sizes, from
-this run's iteration and active counts, with triangular factors counted as
-triangles, by ``_gi_flops``, ``_gi_bytes`` and the phase 4 and 8 blocks.
+cores; H100 SXM data sheet), or 33.5 TFLOP/s for K10 in f64. Both are
+counted at the unpadded sizes, from this run's iteration and active counts,
+with triangular factors counted as triangles, by ``_gi_flops``,
+``_gi_bytes``, ``jr_kernel.jr_flops``, ``jr_kernel.jr_bytes`` and the phase
+4 and 8 blocks.
 ``library_ms`` is the time of PyTorch's own calls for the same function
 where there are some: ``torch.linalg.cholesky_ex`` then
 ``torch.linalg.solve_triangular`` on the identity beside K2 (two calls,
@@ -208,6 +222,7 @@ VENDORED_SINGULAR = ("hs51", "hs52", "hs53", "genhs28", "tame",
 LARGE_SPECS = ((48, 40, 16, False, False), (64, 50, 20, False, True),
                (96, 80, 30, False, False), (128, 100, 40, True, False))
 PEAK_F32, PEAK_BW = 67e12, 3.35e12   # H100 SXM: FLOP/s (f32, no TC), B/s
+PEAK_F64 = 33.5e12                   # H100 SXM: FLOP/s (f64, no TC)
 
 
 def _fail(msg: str) -> None:
@@ -261,9 +276,10 @@ def _sha1(*tensors) -> str:
     return h.hexdigest()[:12]
 
 
-def _bound(flops: float, nbytes: int):
-    """(bound ms, what binds): the larger of the operation and byte times."""
-    t_op, t_b = 1e3 * flops / PEAK_F32, 1e3 * nbytes / PEAK_BW
+def _bound(flops: float, nbytes: int, peak: float = PEAK_F32):
+    """(bound ms, what binds): the larger of the operation and byte times,
+    at the operations' ``peak`` FLOP/s."""
+    t_op, t_b = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BW
     return (max(t_op, t_b), "operations" if t_op >= t_b else "bytes")
 
 
@@ -314,7 +330,7 @@ def main() -> int:
         solve_traced,
         solve_warm,
     )
-    from jrlqp_tpu_torch.ops.cuda import _build, block_llt, gi_kernel
+    from jrlqp_tpu_torch.ops.cuda import _build, block_llt, gi_kernel, jr_kernel
     from jrlqp_tpu_torch.solver import dense, fast
     from jrlqp_tpu_torch.structured import (
         GType,
@@ -329,6 +345,7 @@ def main() -> int:
     from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
     from jrlqp_tpu_torch.testing.kkt import kkt_residual
     from jrlqp_tpu_torch import pad_problem, solve_box, solve_mixed
+    from jrlqp_tpu_torch.solver.mixed import F32_ZERO_Z
     from jrlqp_tpu_torch.io import run_corpus, write_qps
     from jrlqp_tpu_torch.io.maros_meszaros import (
         MAROS_MESZAROS,
@@ -362,6 +379,7 @@ def main() -> int:
         block_llt.tri_solve_launches = 0
         block_llt.arrow_llt_launches = 0
         block_llt.arrow_solve_launches = 0
+        jr_kernel.launches = 0
 
     def counts():
         return {"gi_fused": gi_kernel.launches,
@@ -372,7 +390,8 @@ def main() -> int:
                 "tri_block_llt": block_llt.tri_llt_launches,
                 "tri_block_solve": block_llt.tri_solve_launches,
                 "block_arrow_llt": block_llt.arrow_llt_launches,
-                "block_arrow_solve": block_llt.arrow_solve_launches}
+                "block_arrow_solve": block_llt.arrow_solve_launches,
+                "jr_loop": jr_kernel.launches}
 
     def drifted(pb, scale):
         """``pb`` with l and u shifted together by scale * N(0, 1)."""
@@ -1246,7 +1265,7 @@ def main() -> int:
     del ins9, outs9, pb12_32
 
     # ---- phase 13: the rescue at the headline batch ----
-    rescue_rows = {}
+    rescue_rows, rescue_launches = {}, 0
     for act_frac, min_rate in ((ACT_FRAC, 1.0), (RESCUE_ACT_FRAC, 0.9999)):
         pb13 = pb12 if act_frac == ACT_FRAC else problems(act_frac)
         torch.cuda.synchronize()
@@ -1254,9 +1273,6 @@ def main() -> int:
         res13 = solve_refined_kernel_rescued(pb13, opt, ir_steps=IR_STEPS)
         torch.cuda.synchronize()
         c13 = counts()
-        _require(c13["gi_loop"] == 1 and sum(c13.values()) == 1,
-                 f"rescue at act_frac {act_frac}: the first stage did not "
-                 f"run K3 once (and nothing else)")
         rate13, kkt13, _ = gate(f"rescue (act_frac {act_frac})", res13, pb13,
                                 min_rate)
         # the stages, timed apart: the first stage, the check, the rescue
@@ -1274,8 +1290,16 @@ def main() -> int:
                      "a rescued lane did not end SUCCESS")
         torch.cuda.synchronize()
         t_rescue = time.perf_counter() - t
+        # the first stage runs K3 once, the rescue K10 once if a lane failed
+        want13 = {"gi_loop": 1, "jr_loop": int(bad.numel() > 0)}
+        _require({k: v for k, v in c13.items() if v} == {
+            k: v for k, v in want13.items() if v},
+            f"rescue at act_frac {act_frac}: launches {c13}, expected "
+            f"{want13}")
+        rescue_launches += c13["jr_loop"]
         rescue_rows[act_frac] = row = dict(
             pass_rate=rate13, max_kkt=kkt13, rescued=int(bad.numel()),
+            launches={k: v for k, v in c13.items() if v},
             first_stage_ms=1e3 * t_first, rescue_ms=1e3 * t_rescue,
             first_stage_pass_rate=float(((resid <= 1e-8)
                                          & (first.status == 0)).double()
@@ -1289,25 +1313,93 @@ def main() -> int:
     # ---- phase 14: the J/R engines ----
     pb14 = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC,
                            dtype=f32).with_dtype(f64)
+    # solve_batch's stages: the torch init, the loop (one K10 launch), the
+    # multipliers
     torch.cuda.synchronize()
     reset_counts()
-    passes = []
     t14 = [time.perf_counter()]
 
     def mark14():
         torch.cuda.synchronize()
         t14.append(time.perf_counter())
 
-    st14 = dense.init_state(pb14, opt)
+    st0_14 = dense.init_state(pb14, opt)
     mark14()
-    st14 = dense.run_loop(pb14, st14, opt,
-                          on_pass=lambda a_, b_: passes.append(1))
+    st14 = dense.run_loop(pb14, st0_14, opt)
     mark14()
     res14 = dense.finalize(pb14, st14)
     mark14()
+    jr_counts = counts()
     init14, loop14, fin14 = (1e3 * (b - a_) for a_, b in zip(t14, t14[1:]))
-    _require(sum(counts().values()) == 0, "the J/R engine launched a kernel")
+    _require({k: v for k, v in jr_counts.items() if v} == {"jr_loop": 1},
+             f"solve_batch: launches {jr_counts}, expected K10 once and no "
+             f"other kernel")
     rate14, kkt14, pass14 = gate("solve_batch (J/R, f64)", res14, pb14)
+    kkt_ok14 = kkt_residual(res14.x, res14.multipliers, pb14)[
+        res14.status == 0]
+    _require(float(kkt_ok14.max()) <= 1e-8,
+             "solve_batch: a SUCCESS lane above KKT 1e-8")
+    # K10 against its plain version on the same state: the traced pass loop
+    # (on_pass) runs the plain version's passes and launches no kernel
+    passes = []
+    reset_counts()
+    pl14 = dense.run_loop(pb14, st0_14, opt,
+                          on_pass=lambda a_, b_: passes.append(1))
+    torch.cuda.synchronize()
+    _require(sum(counts().values()) == 0,
+             "the J/R pass loop (on_pass) launched a kernel")
+
+    def jr_against_plain(name, got, want, min_same, x_tol):
+        """K10's state against the plain version's: status, iterations and
+        active set equal on >= min_same of the lanes, x within x_tol on
+        those. Returns (share of same lanes, max |x err| on them)."""
+        same = ((got.term == want.term) & (got.it == want.it)
+                & (got.status == want.status).all(dim=1))
+        share = float(same.double().mean())
+        err = float((got.x[same] - want.x[same]).abs().max())
+        print(f"{name} vs plain: {got.x.shape[0]} lanes, the same status, "
+              f"iterations and active set on {share!r} (lanes that part: "
+              f"{torch.nonzero(~same)[:, 0].tolist()}), max |x err| on "
+              f"them {err!r}")
+        _require(share >= min_same, f"{name}: the same lanes {share} < "
+                 f"{min_same}")
+        _require(err <= x_tol, f"{name}: x differs by {err} > {x_tol}")
+        return share, err
+
+    k10_same, k10_err = jr_against_plain("K10 (f64)", st14, pl14, 0.999,
+                                         1e-10)
+    k10_ms = _cuda_ms(lambda: jr_kernel.jr_loop(pb14, st0_14, opt))
+    k10_plain_ms = _cuda_ms(lambda: dense.jr_loop_plain(pb14, st0_14, opt),
+                            reps=1)
+    k10_bound = _bound(jr_kernel.jr_flops(st14.it - st0_14.it, st0_14.q,
+                                          st14.q, N, M),
+                       jr_kernel.jr_bytes(CHECK_BATCH, N, M, 8), PEAK_F64)
+    # f32, solve_mixed's first stage, on the same problems
+    opt32_m = opt.with_(dtype=f32, zero_z_threshold=F32_ZERO_Z)
+    pb14_32 = pb14.with_dtype(f32)
+    st0_32 = dense.init_state(pb14_32, opt32_m)
+    k10_32 = jr_kernel.jr_loop(pb14_32, st0_32, opt32_m)
+    k10_same32, k10_err32 = jr_against_plain(
+        "K10 (f32)", k10_32, dense.jr_loop_plain(pb14_32, st0_32, opt32_m),
+        0.99, 1e-3)
+    k10_ms32 = _cuda_ms(lambda: jr_kernel.jr_loop(pb14_32, st0_32, opt32_m))
+    k10_plain_ms32 = _cuda_ms(lambda: dense.jr_loop_plain(
+        pb14_32, st0_32, opt32_m), reps=1)
+    k10_bound32 = _bound(jr_kernel.jr_flops(k10_32.it, st0_32.q, k10_32.q,
+                                            N, M),
+                         jr_kernel.jr_bytes(CHECK_BATCH, N, M, 4))
+    print(json.dumps({"phase": 14, "K10": {
+        "batch": CHECK_BATCH, "n": N, "m": M,
+        "f64": {"ms": k10_ms, "plain_ms": k10_plain_ms,
+                "bound_ms": k10_bound[0], "bound_by": k10_bound[1],
+                "iterations": int((st14.it - st0_14.it).sum()),
+                "plain_passes": len(passes), "same_lanes": k10_same,
+                "max_abs_x_err": k10_err},
+        "f32": {"ms": k10_ms32, "plain_ms": k10_plain_ms32,
+                "bound_ms": k10_bound32[0], "bound_by": k10_bound32[1],
+                "iterations": int(k10_32.it.sum()), "same_lanes": k10_same32,
+                "max_abs_x_err": k10_err32}}, "card": card}))
+    del pl14, st0_32, pb14_32, k10_32
     ref14 = solve_refined_kernel(pb14, opt, ir_steps=IR_STEPS)
     same14 = ((res14.status == ref14.status)
               & (res14.active_set == ref14.active_set).all(dim=1))
@@ -1321,11 +1413,11 @@ def main() -> int:
           f"{rate14!r}, max KKT {kkt14!r}, mean_it "
           f"{float(res14.iterations.double().mean())!r}, same status and "
           f"active set as the main path on {float(same14.double().mean())!r}"
-          f", x within {x14!r}; wall ms: init {init14!r}, loop {loop14!r} "
-          f"({len(passes)} passes, {loop14 / max(len(passes), 1)!r} ms per "
-          f"pass), finalize {fin14!r}; solves/s {sps14!r}")
-    # the J/R removal's Givens sweep: one masked rotation per row pair, a
-    # dozen small launches each, for every lane at once
+          f", x within {x14!r}; wall ms: init {init14!r}, loop (K10) "
+          f"{loop14!r}, finalize {fin14!r}; solves/s {sps14!r}")
+    # the pass loop's Givens sweep (the structured J/R solver and the
+    # tracer run it): one masked rotation per row pair, a dozen small
+    # launches each, for every lane at once
     from jrlqp_tpu_torch.ops.linalg import givens_remove
     sweep = {}
     for B_, n_, q_ in ((CHECK_BATCH, N, N), (SJR_BATCH, n_ik, IK_NB * IK_MC)):
@@ -1339,12 +1431,20 @@ def main() -> int:
         del eye_, R_
     print(f"Givens sweep, device ms per removal pass ({card}), keyed (batch, "
           f"n, rotations): {sweep}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
     res14w = solve_warm(pb14, res14.active_set, opt.with_(warm_start=True))
+    torch.cuda.synchronize()
+    warm14_ms, c14w = 1e3 * (time.perf_counter() - t), counts()
+    _require({k: v for k, v in c14w.items() if v} == {"jr_loop": 1},
+             f"solve_warm: launches {c14w}, expected K10 once")
     zero14 = float((res14w.iterations == 0).double().mean())
     _require(zero14 >= 0.999, f"solve_warm: 0 iterations on {zero14} < 0.999")
     print(f"solve_warm from the J/R active set: 0 iterations on {zero14!r} "
           f"of the lanes, status SUCCESS on "
-          f"{float((res14w.status == 0).double().mean())!r}")
+          f"{float((res14w.status == 0).double().mean())!r}; wall "
+          f"{warm14_ms!r} ms, K10 launched once")
     ik14 = ik_batch(SJR_BATCH, IK_NB, IK_S, IK_MC, seed=SEED + 2)
     sg14, sc14 = structured_from_numpy(diag=ik14["diag"], off=ik14["off"],
                                        gtype=GType.TRI_BLOCK_DIAGONAL,
@@ -1368,17 +1468,23 @@ def main() -> int:
           f"solve_structured_fast_batch on every lane, max |x err| "
           f"{float((rs14.x - rf14.x).abs().max())!r}; wall "
           f"{1e3 * ts14!r} ms ({SJR_BATCH / ts14!r} solves/s)")
-    del st14, res14w, rs14, rf14, sg14, sc14, pbs14
+    del st14, st0_14, res14w, rs14, rf14, sg14, sc14, pbs14
 
     # ---- phase 15: observability ----
     pb15 = pb14._map(lambda v: v[:OBS_BATCH])
     pb15_32 = pb15.with_dtype(f32)
     flags = (LogFlags.ITERATION_BASIC_DETAILS | LogFlags.ACTIVE_SET
              | LogFlags.ITERATION_ADVANCE_DETAILS)
+    def jr_plain(p_, o_):
+        """solve_batch with K10's plain version in place of K10: the
+        tracer's passes are the plain version's."""
+        return dense.finalize(p_, dense.jr_loop_plain(
+            p_, dense.init_state(p_, o_), o_))
+
     for name, traced, plain, p_, o_ in (
             ("solve_fast_traced (f32)", solve_fast_traced, solve_fast,
              pb15_32, opt32),
-            ("solve_traced (J/R, f64)", solve_traced, solve_batch, pb15,
+            ("solve_traced (J/R, f64)", solve_traced, jr_plain, pb15,
              opt)):
         rt, tr = traced(p_, o_, flags)
         rp = plain(p_, o_)
@@ -1395,8 +1501,16 @@ def main() -> int:
                  f"{name}: valid rows != iterations")
         if name.startswith("solve_fast"):
             fast_trace, fast_res = tr, rt
-    print(f"traced solves (batch {OBS_BATCH}): equal to the untraced ones; "
-          f"the last valid row is x on every lane")
+        else:   # and against solve_batch (K10) lane for lane
+            rk = solve_batch(p_, o_)
+            for k in ("status", "iterations", "active_set"):
+                _require(torch.equal(getattr(rt, k), getattr(rk, k)),
+                         f"{name}: {k} differs from solve_batch (K10)")
+            _require(float((rt.x - rk.x).abs().max()) <= 1e-10,
+                     f"{name}: x differs from solve_batch (K10)")
+    print(f"traced solves (batch {OBS_BATCH}): equal to the untraced ones "
+          f"(the J/R one to K10's plain version bit for bit, to K10 lane for "
+          f"lane); the last valid row is x on every lane")
     n_it = int(fast_res.iterations[0])
     reset_counts()
     cap = capture_kernel_trajectory(pb15._map(lambda v: v[:1]), opt,
@@ -1479,7 +1593,10 @@ def main() -> int:
                                box_qp_problem(*box))[ok16].max())
     _require(kkt16 <= 1e-8, f"solve_box: KKT {kkt16} > 1e-8 on a SUCCESS "
              f"lane")
-    gi16 = solve_box_gi(*[v[:CHECK_BATCH] for v in box], opt_box)
+    gi16, _, c16g = timed(lambda: solve_box_gi(
+        *[v[:CHECK_BATCH] for v in box], opt_box))
+    _require({k: v for k, v in c16g.items() if v} == {"jr_loop": 1},
+             f"solve_box_gi: launches {c16g}, expected K10 once")
     cf16 = res16.status[:CHECK_BATCH]
     _require(torch.equal(gi16.status, cf16),
              "solve_box and solve_box_gi end lanes with another status")
@@ -1497,15 +1614,20 @@ def main() -> int:
                vs_solve_box_gi={"lanes": CHECK_BATCH,
                                 "same_status": True,
                                 "success_lanes": int(both16.sum()),
-                                "max_abs_x_err": gi_err16},
+                                "max_abs_x_err": gi_err16,
+                               "launches": {"jr_loop": 1}},
                solves_per_s=BOX_BATCH / _wall_s(
                    lambda: solve_box(*box, opt_box)), card=card)
     pb16 = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC,
                            dtype=f32).with_dtype(f64)
     res16m, mixed_ms, c16m = timed(lambda: solve_mixed(pb16, opt))
-    _require(sum(c16m.values()) == 0, "solve_mixed launched a kernel")
+    _require({k: v for k, v in c16m.items() if v} == {"jr_loop": 2},
+             f"solve_mixed: launches {c16m}, expected K10 twice (f32, then "
+             f"f64) and no other kernel")
     rate16m, kkt16m, pass16m = gate("solve_mixed", res16m, pb16)
-    ref16, jr_ms, _ = timed(lambda: solve_batch(pb16, opt))
+    ref16, jr_ms, c16r = timed(lambda: solve_batch(pb16, opt))
+    _require({k: v for k, v in c16r.items() if v} == {"jr_loop": 1},
+             f"solve_batch: launches {c16r}, expected K10 once")
     _, _, pass16r = gate("solve_batch (J/R, f64)", ref16, pb16)
     both16m = pass16m & pass16r
     same16m = ((res16m.status == ref16.status)
@@ -1521,6 +1643,7 @@ def main() -> int:
                                "same_status_and_active_set": True,
                                "max_abs_x_err": x16m,
                                "solve_batch_wall_ms": jr_ms}, card=card)
+    mixed_launches = c16m["jr_loop"] + c16r["jr_loop"] + c16g["jr_loop"]
     del box, res16, gi16
 
     # ---- phase 17: the fused_init=False path and the sharded solve ----
@@ -1545,7 +1668,7 @@ def main() -> int:
                   for i in range(torch.cuda.device_count()))
     _require(mesh1.devices == cards, f"make_mesh(): {mesh1.devices}, "
              f"expected every card {cards}")
-    sharded_launches = {"gi_fused": 0, "gi_loop": 0}
+    sharded_launches = {"gi_fused": 0, "gi_loop": 0, "jr_loop": 0}
     for label, mesh in ((f"make_mesh() ({mesh1.size} card(s))", mesh1),
                         ("4 shards on cuda:0", make_mesh(devices=[dev] * 4))):
         for engine, fused, pb_, ref in (
@@ -1558,8 +1681,8 @@ def main() -> int:
             with shard_timeline.record() as tl17:
                 (res, stats), ms, cnt = timed(lambda: solve_sharded(
                     pb_, opt, mesh=mesh, engine=engine, fused_init=fused))
-            want = ({} if engine == "f64" else
-                    {"gi_fused" if fused else "gi_loop": mesh.size})
+            want = {"jr_loop" if engine == "f64" else
+                    "gi_fused" if fused else "gi_loop": mesh.size}
             _require({k: v for k, v in cnt.items() if v} == want,
                      f"{name}: launches {cnt}, expected {want}")
             for k, v in want.items():
@@ -1580,7 +1703,7 @@ def main() -> int:
             ov17 = tl17.overlap()
             _require(len(tl17.shards) == mesh.size
                      and ov17["shards_with_kernels"]
-                     == (mesh.size if want else 0),
+                     == (mesh.size if engine == "pallas" else 0),
                      f"{name}: timeline {ov17}")
             print(json.dumps({"phase": 17, "timeline": name,
                               "overlap": ov17, "shards": tl17.shards}))
@@ -1601,21 +1724,26 @@ def main() -> int:
 
     # ---- phase 18: the corpus ----
     qdir = os.path.join(ROOT, "tests", "data", "qps")
-    corpus_loop_launches = 0
+    corpus_loop_launches = corpus_jr_launches = 0
 
     def corpus(entries, engine, phase_gate, bucketed=True, qps_dir=qdir,
                path=None):
-        nonlocal corpus_loop_launches
+        nonlocal corpus_loop_launches, corpus_jr_launches
         rows, ms, cnt = timed(lambda: run_corpus(
             qps_dir=qps_dir, entries=entries, engine=engine,
             bucketed=bucketed))
         _require(len(rows) == len(entries), f"corpus {engine}: "
                  f"{len(rows)} rows for {len(entries)} entries")
+        # "pallas" engines: K3 per bucket, "pallas_rescued" K10 on the
+        # lanes it rescues; "f64": K10 per bucket (per row unbucketed)
         kernels = engine.startswith("pallas")
         _require(cnt["gi_fused"] == 0 and (cnt["gi_loop"] > 0) == kernels
-                 and sum(cnt.values()) == cnt["gi_loop"],
+                 and (cnt["jr_loop"] > 0 if engine == "f64" else
+                      engine == "pallas_rescued" or cnt["jr_loop"] == 0)
+                 and sum(cnt.values()) == cnt["gi_loop"] + cnt["jr_loop"],
                  f"corpus {engine}: launches {cnt}")
         corpus_loop_launches += cnt["gi_loop"]
+        corpus_jr_launches += cnt["jr_loop"]
         for r in rows:
             if phase_gate is not None:
                 _require(phase_gate(r), f"corpus {engine}: row {r}")
@@ -1685,15 +1813,17 @@ def main() -> int:
     harness_launches = dict.fromkeys(counts(), 0)
     opt_h = SolverOptions(max_iter=500)      # time_batch's default options
 
-    def bench(path, fn, need, gate_rows=None, **extra):
+    def bench(path, fn, need, gate_rows=None, may=(), **extra):
         """Run the harness call ``fn`` with the counts set to 0 just before
         it and read just after; every kernel in ``need`` must have been
-        launched; ``gate_rows(row)`` -> (min rate, value) or None for each
-        row. Prints the phase line and returns the rows."""
+        launched, and no other but those in ``may``; ``gate_rows(row)`` ->
+        (min rate, value) or None for each row. Prints the phase line and
+        returns the rows."""
         out, ms, cnt = timed(fn)
         for k in need:
             _require(cnt[k] > 0, f"{path}: {k} was not launched")
-        _require(all(cnt[k] == 0 for k in cnt if k not in need),
+        _require(all(cnt[k] == 0 for k in cnt
+                     if k not in need and k not in may),
                  f"{path}: launches {cnt}, expected only {need}")
         for k, v in cnt.items():
             harness_launches[k] += v
@@ -1720,14 +1850,15 @@ def main() -> int:
         kkt_gate(0.999))
     bench("time_batch(pallas_rescued) headline", lambda: harness.time_batch(
         "headline/pallas_rescued", pb19, opt, solver="pallas_rescued"),
-        ["gi_loop"], kkt_gate(1.0))
+        ["gi_loop"], kkt_gate(1.0), may=["jr_loop"])
     pb19s = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC,
                             dtype=f32).with_dtype(f64)
-    for solver, min_rate in (("f64", 0.999), ("mixed", 0.999),
-                             ("refined", None)):
+    for solver, min_rate, need in (("f64", 0.999, ["jr_loop"]),
+                                   ("mixed", 0.999, ["jr_loop"]),
+                                   ("refined", None, [])):
         bench(f"time_batch({solver}) headline, batch {CHECK_BATCH}",
               lambda: harness.time_batch(f"headline/{solver}", pb19s, opt,
-                                         solver=solver, n_rep=1), [],
+                                         solver=solver, n_rep=1), need,
               None if min_rate is None else kkt_gate(min_rate))
     del pb19, pb19s
 
@@ -1819,7 +1950,8 @@ def main() -> int:
              f"solves) and K4 on each of its {traj_steps - 1} warm steps")
     bench("bench_warm_start_trajectory(f64), batch 256",
           lambda: harness.bench_warm_start_trajectory(
-              steps=4, batch=256, seed=SEED, solver="f64", device=dev), [])
+              steps=4, batch=256, seed=SEED, solver="f64", device=dev),
+          ["jr_loop"])
 
     # the structured rows: K5, K7 and K5 + K6 beside the composed chains
     # and torch.linalg.cholesky; the IK batch on K5 + K6, the composed
@@ -1949,6 +2081,28 @@ def main() -> int:
             other = "kernel_card_alone"
         cross[which] = [len(missed), sum(r["outcomes"][other]["passed"]
                                          for r in missed)]
+    # K10 on every lane with an f64 J/R record (f64_jr_card, the census's
+    # solve_batch on the card): the lane alone through solve_batch, held to
+    # the record's status, pass and x
+    jr20, jr20_err = 0, 0.0
+    for which, path in MISSED_LANE_FILES.items():
+        for r in miss_census.load_lanes(path)[0]:
+            want = r["outcomes"].get("f64_jr_card")
+            if want is None:
+                continue
+            sub = miss_census.lane_problem(r, dev)
+            got = miss_census.outcomes(solve_batch(
+                sub, SolverOptions(max_iter=r["max_iter"])), sub)[0]
+            lane = f"{which} lane {miss_census.lane_id(r)}"
+            _require(got["status"] == want["status"] and got["passed"]
+                     and want["passed"], f"{lane}: K10 gives "
+                     f"{[got[k] for k in brief]}, f64_jr_card "
+                     f"{[want[k] for k in brief]}")
+            err = float(np.abs(got["x"] - want["x"]).max())
+            _require(err <= 1e-7, f"{lane}: K10's x differs from "
+                     f"f64_jr_card by {err} > 1e-7")
+            jr20, jr20_err = jr20 + 1, max(jr20_err, err)
+    _require(jr20 > 0, "phase 20 held no lane to f64_jr_card")
     # K1's order-exact replay (testing.k1_replay) on this host's CPU
     # against K1's own launch on every K1 lane of both files, the whole f32
     # state bit for bit (raw x by its bits)
@@ -2021,12 +2175,14 @@ def main() -> int:
                       "card": card}))
     c20 = counts()
     torch.cuda.synchronize()
-    for k in ("gi_fused", "gi_loop", "gi_compact"):
+    for k in ("gi_fused", "gi_loop", "gi_compact", "jr_loop"):
         _require(c20[k] > 0, f"phase 20 did not launch {k}")
     print(json.dumps({
         "phase": 20, "lanes_per_file_and_set": per_set,
         "launches": c20, "all_outcomes_as_recorded": True,
         "main_path_missed_lanes": missed4,
+        "k10_lanes_held_to_f64_jr_card": jr20,
+        "k10_max_abs_x_err_vs_f64_jr_card": jr20_err,
         "port_kernel_missed, of them passed by the JAX kernel":
             cross["port"],
         "jax_kernel_missed, of them passed by the card's kernel":
@@ -2106,6 +2262,26 @@ def main() -> int:
                 "threads": fac_cfg[key]["threads"],
                 "blocks_per_sm": fac_cfg[key]["blocks_per_sm"]}
                 if key in fac_cfg else {})})
+    kernels.append({
+        "name": "jr_loop", "route": "cuda",
+        "source": "jrlqp_tpu_torch/csrc/jr_kernel.cu",
+        "replaces": "jrlqp_tpu/solver/dense.py:403",
+        "launches": jr_counts["jr_loop"],
+        "launches_by_path": {
+            "solve_batch": jr_counts["jr_loop"],
+            "solve_warm": c14w["jr_loop"],
+            "rescue": rescue_launches,
+            "solve_mixed, solve_batch, solve_box_gi (phase 16)":
+                mixed_launches,
+            "solve_sharded": sharded_launches["jr_loop"],
+            "run_corpus": corpus_jr_launches,
+            "harness": harness_launches["jr_loop"]},
+        "max_abs_err": k10_err, "max_abs_err_f32": k10_err32,
+        "ms": k10_ms, "plain_ms": k10_plain_ms, "bound_ms": k10_bound[0],
+        "bound_by": k10_bound[1], "library_ms": None,
+        "f32": {"ms": k10_ms32, "plain_ms": k10_plain_ms32,
+                "bound_ms": k10_bound32[0], "bound_by": k10_bound32[1]},
+        "threads": 128})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,9 +32,10 @@ BUILD_DIR = _PKG.parent / "build" / "jrlqp_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signature of every entry point: pointers and the stream as void*,
-# sizes as int (ctypes would otherwise pass a pointer as a 32-bit int)
+# sizes as int, thresholds as double (ctypes would otherwise pass a pointer
+# as a 32-bit int)
 _SIGNATURES = {
     "jrlqp_chol_inv_b": [_P, _P, _P, _P, _I, _I, _P],
     # G, Ct, l, u, xl, xu, a; x, u, status, aorder, scal, K, hscale;
@@ -58,6 +59,10 @@ _SIGNATURES = {
     + [_P],
     # Lo, Li, r; y; B, nb, s, k, up; stream
     "jrlqp_block_arrow_solve": [_P] * 4 + [_I] * 5 + [_P],
+    # K10: C^T, l, u, xl, xu; the state in place: x, f, J, R, status,
+    # aorder, u, scal; B, n, m, max_iter; big_bnd, zero_z; stream
+    "jrlqp_jr_loop_f64": [_P] * 13 + [_I] * 4 + [_D] * 2 + [_P],
+    "jrlqp_jr_loop_f32": [_P] * 13 + [_I] * 4 + [_D] * 2 + [_P],
 }
 
 _lock = threading.Lock()

@@ -16,9 +16,9 @@ engine there (a wait, a ctypes launch and most torch ops release the GIL),
 on the caller's current stream of each card.
 A card that the mesh names several times gets one thread, which solves its
 shards one after another. The caller joins every thread, then gathers and
-reduces. The host-loop engines ("f64", "refined") solve their shards one
-after another in the caller's thread (``_THREADED_ENGINES``): their Python
-loop, not the card, bounds them, and threads made them slower.
+reduces. The engines "f64" and "refined" solve their shards one after
+another in the caller's thread (``_THREADED_ENGINES``): threads made them
+slower when both were Python loops that waited on the card at every pass.
 
 A :class:`Mesh` is an ordered list of ``torch.device``s and an axis name.
 :func:`make_mesh` takes the CUDA devices and raises where there are fewer
@@ -127,11 +127,12 @@ def _solve_shard(pb: QPProblem, opt: SolverOptions, engine: str,
     return solve_batch(pb, opt)
 
 
-# The engines whose shards run on a thread per card. The host-loop engines
-# ("f64", "refined": a Python loop of masked passes that waits on the card
-# at every pass) solve their shards one after another in the caller's
-# thread: their host work is the bottleneck, and on four H100s a thread
-# per card ran the f64 engine 5.8x slower than one thread (PERF.md §6)
+# The engines whose shards run on a thread per card. "refined" (a Python
+# loop of masked passes that waits on the card at every pass) and "f64"
+# solve their shards one after another in the caller's thread: on four
+# H100s a thread per card ran "f64" 5.8x slower than one thread when it
+# too was such a loop (PERF.md §6); now the torch init and one K10 launch,
+# it stays here until measured on threads (ROADMAP P5)
 _THREADED_ENGINES = ("pallas",)
 
 
@@ -275,8 +276,8 @@ def solve_sharded(
     its kernels there or raises; another engine name raises. The "pallas"
     engine's shards are solved at the same time, each card's (each CPU
     shard's) on a thread of its own, a card's several shards one after
-    another; the host-loop engines' shards one after another in this
-    thread. Every shard's work is on this thread's current stream of its
+    another; the "f64" and "refined" engines' shards one after another in
+    this thread. Every shard's work is on this thread's current stream of its
     card. An error in any shard is raised here once every shard has
     ended. Each lane is what solving its shard alone gives.
     Returns ``(result, stats)``: the result in input order on the first

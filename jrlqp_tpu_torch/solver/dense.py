@@ -5,12 +5,17 @@ DualSolver.cpp:91-168 with the dense hooks of GoldfarbIdnaniSolver.cpp:
 56-338). The H100 runs f64 natively, so this is the port's ``solve`` and
 ``solve_batch`` and the f64 rescue of lanes the f32 kernels fail.
 
-Every lane of the batch runs as one masked pass: :func:`gi_iteration`
-computes the selection and the step for all lanes, the Householder add for
-all lanes and the Givens removal over the rows where some lane removes,
-then selects per lane, as ``vmap`` of the JAX function does. The loop
-(:func:`run_loop`) is a host loop while any lane is RUNNING; a lane that
-reaches ``opt.max_iter`` ends MAX_ITER_REACHED there.
+The loop (:func:`run_loop`), which the JAX package compiles into one
+``lax.while_loop``, is one launch of the CUDA kernel K10 on a card
+(``ops/cuda/jr_kernel.py``, ``csrc/jr_kernel.cu``): a thread block per
+lane, its iterations back to back. Its plain version
+(:func:`jr_loop_plain`) and the hooked loop of the structured solver and
+the tracer run masked passes: :func:`gi_iteration` computes the selection
+and the step for all lanes, the Householder add for all lanes and the
+Givens removal over the rows where some lane removes, then selects per
+lane, as ``vmap`` of the JAX function does, in a host loop while any lane
+is RUNNING. A lane that reaches ``opt.max_iter`` ends MAX_ITER_REACHED
+there.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ from ..validation import inconsistent_mask
 from .state import GIResult, GIState, initial_state
 
 __all__ = ["solve", "solve_batch", "init_state", "gi_iteration", "run_loop",
-           "finalize"]
+           "jr_loop_plain", "finalize"]
 
 
 def _bmv(A, v):
@@ -383,12 +388,15 @@ def init_state(pb: QPProblem, opt: SolverOptions) -> GIState:
     return _replay_equalities(pb, state, opt)
 
 
-def run_loop(pb: QPProblem, state: GIState, opt: SolverOptions,
-             select_fn=None, step_fn=None, on_pass=None) -> GIState:
-    """:func:`gi_iteration` until no lane is RUNNING (dense.py:392-410). A
+def jr_loop_plain(pb: QPProblem, state: GIState, opt: SolverOptions,
+                  select_fn=None, step_fn=None, on_pass=None) -> GIState:
+    """:func:`gi_iteration` until no lane is RUNNING (dense.py:392-410), one
+    masked pass over the batch per iteration and a host sync after each. A
     lane that reaches ``opt.max_iter`` while RUNNING ends MAX_ITER_REACHED
-    there, so it stops where its own loop would. ``on_pass(before,
-    after)``, if given, sees every pass (the tracer records with it)."""
+    there, so it stops where its own loop would. Without hooks it is the
+    plain PyTorch version of K10 (``ops/cuda/jr_kernel.py``);
+    ``on_pass(before, after)``, if given, sees every pass (the tracer
+    records with it)."""
     while True:
         capped = (state.term == RUNNING) & (state.it >= opt.max_iter)
         state = dataclasses.replace(state, term=torch.where(
@@ -399,6 +407,22 @@ def run_loop(pb: QPProblem, state: GIState, opt: SolverOptions,
         if on_pass is not None:
             on_pass(state, nxt)
         state = nxt
+
+
+def run_loop(pb: QPProblem, state: GIState, opt: SolverOptions,
+             select_fn=None, step_fn=None, on_pass=None) -> GIState:
+    """Run the GI loop from ``state`` until no lane is RUNNING
+    (dense.py:392-410). Without hooks it is one launch of K10 on a CUDA
+    state (``ops/cuda/jr_kernel.jr_loop``), each lane's iterations back to
+    back, and :func:`jr_loop_plain` on a CPU one. ``select_fn`` and
+    ``step_fn`` (the structured solver's block-sparse hooks) or
+    ``on_pass`` (the tracer) run :func:`jr_loop_plain` with them."""
+    if select_fn is None and step_fn is None and on_pass is None:
+        # imported here: jr_kernel imports this module
+        from ..ops.cuda.jr_kernel import jr_loop
+
+        return jr_loop(pb, state, opt)
+    return jr_loop_plain(pb, state, opt, select_fn, step_fn, on_pass)
 
 
 def finalize(pb: QPProblem, state: GIState) -> GIResult:
@@ -413,8 +437,8 @@ def solve_batch(pbs: QPProblem, opt: SolverOptions = SolverOptions()
                 ) -> GIResult:
     """Solve a batch of QPs with the dense Goldfarb-Idnani dual active-set
     method in the problems' dtype (counterpart of ``vmap`` of
-    ``jrlqp_tpu.solve``, dense.py:443-446). Runs on the problems' device;
-    launches no kernel of its own."""
+    ``jrlqp_tpu.solve``, dense.py:443-446). Runs on the problems' device:
+    the torch init, then one launch of K10 on a card (:func:`run_loop`)."""
     return finalize(pbs, run_loop(pbs, init_state(pbs, opt), opt))
 
 

@@ -32,7 +32,8 @@ def solve_mixed(pbs: QPProblem, opt: SolverOptions = SolverOptions()
                 ) -> GIResult:
     """Solve a batch in f32, refine in f64. Returns a float64 result whose
     ``iterations`` counts the f32 iterations plus the f64 ones. Runs on the
-    problems' device and launches no kernel."""
+    problems' device: on a card, one launch of K10 in f32, then the f64
+    warm init and one launch of K10 in f64."""
     res32 = solve_batch(pbs.with_dtype(torch.float32),
                         opt.with_(dtype=torch.float32,
                                   zero_z_threshold=F32_ZERO_Z))

@@ -1,10 +1,12 @@
-"""The port's kernels (K1-K9) on a CUDA card, held against their plain
+"""The port's kernels (K1-K10) on a CUDA card, held against their plain
 PyTorch versions on the same card; the launch counts of the structured
 path, the compact-slot path, the trajectory capture and the rescue; the
 box solve, the sharded solve on one card and on several (its shards at the
 same time, by CUDA events) and K3 at the corpus's largest
 bucket; K1 at the size sweep's largest row, the compacted solve and the
-harness's kernel rows; the default device; the lanes of the miss census
+harness's kernel rows; K10 (the J/R engine's loop) against its plain
+version on each lane kind, and a lane alone against its batch; the
+default device; the lanes of the miss census
 (``tests/data/missed_lanes_port.npz`` and ``missed_lanes_jax.npz``), each
 solved alone by its path's kernel and plain version to its recorded
 outcome; and the numpy batch generators that the CPU tests share.
@@ -38,10 +40,10 @@ from jrlqp_tpu_torch import (
     stack_problems,
 )
 from jrlqp_tpu_torch.bench import bench_warm_start_trajectory, time_batch
-from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
+from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel, jr_kernel
 from jrlqp_tpu_torch.parallel import make_mesh, shard_batch, solve_sharded
 from jrlqp_tpu_torch.parallel import mesh as mesh_mod
-from jrlqp_tpu_torch.solver import fast
+from jrlqp_tpu_torch.solver import dense, fast
 from jrlqp_tpu_torch.structured import (
     GType,
     solve_structured_fast_batch,
@@ -1325,3 +1327,203 @@ def test_warm_start_trajectory_runs_k4_steps(cuda_device):
     assert [a - b for a, b in zip(_launches(), before)] == [5, 0, 3, 0]
     assert row["warm_success"] >= 0.99 and row["cold_success"] >= 0.99
     assert row["warm_mean_it"] < row["cold_mean_it"]
+
+
+# ---- K10, the J/R engine's loop ----
+
+def jr_card_batch(n, m, batch, seed):
+    """The lane kinds of tests/test_torch_jr_kernel.py at (n, m): a quarter
+    each of act_frac 0.3 (adds), 0.9 (removals; q reaches n where m >= n),
+    equality rows and fixed variables (the replay), and the box
+    [-0.6, 0.6]^n on every variable (all lanes when m = 0), then one lane
+    with G = I that ends INFEASIBLE in exact arithmetic (m >= 1): x_0 >= 1
+    against x_0 <= -1."""
+    k = batch // 4
+    parts = [np_qp_batch(seed + i, k, n, m, af)
+             for i, af in enumerate((0.3, 0.9, 0.5, 0.5))]
+    if m > 0:
+        parts[2]["l"][::2, 0] = parts[2]["u"][::2, 0]
+    parts[2]["xl"][1::3, 2] = parts[2]["xu"][1::3, 2] = 0.3
+    for p in parts[3:] if m > 0 else parts:
+        p["xl"][:] = np.maximum(p["xl"], -0.6)
+        p["xu"][:] = np.minimum(p["xu"], 0.6)
+    if m > 0:
+        lane = dict(G=np.eye(n)[None], a=np.zeros((1, n)),
+                    C=np.zeros((1, m, n)), l=np.full((1, m), -np.inf),
+                    u=np.full((1, m), np.inf), xl=np.full((1, n), -np.inf),
+                    xu=np.full((1, n), np.inf))
+        lane["C"][0, 0, 0], lane["l"][0, 0] = 1.0, 1.0
+        if m > 1:
+            lane["C"][0, 1, 0], lane["u"][0, 1] = 1.0, -1.0
+        else:
+            lane["xu"][0, 0] = -1.0
+        parts.append(lane)
+    return {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+
+
+def _jr_opt(dtype, **kw):
+    if dtype == torch.float32:
+        kw = {"zero_z_threshold": 1e-6, **kw}
+    return SolverOptions(dtype=dtype, **kw)
+
+
+def _same_lanes(a, b):
+    return ((a.term == b.term) & (a.it == b.it)
+            & (a.status == b.status).all(dim=1))
+
+
+def _deciding_margins(pb, state, opt):
+    """At a state where K10 and the plain version part on their next
+    iteration: the selection's violation (its test: < 0), the steps t1 and
+    t2 with their relative gap (full step where t2 <= t1) and |z| over the
+    zero-z threshold (a primal step where > 1), from the plain version's
+    own functions on the lane."""
+    sel_idx, sel_st, viol = dense._select_violated(pb, state.x, state.status)
+    skip = state.skip1
+    idx = torch.where(skip, state.sc_idx, sel_idx)
+    st = torch.where(skip, state.sc_status, sel_st)
+    k = torch.arange(pb.n + 1, device=state.x.device)[None, :]
+    u = torch.where(~skip[:, None] & (k == state.q.long()[:, None]), 0.0,
+                    state.u)
+    st1 = dataclasses.replace(state, u=u, sc_idx=idx, sc_status=st)
+    nplus, _, z, r = dense._compute_step(pb, state.J, state.R, state.q, idx,
+                                         st)
+    t1, t2, _, _ = dense._step_length(pb, st1, opt, nplus, z, r, u)
+    t1, t2 = float(t1[0]), float(t2[0])
+    return {"viol": float(viol[0]), "t1": t1, "t2": t2,
+            "t_gap": (abs(t1 - t2) / max(abs(t1), abs(t2), 1e-300)
+                      if np.isfinite([t1, t2]).all() else float("inf")),
+            "znorm_over_threshold": float(torch.linalg.vector_norm(z))
+            / opt.zero_z_threshold}
+
+
+def _parting(pb, st0, opt, lane):
+    """(first iteration at which K10 and the plain version part on
+    ``lane``, the deciding margins there), the lane solved alone."""
+    one = pb._map(lambda t: t[lane:lane + 1])
+    s1 = dataclasses.replace(st0, **{f.name: getattr(st0, f.name)[
+        lane:lane + 1] for f in dataclasses.fields(st0)})
+
+    def at(cap):
+        o = opt.with_(max_iter=cap)
+        a, b = jr_kernel.jr_loop(one, s1, o), dense.jr_loop_plain(one, s1, o)
+        return (bool(_same_lanes(a, b).all()) and torch.equal(a.q, b.q)
+                and torch.equal(a.aorder, b.aorder)), b
+
+    lo, hi = int(s1.it[0]), opt.max_iter
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if at(mid)[0] else (lo, mid)
+    return hi, _deciding_margins(one, at(lo)[1], opt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("m", [0, 1, 100, 128])
+@pytest.mark.parametrize("n", [10, 50, 128])
+def test_jr_loop_kernel_matches_plain(cuda_device, n, m, dtype):
+    # f64: the same status, iterations and active set on every lane, x
+    # within 1e-10 max(1, |x|) (the same algorithm in another summation
+    # order); f32: the same on >= 0.99 of the lanes, x within 1e-3 max(1,
+    # |x|); each lane that parts printed with its first parting iteration
+    # and deciding margins
+    batch = 64 if dtype == torch.float64 else 256
+    d = jr_card_batch(n, m, batch, seed=n + m)
+    pb = problem_from_numpy(**d, device=cuda_device).with_dtype(dtype)
+    for opt in (_jr_opt(dtype, max_iter=4 * n + m),
+                _jr_opt(dtype, max_iter=5)):
+        st0 = dense.init_state(pb, opt)
+        before = jr_kernel.launches
+        got = jr_kernel.jr_loop(pb, st0, opt)
+        torch.cuda.synchronize()
+        assert jr_kernel.launches == before + 1
+        want = dense.jr_loop_plain(pb, st0, opt)
+        same = _same_lanes(got, want)
+        parting = torch.nonzero(~same)[:, 0].tolist()
+        for lane in parting:
+            print(f"n={n} m={m} {dtype} max_iter={opt.max_iter} lane {lane}"
+                  f": {_parting(pb, st0, opt, lane)}")
+        # x is held where it is an answer: an INFEASIBLE lane is held by
+        # its status, iterations and active set alone, as the CPU tests
+        # hold one (its last iterate rounds apart by up to ~1e-10 at
+        # n = 128)
+        answer = same & (want.term != 3)
+        rel = ((got.x - want.x).abs().amax(dim=1)
+               / want.x.abs().amax(dim=1).clamp_min(1.0))
+        err = float(rel[answer].max())
+        print(f"n={n} m={m} {dtype} max_iter={opt.max_iter}: "
+              f"{len(parting)} of {batch + (m > 0)} lanes part, max |x err| "
+              f"/ max(1, |x|) {err!r} (with the INFEASIBLE lanes "
+              f"{float(rel[same].max())!r})")
+        if dtype == torch.float64:
+            assert parting == [] and err <= 1e-10, err
+        else:
+            assert float(same.double().mean()) >= 0.99 and err <= 1e-3, err
+    terms = set(want.term.tolist())
+    assert 3 in terms or m == 0            # the INFEASIBLE lane
+    assert 4 in terms                       # the cap of 5 iterations
+
+
+@pytest.mark.cuda
+def test_jr_loop_kernel_lane_alone_equals_its_batch(cuda_device):
+    # a lane's result is a function of its own inputs: alone, or in
+    # another place of another batch, it is bit for bit the same
+    pb = problem_from_numpy(**np_qp_batch(31, 1024, 50, 100, 0.3),
+                            device=cuda_device)
+    opt = SolverOptions(max_iter=150)
+    st0 = dense.init_state(pb, opt)
+    out = jr_kernel.jr_loop(pb, st0, opt)
+    rev = torch.arange(99, -1, -1, device=cuda_device)
+    out_rev = jr_kernel.jr_loop(pb._map(lambda t: t[rev]), dataclasses.replace(
+        st0, **{f.name: getattr(st0, f.name)[rev]
+                for f in dataclasses.fields(st0)}), opt)
+    for i in (0, 1, 57, 511, 1023):
+        alone = jr_kernel.jr_loop(
+            pb._map(lambda t: t[i:i + 1]), dataclasses.replace(
+                st0, **{f.name: getattr(st0, f.name)[i:i + 1]
+                        for f in dataclasses.fields(st0)}), opt)
+        for f in dataclasses.fields(out):
+            assert torch.equal(getattr(alone, f.name)[0],
+                               getattr(out, f.name)[i]), (i, f.name)
+            if i < 100:
+                assert torch.equal(getattr(out_rev, f.name)[99 - i],
+                                   getattr(out, f.name)[i]), (i, f.name)
+
+
+@pytest.mark.cuda
+def test_solve_batch_launches_k10_once(cuda_device):
+    # the torch init, then one K10 launch and no f32 kernel; an empty batch
+    # launches nothing; the hooked loop (on_pass) launches nothing either
+    d, max_iter = make_case("eq_fixed")
+    opt = SolverOptions(max_iter=max_iter)
+    pb = problem_from_numpy(**d, device=cuda_device)
+    before, k10 = _launches(), jr_kernel.launches
+    res = solve_batch(pb, opt)
+    torch.cuda.synchronize()
+    assert jr_kernel.launches == k10 + 1 and _launches() == before
+    _assert_same_result(res, solve_batch(problem_from_numpy(**d,
+                                                            device="cpu"),
+                                         opt), x_tol=1e-10)
+    empty = solve_batch(pb._map(lambda t: t[:0]), opt)
+    assert empty.x.shape == (0, pb.n) and jr_kernel.launches == k10 + 1
+    dense.run_loop(pb, dense.init_state(pb, opt), opt,
+                   on_pass=lambda a, b: None)
+    assert jr_kernel.launches == k10 + 1
+
+
+@pytest.mark.cuda
+def test_jr_loop_kernel_linear_dependency(cuda_device):
+    # a full step onto a normal dependent on the active set (possible only
+    # with zero_z_threshold < 0): LINEAR_DEPENDENCY_DETECTED, as the plain
+    # version, in exact arithmetic on an axis-aligned lane
+    n, m = 5, 3
+    d = dict(G=np.eye(n)[None], a=np.zeros((1, n)), C=np.zeros((1, m, n)),
+             l=np.full((1, m), -np.inf), u=np.full((1, m), np.inf),
+             xl=np.full((1, n), -np.inf), xu=np.full((1, n), np.inf))
+    d["a"][0, 0], d["xl"][0, 0] = 1.0, 0.0
+    d["C"][0, 0, 0], d["l"][0, 0] = 0.1, 0.05
+    opt = SolverOptions(zero_z_threshold=-1.0)
+    for dev in (cuda_device, "cpu"):
+        res = solve_batch(problem_from_numpy(**d, device=dev), opt)
+        assert int(res.status[0]) == 5 and int(res.iterations[0]) == 2
