@@ -38,16 +38,26 @@ width (9 robots x 43 dof, n=387, m=36):
    identity, as the path calls it, against an unpadded factor or rhs,
    copied per call);
 9. the structured cold batch ``solve_structured_fast_batch`` at batch 1024
-   (K5 + K6, the torch GI loop, f64 refinement), gated like the main path
-   and held against the port's dense engine ``solve_refined``; the two
-   arrow layouts (K7 + K8) gated alike; solves/s of the kernel route, the
-   composed ``"blocks"`` route and the dense engine, and the time split;
+   (K5 + K6, the GI loop in one K11 launch, f64 refinement), gated at a
+   pass rate of 1.0 and held against the port's dense engine
+   ``solve_refined``; the two arrow layouts (K7 + K8 + K11) gated alike;
+   solves/s of the kernel route, the composed ``"blocks"`` route and the
+   dense engine, and the time split; K11 (the explicit-form loop) against
+   its plain version on the cold batch's own state and at the headline set
+   (batch 1024, f32 and f64; the same status, iterations, active count and
+   active set on >= 0.99 of the lanes in f32, every lane in f64, each lane
+   that parts printed with its first parting iteration and deciding
+   margins, ``testing.fast_parting``), with its device ms, the plain
+   version's, its bound, the time of the bytes its design streams, and its
+   launch configuration (threads, shared bytes, blocks per SM, registers);
 10. the IK trajectory: a cold step and 9 warm steps of
-   ``solve_structured_fast_carry`` at batch 1024 (10,240 solves), fresh
-   0.02 N(0, 1) noise on a and a 0.02 N(0, 1) shift of l and u per step,
-   each gated and held against a cold solve of the step;
+   ``solve_structured_fast_carry`` at batch 1024 (10,240 solves; K5 and K6
+   on the cold step, K11 once per step), fresh 0.02 N(0, 1) noise on a and
+   a 0.02 N(0, 1) shift of l and u per step, each gated at a pass rate of
+   1.0 and held against a cold solve of the step;
 11. K9 (the compact-slot loop) against its plain version, 1024 lanes from
-   the torch cold init, and lane for lane against the torch XLA loop;
+   the torch cold init, and lane for lane against the XLA engine's loop
+   in its plain version (``fast.fast_loop_plain``);
 12. the compact path ``solve_refined_kernel_compact`` at batch 16384 (one
    K9 launch, no K1), gated like the main path, with solves/s beside the
    main path's and the split: init, prepare, K9, remap, refinement;
@@ -66,9 +76,10 @@ width (9 robots x 43 dof, n=387, m=36):
    within 1e-7), ``solve_warm`` from its active set (0 iterations), and
    ``solve_structured`` at the IK width, batch 256, against
    ``solve_structured_fast_batch``;
-15. observability on 256 lanes: ``solve_fast_traced`` against its
-   untraced solve and ``solve_traced`` against K10's plain version (bit for
-   bit) and ``solve_batch`` (K10, lane for lane),
+15. observability on 256 lanes: ``solve_fast_traced`` against K11's plain
+   version (bit for bit) and ``solve_fast`` (K11, lane for lane), and
+   ``solve_traced`` against K10's plain version (bit for bit) and
+   ``solve_batch`` (K10, lane for lane),
    ``capture_kernel_trajectory`` on one lane
    (one K9 launch per cap) against the f32 fast trace, ``dump_matlab``, and
    ``no_retrace`` around repeated solves at two shapes;
@@ -79,7 +90,8 @@ width (9 robots x 43 dof, n=387, m=36):
    f64), gated like the main path and held against the f64 ``solve_batch``;
 17. ``solve_refined_kernel(..., fused_init=False)`` (the torch init, then
    K3) at batch 16384, gated like the main path; ``solve_sharded`` with the
-   engines "pallas" (K1, then K3) and "f64" (K10) over ``make_mesh()``
+   engines "pallas" (K1, then K3), "f64" (K10) and "refined" (K11) over
+   ``make_mesh()``
    (every card; the cards' K1 and K3 shards solved at the same time, a host
    thread per card) and over four shards on ``cuda:0`` (one after another on the
    card's one stream), each lane for lane
@@ -142,11 +154,15 @@ Every kernel's line in the JSON record carries ``bound_ms``, the least time
 the card could take for the kernel's work on this run's inputs: the larger
 of the bytes it must move (each input read once, each output written once)
 at 3.35 TB/s and its operations at 67 TFLOP/s (f32 outside the tensor
-cores; H100 SXM data sheet), or 33.5 TFLOP/s for K10 in f64. Both are
+cores; H100 SXM data sheet), or 33.5 TFLOP/s for K10 and K11 in f64. Both are
 counted at the unpadded sizes, from this run's iteration and active counts,
 with triangular factors counted as triangles, by ``_gi_flops``,
-``_gi_bytes``, ``jr_kernel.jr_flops``, ``jr_kernel.jr_bytes`` and the phase
-4 and 8 blocks.
+``_gi_bytes``, ``jr_kernel.jr_flops``, ``jr_kernel.jr_bytes``,
+``fast_loop.fast_loop_flops``, ``fast_loop.fast_loop_bytes`` and the phase
+4 and 8 blocks. Phase 9's own K11 line (not the ``kernels`` line) also
+carries ``stream_ms``, a model and not a measurement: the bytes K11's
+design moves (H, N* and G stay in device memory and are streamed every
+iteration, ``fast_loop.fast_loop_stream_bytes``) over 3.35 TB/s.
 ``library_ms`` is the time of PyTorch's own calls for the same function
 where there are some: ``torch.linalg.cholesky_ex`` then
 ``torch.linalg.solve_triangular`` on the identity beside K2 (two calls,
@@ -330,7 +346,13 @@ def main() -> int:
         solve_traced,
         solve_warm,
     )
-    from jrlqp_tpu_torch.ops.cuda import _build, block_llt, gi_kernel, jr_kernel
+    from jrlqp_tpu_torch.ops.cuda import (
+        _build,
+        block_llt,
+        fast_loop,
+        gi_kernel,
+        jr_kernel,
+    )
     from jrlqp_tpu_torch.solver import dense, fast
     from jrlqp_tpu_torch.structured import (
         GType,
@@ -359,7 +381,12 @@ def main() -> int:
     from jrlqp_tpu_torch.bench import harness
     from jrlqp_tpu_torch.io import native, read_qps
     from jrlqp_tpu_torch.types import MAX_ITER_REACHED
-    from jrlqp_tpu_torch.testing import k1_replay, miss_census, op_split
+    from jrlqp_tpu_torch.testing import (
+        fast_parting,
+        k1_replay,
+        miss_census,
+        op_split,
+    )
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -380,6 +407,7 @@ def main() -> int:
         block_llt.arrow_llt_launches = 0
         block_llt.arrow_solve_launches = 0
         jr_kernel.launches = 0
+        fast_loop.launches = 0
 
     def counts():
         return {"gi_fused": gi_kernel.launches,
@@ -391,7 +419,8 @@ def main() -> int:
                 "tri_block_solve": block_llt.tri_solve_launches,
                 "block_arrow_llt": block_llt.arrow_llt_launches,
                 "block_arrow_solve": block_llt.arrow_solve_launches,
-                "jr_loop": jr_kernel.launches}
+                "jr_loop": jr_kernel.launches,
+                "fast_loop": fast_loop.launches}
 
     def drifted(pb, scale):
         """``pb`` with l and u shifted together by scale * N(0, 1)."""
@@ -1032,12 +1061,11 @@ def main() -> int:
     torch.cuda.synchronize()
     cold_counts = counts()
     print(f"structured cold batch launches: {cold_counts}")
-    _require(cold_counts["tri_block_llt"] == 1
-             and cold_counts["tri_block_solve"] == 1
-             and sum(cold_counts.values()) == 2,
-             "the structured cold batch did not run K5 and K6 once each "
-             "(and nothing else)")
-    rate9, kkt9, _ = gate("structured cold batch", res9, pb9)
+    _require({k: v for k, v in cold_counts.items() if v}
+             == {"tri_block_llt": 1, "tri_block_solve": 1, "fast_loop": 1},
+             "the structured cold batch did not run K5, K6 and K11 once "
+             "each (and nothing else)")
+    rate9, kkt9, _ = gate("structured cold batch", res9, pb9, 1.0)
     dense9 = fast.solve_refined(pb9, opt_ik, ir_steps=IK_IR_STEPS)
     same_st = int((res9.status != dense9.status).sum())
     same_as = int((res9.active_set != dense9.active_set).any(dim=1).sum())
@@ -1064,9 +1092,10 @@ def main() -> int:
         torch.cuda.synchronize()
         arrow_counts[gtype.name] = c = counts()
         print(f"structured cold batch ({gtype.name}) launches: {c}")
-        _require(c["block_arrow_llt"] == 1 and c["block_arrow_solve"] == 1
-                 and sum(c.values()) == 2,
-                 f"{gtype.name}: did not run K7 and K8 once each")
+        _require({k: v for k, v in c.items() if v}
+                 == {"block_arrow_llt": 1, "block_arrow_solve": 1,
+                     "fast_loop": 1},
+                 f"{gtype.name}: did not run K7, K8 and K11 once each")
         rate_a, kkt_a, _ = gate(f"structured {gtype.name}", res_a,
                                 structured_qp_problem(*args_a))
         print(f"structured cold batch ({gtype.name}): rate {rate_a!r}, "
@@ -1115,9 +1144,87 @@ def main() -> int:
     split9()
     parts = min((split9() for _ in range(3)), key=sum)
     print(f"structured cold batch split, wall ms ({card}): dense problem "
-          f"{parts[0]!r}, K5+K6 {parts[1]!r}, init + torch loop "
+          f"{parts[0]!r}, K5+K6 {parts[1]!r}, init + K11 "
           f"{parts[2]!r}, refinement {parts[3]!r}")
     del dense9
+
+    # K11 (the explicit-form loop) against its plain version: the IK cold
+    # batch's own state (K5 + K6, then the torch init), and the headline
+    # set at batch 1024 in f32 and f64
+    def k11_against_plain(name, pb_, st0_, opt_, min_same, x_tol):
+        """K11's state against the plain version's from ``st0_``
+        (``testing.fast_parting.against_plain``): status, iterations,
+        active count and active set equal on >= min_same of the lanes,
+        every lane that parts at a near tie of its first parting iteration
+        (printed with the deciding margins of both sides) and with sound
+        outcomes on both sides (``fast_parting.outcomes``), x within x_tol
+        max(1, |x|) on the same lanes whose x is an answer. Returns (K11's
+        state, the same share, the relative and the absolute x error, the
+        partings)."""
+        cmp = fast_parting.against_plain(pb_, st0_, opt_)
+        share = float(cmp["same"].double().mean())
+        err, partings = cmp["rel_x_err"], cmp["partings"]
+        print(f"{name} vs plain: {len(partings)} of {len(cmp['same'])} lanes "
+              f"part: {partings}; max |x err| / max(1, |x|) on the rest "
+              f"{err!r}")
+        _require(share >= min_same, f"{name}: the same lanes {share} < "
+                 f"{min_same}")
+        _require(all(p["near_ties"] for p in partings.values()),
+                 f"{name}: a lane parts at no near tie")
+        _require(all(p["outcome"]["sound"] for p in partings.values()),
+                 f"{name}: a parting lane's outcomes are not sound together")
+        _require(err <= x_tol, f"{name}: x differs by {err} > {x_tol}")
+        return cmp["k11"], share, err, cmp["abs_x_err"], partings
+
+    def k11_row(name, pb_, st0_, opt_, min_same, x_tol, peak):
+        """K11 held to its plain version, its device ms (best of 3) and
+        the plain version's (1 run), the bound and the streamed bytes'
+        time."""
+        B_, n_ = st0_.x.shape
+        m_ = pb_.m
+        got, share, err, abs_err, partings = k11_against_plain(
+            name, pb_, st0_, opt_, min_same, x_tol)
+        its = got.it - st0_.it
+        isz = st0_.x.element_size()
+        bd = _bound(fast_loop.fast_loop_flops(its, st0_.q, got.q, n_, m_),
+                    fast_loop.fast_loop_bytes(B_, n_, m_, isz), peak)
+        return {
+            "batch": B_, "n": n_, "m": m_, "dtype": str(st0_.x.dtype),
+            "ms": _cuda_ms(lambda: fast_loop.fast_loop(pb_, st0_, opt_)),
+            "plain_ms": _cuda_ms(lambda: fast.fast_loop_plain(
+                pb_, st0_, opt_), reps=1),
+            "bound_ms": bd[0], "bound_by": bd[1],
+            "stream_ms": 1e3 * fast_loop.fast_loop_stream_bytes(
+                its, st0_.q, got.q, n_, m_, isz) / PEAK_BW,
+            "iterations": int(its.sum()), "max_it": int(its.max()),
+            "same_lanes": share, "max_rel_x_err": err,
+            "max_abs_x_err": abs_err,
+            "partings": {str(k): v for k, v in partings.items()},
+            "config": fast_loop.fast_loop_config(n_, m_, st0_.x.dtype)}
+
+    sg9, a9, sc9, lo9, up9 = args9
+    _, pb32_9, opt32_9 = ssolver._problems(sg9, a9, sc9, lo9, up9, None,
+                                           None, opt_ik)
+    H9, pd9 = ssolver._structured_inverse_kernel_batch(
+        sg9.diag.to(f32), sg9.off.to(f32), sg9.gtype)
+    H9 = torch.where(pd9[:, None, None], H9, torch.eye(n_ik, device=dev))
+    st0_9 = fast._init_fast_from_ops(
+        pb32_9, H9, torch.where(pd9[:, None], -fast._bmv(H9, pb32_9.a), 0.0),
+        pd9, opt32_9)
+    k11 = {"IK cold": k11_row("K11 (IK cold, f32)", pb32_9, st0_9, opt32_9,
+                              0.99, 1e-3, PEAK_F32)}
+    del H9, st0_9
+    pbh = random_qp_batch(gen, CHECK_BATCH, N, M, ACT_FRAC, dtype=f32)
+    opt_h32 = opt.with_(dtype=f32, zero_z_threshold=1e-6)
+    k11["headline f32"] = k11_row(
+        "K11 (headline, f32)", pbh, fast._init_fast(pbh, opt_h32), opt_h32,
+        0.99, 1e-3, PEAK_F32)
+    pbh64 = pbh.with_dtype(f64)
+    k11["headline f64"] = k11_row(
+        "K11 (headline, f64)", pbh64, fast._init_fast(pbh64, opt), opt, 1.0,
+        1e-10, PEAK_F64)
+    print(json.dumps({"phase": 9, "K11": k11, "card": card}))
+    del pbh, pbh64
 
     # ---- phase 10: the IK trajectory (a cold step, then warm steps) ----
     rng = np.random.default_rng(SEED + 1)
@@ -1138,18 +1245,18 @@ def main() -> int:
     traj_ik_counts = counts()
     print(f"IK trajectory launches (cold step + {IK_STEPS - 1} warm steps): "
           f"{traj_ik_counts}")
-    _require(traj_ik_counts["tri_block_llt"] == 1
-             and traj_ik_counts["tri_block_solve"] == 1
-             and sum(traj_ik_counts.values()) == 2,
-             "the IK trajectory launched K5-K8 other than once on the cold "
-             "step")
+    _require({k: v for k, v in traj_ik_counts.items() if v}
+             == {"tri_block_llt": 1, "tri_block_solve": 1,
+                 "fast_loop": IK_STEPS},
+             "the IK trajectory did not launch K5 and K6 once (the cold "
+             "step) and K11 once per step, and nothing else")
     rows_ik = []
     for i, (r_, d) in enumerate(zip(results, traj)):
         args_s = ik_args(d)
         pb_s = structured_qp_problem(*args_s)
         res_c = solve_structured_fast_batch(*args_s, opt=opt_ik,
                                             ir_steps=IK_IR_STEPS)
-        rate, max_kkt, passed = gate(f"IK step {i}", r_, pb_s)
+        rate, max_kkt, passed = gate(f"IK step {i}", r_, pb_s, 1.0)
         passed_c = ((kkt_residual(res_c.x, res_c.multipliers, pb_s) <= 1e-8)
                     & (res_c.status == 0))
         same = (r_.active_set == res_c.active_set).all(dim=1)
@@ -1187,10 +1294,10 @@ def main() -> int:
     ok_p = gi_kernel.gi_compact_plain(pb11, st11, MAX_ITER)
     torch.cuda.synchronize()
     k9_err = against_plain("K9", ok_k, ok_p, pb11.with_dtype(f64))
-    xla = fast._run_loop(pb11, st11, opt32)
+    xla = fast.fast_loop_plain(pb11, st11, opt32)
     ok_x = {f.name: getattr(xla, f.name) for f in dataclasses.fields(xla)}
     ok_x["u"] = xla.u[:, :N]
-    against_plain("K9 (reference: the torch XLA loop)", ok_k, ok_x,
+    against_plain("K9 (reference: the XLA engine's plain loop)", ok_k, ok_x,
                   pb11.with_dtype(f64))
     del pb11, st11, ok_k, ok_p, ok_x, xla
 
@@ -1481,8 +1588,13 @@ def main() -> int:
         return dense.finalize(p_, dense.jr_loop_plain(
             p_, dense.init_state(p_, o_), o_))
 
+    def fast_plain(p_, o_):
+        """solve_fast with K11's plain version in place of K11."""
+        return dense.finalize(p_, fast.fast_loop_plain(
+            p_, fast._init_fast(p_, o_), o_))
+
     for name, traced, plain, p_, o_ in (
-            ("solve_fast_traced (f32)", solve_fast_traced, solve_fast,
+            ("solve_fast_traced (f32)", solve_fast_traced, fast_plain,
              pb15_32, opt32),
             ("solve_traced (J/R, f64)", solve_traced, jr_plain, pb15,
              opt)):
@@ -1501,6 +1613,21 @@ def main() -> int:
                  f"{name}: valid rows != iterations")
         if name.startswith("solve_fast"):
             fast_trace, fast_res = tr, rt
+            # and against solve_fast (K11) lane for lane: f32, so >= 0.99
+            # of the lanes the same (each lane that parts printed), x
+            # within 1e-3 max(1, |x|) on them
+            rk = solve_fast(p_, o_)
+            same15 = ((rt.status == rk.status)
+                      & (rt.iterations == rk.iterations)
+                      & (rt.active_set == rk.active_set).all(dim=1))
+            rel15 = ((rt.x - rk.x).abs().amax(dim=1)
+                     / rt.x.abs().amax(dim=1).clamp_min(1.0))[same15]
+            print(f"{name} vs solve_fast (K11): lanes that part "
+                  f"{torch.nonzero(~same15)[:, 0].tolist()}, max |x err| / "
+                  f"max(1, |x|) {float(rel15.max())!r}")
+            _require(float(same15.double().mean()) >= 0.99
+                     and float(rel15.max()) <= 1e-3,
+                     f"{name}: differs from solve_fast (K11)")
         else:   # and against solve_batch (K10) lane for lane
             rk = solve_batch(p_, o_)
             for k in ("status", "iterations", "active_set"):
@@ -1509,8 +1636,8 @@ def main() -> int:
             _require(float((rt.x - rk.x).abs().max()) <= 1e-10,
                      f"{name}: x differs from solve_batch (K10)")
     print(f"traced solves (batch {OBS_BATCH}): equal to the untraced ones "
-          f"(the J/R one to K10's plain version bit for bit, to K10 lane for "
-          f"lane); the last valid row is x on every lane")
+          f"with the plain versions of K11 and K10 bit for bit, and to K11 "
+          f"and K10 lane for lane; the last valid row is x on every lane")
     n_it = int(fast_res.iterations[0])
     reset_counts()
     cap = capture_kernel_trajectory(pb15._map(lambda v: v[:1]), opt,
@@ -1662,19 +1789,22 @@ def main() -> int:
     # solve_sharded refines with the engines' default ir_steps (3), as the
     # JAX package's does: its unsharded references do the same
     refs17 = {True: solve_refined_kernel(pb17, opt, fused_init=True),
-              False: solve_refined_kernel(pb17, opt, fused_init=False)}
+              False: solve_refined_kernel(pb17, opt, fused_init=False),
+              "refined": fast.solve_refined(pb17, opt)}
     mesh1 = make_mesh()
     cards = tuple(torch.device("cuda", i)
                   for i in range(torch.cuda.device_count()))
     _require(mesh1.devices == cards, f"make_mesh(): {mesh1.devices}, "
              f"expected every card {cards}")
-    sharded_launches = {"gi_fused": 0, "gi_loop": 0, "jr_loop": 0}
+    sharded_launches = {"gi_fused": 0, "gi_loop": 0, "jr_loop": 0,
+                        "fast_loop": 0}
     for label, mesh in ((f"make_mesh() ({mesh1.size} card(s))", mesh1),
                         ("4 shards on cuda:0", make_mesh(devices=[dev] * 4))):
         for engine, fused, pb_, ref in (
                 ("pallas", True, pb17, refs17[True]),
                 ("pallas", False, pb17, refs17[False]),
-                ("f64", False, pb16, ref16)):
+                ("f64", False, pb16, ref16),
+                ("refined", False, pb17, refs17["refined"])):
             name = f"solve_sharded({engine}, fused_init={fused}) over {label}"
             # the timeline's events are recorded in the timed call itself
             # (two per shard and two per kernel; they launch nothing)
@@ -1682,6 +1812,7 @@ def main() -> int:
                 (res, stats), ms, cnt = timed(lambda: solve_sharded(
                     pb_, opt, mesh=mesh, engine=engine, fused_init=fused))
             want = {"jr_loop" if engine == "f64" else
+                    "fast_loop" if engine == "refined" else
                     "gi_fused" if fused else "gi_loop": mesh.size}
             _require({k: v for k, v in cnt.items() if v} == want,
                      f"{name}: launches {cnt}, expected {want}")
@@ -1689,7 +1820,9 @@ def main() -> int:
                 sharded_launches[k] += v
             err = same_lanes(name, res, ref, 1e-10)
             alone = [solve_refined_kernel(shard, opt, fused_init=fused)
-                     if engine == "pallas" else solve_batch(shard, opt)
+                     if engine == "pallas" else
+                     fast.solve_refined(shard, opt) if engine == "refined"
+                     else solve_batch(shard, opt)
                      for shard in shard_batch(pb_, mesh)]
             for f in dataclasses.fields(res):
                 _require(torch.equal(getattr(res, f.name), torch.cat(
@@ -1724,26 +1857,31 @@ def main() -> int:
 
     # ---- phase 18: the corpus ----
     qdir = os.path.join(ROOT, "tests", "data", "qps")
-    corpus_loop_launches = corpus_jr_launches = 0
+    corpus_loop_launches = corpus_jr_launches = corpus_fast_launches = 0
 
     def corpus(entries, engine, phase_gate, bucketed=True, qps_dir=qdir,
                path=None):
         nonlocal corpus_loop_launches, corpus_jr_launches
+        nonlocal corpus_fast_launches
         rows, ms, cnt = timed(lambda: run_corpus(
             qps_dir=qps_dir, entries=entries, engine=engine,
             bucketed=bucketed))
         _require(len(rows) == len(entries), f"corpus {engine}: "
                  f"{len(rows)} rows for {len(entries)} entries")
         # "pallas" engines: K3 per bucket, "pallas_rescued" K10 on the
-        # lanes it rescues; "f64": K10 per bucket (per row unbucketed)
+        # lanes it rescues; "f64": K10 per bucket (per row unbucketed);
+        # "refined": K11 per bucket
         kernels = engine.startswith("pallas")
         _require(cnt["gi_fused"] == 0 and (cnt["gi_loop"] > 0) == kernels
                  and (cnt["jr_loop"] > 0 if engine == "f64" else
                       engine == "pallas_rescued" or cnt["jr_loop"] == 0)
-                 and sum(cnt.values()) == cnt["gi_loop"] + cnt["jr_loop"],
+                 and (cnt["fast_loop"] > 0) == (engine == "refined")
+                 and sum(cnt.values()) == (cnt["gi_loop"] + cnt["jr_loop"]
+                                           + cnt["fast_loop"]),
                  f"corpus {engine}: launches {cnt}")
         corpus_loop_launches += cnt["gi_loop"]
         corpus_jr_launches += cnt["jr_loop"]
+        corpus_fast_launches += cnt["fast_loop"]
         for r in rows:
             if phase_gate is not None:
                 _require(phase_gate(r), f"corpus {engine}: row {r}")
@@ -1855,7 +1993,7 @@ def main() -> int:
                             dtype=f32).with_dtype(f64)
     for solver, min_rate, need in (("f64", 0.999, ["jr_loop"]),
                                    ("mixed", 0.999, ["jr_loop"]),
-                                   ("refined", None, [])):
+                                   ("refined", None, ["fast_loop"])):
         bench(f"time_batch({solver}) headline, batch {CHECK_BATCH}",
               lambda: harness.time_batch(f"headline/{solver}", pb19s, opt,
                                          solver=solver, n_rep=1), need,
@@ -1974,7 +2112,7 @@ def main() -> int:
         max_rel_err_vs_plain=rel_dec)
     bench("bench_structured_ik", lambda: harness.bench_structured_ik(
         nb=IK_NB, s=IK_S, mc=IK_MC, batch=IK_BATCH, seed=SEED, device=dev),
-        ["tri_block_llt", "tri_block_solve"],
+        ["tri_block_llt", "tri_block_solve", "fast_loop"],
         lambda r: (0.999, r["success_rate"]))
 
     # the box batch: the draws of phase 16, whose KKT <= 1e-8 gate holds
@@ -2282,6 +2420,31 @@ def main() -> int:
         "f32": {"ms": k10_ms32, "plain_ms": k10_plain_ms32,
                 "bound_ms": k10_bound32[0], "bound_by": k10_bound32[1]},
         "threads": 128})
+    ik11 = k11["IK cold"]
+    kernels.append({
+        "name": "fast_loop", "route": "cuda",
+        "source": "jrlqp_tpu_torch/csrc/fast_loop.cu",
+        "replaces": "jrlqp_tpu/solver/fast.py:349",
+        "launches": cold_counts["fast_loop"],
+        "launches_by_path": {
+            "structured cold batch (phase 9)": cold_counts["fast_loop"],
+            "structured arrows (phase 9)": sum(
+                c["fast_loop"] for c in arrow_counts.values()),
+            "IK trajectory (phase 10)": traj_ik_counts["fast_loop"],
+            "solve_sharded refined": sharded_launches["fast_loop"],
+            "run_corpus refined": corpus_fast_launches,
+            "harness": harness_launches["fast_loop"]},
+        "max_abs_err": ik11["max_abs_x_err"],
+        "ms": ik11["ms"], "plain_ms": ik11["plain_ms"],
+        "bound_ms": ik11["bound_ms"], "bound_by": ik11["bound_by"],
+        "library_ms": None,
+        "shape": {k: ik11[k] for k in ("batch", "n", "m", "dtype")},
+        "headline": {k: {f: k11[k][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "same_lanes",
+            "max_rel_x_err")}
+            for k in ("headline f32", "headline f64")},
+        **{k: ik11["config"][k] for k in ("threads", "blocks_per_sm",
+                                          "registers", "smem_bytes")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

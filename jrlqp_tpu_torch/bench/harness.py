@@ -11,7 +11,7 @@ SolversWarmStart.cpp:250).
 ``solver=`` and ``engine=`` keep the JAX package's names: ``"pallas"`` is
 :func:`~jrlqp_tpu_torch.solver.fast.solve_refined_kernel` (K1),
 ``"pallas_rescued"`` :func:`~jrlqp_tpu_torch.solver.fast.
-solve_refined_kernel_rescued`, ``"refined"`` the torch-loop engine
+solve_refined_kernel_rescued`, ``"refined"`` the K11-loop engine
 :func:`~jrlqp_tpu_torch.solver.fast.solve_refined`, ``"mixed"``
 :func:`~jrlqp_tpu_torch.solver.mixed.solve_mixed` and ``"f64"`` the J/R
 engine :func:`~jrlqp_tpu_torch.solver.dense.solve_batch`; another name

@@ -296,7 +296,7 @@ def run_corpus(
     ``bucketed=True`` groups the problems by padded shape (the
     :func:`_bucket_dim` grid), pads each bucket to a common (n, m) and
     solves it as one batch. ``engine``: "f64" = the J/R engine
-    (``solve_batch``); "refined" = the f32 torch loop + f64 refinement;
+    (``solve_batch``); "refined" = the f32 loop (K11) + f64 refinement;
     "pallas" = ``solve_refined_kernel(..., fused_init=False)``, the torch
     init and K3; "pallas_rescued" = K3, then the f64 re-solve of lanes whose
     refined KKT residual misses 1e-8. ``bucketed=False`` solves one

@@ -63,6 +63,11 @@ _SIGNATURES = {
     # aorder, u, scal; B, n, m, max_iter; big_bnd, zero_z; stream
     "jrlqp_jr_loop_f64": [_P] * 13 + [_I] * 4 + [_D] * 2 + [_P],
     "jrlqp_jr_loop_f32": [_P] * 13 + [_I] * 4 + [_D] * 2 + [_P],
+    # K11: G, C, l, u, xl, xu, hscale; the state in place: x, f, H, Ns,
+    # status, aorder, u, scal; B, n, m, max_iter; big_bnd, zero_z, dep_eps;
+    # stream
+    "jrlqp_fast_loop_f32": [_P] * 15 + [_I] * 4 + [_D] * 3 + [_P],
+    "jrlqp_fast_loop_f64": [_P] * 15 + [_I] * 4 + [_D] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -159,6 +164,9 @@ def library() -> ctypes.CDLL:
             lib.jrlqp_struct_factor_config.argtypes = [
                 _I, _I, ctypes.POINTER(ctypes.c_int)]
             lib.jrlqp_struct_factor_config.restype = _I
+            lib.jrlqp_fast_loop_config.argtypes = [
+                _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+            lib.jrlqp_fast_loop_config.restype = _I
             _lib = lib
     return _lib
 

@@ -1,0 +1,196 @@
+"""K11: the explicit-form engine's GI loop as one CUDA kernel, its wrapper,
+and its plain version.
+
+Counterpart of the loop that the JAX package compiles into one
+``lax.while_loop`` of ``fast_iteration`` (``jrlqp_tpu/solver/fast.py:167-
+246``): ``_run_fast`` (fast.py:349, behind ``solve_fast`` and
+``solve_refined``), ``solve_fast_warm`` (fast.py:911) and the structured
+solver's fast paths (``jrlqp_tpu/structured/solver.py:322``, :440, :506).
+The JAX package has no Pallas kernel here: XLA compiles the loop. The
+port's kernel, ``fast_loop_kernel`` in ``csrc/fast_loop.cu``, runs it from
+a given ``FastState`` with one thread block per lane, each lane's
+iterations back to back, in f32 (``jrlqp_fast_loop_f32``) and f64
+(``jrlqp_fast_loop_f64``). Its plain version is
+:func:`jrlqp_tpu_torch.solver.fast.fast_loop_plain`, the masked passes of
+:func:`~jrlqp_tpu_torch.solver.fast.fast_iteration` in a host loop.
+
+:func:`fast_loop` takes the plain version for a state on the CPU and the
+kernel for a state on a card; it raises for another device or dtype. The
+kernel's result is the plain version's lane for lane up to the order of
+its sums: the same status, iterations and active set, x within rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ...problems import QPProblem
+from ...solver import fast
+from ...solver.fast import FastState, _dep_eps
+from ...types import SolverOptions
+from . import _build
+
+__all__ = ["fast_loop", "fast_loop_config",
+           "fast_loop_smem_bytes", "fast_loop_flops", "fast_loop_bytes",
+           "fast_loop_stream_bytes"]
+
+# launches of K11 since the last reset (set to 0 to reset), counted under
+# _count_lock, as the shards of a sharded solve may launch from threads
+_count_lock = threading.Lock()
+launches = 0
+
+_ENTRIES = {torch.float32: "jrlqp_fast_loop_f32",
+            torch.float64: "jrlqp_fast_loop_f64"}
+# the dynamic shared memory one block may use on Hopper, less 2 KB for the
+# kernel's static scratch (1,152 B at 256 threads in f64)
+_SMEM_LIMIT = 232448 - 2048
+
+
+def fast_loop(pb: QPProblem, state: FastState, opt: SolverOptions
+              ) -> FastState:
+    """Run the explicit-form GI loop from ``state`` until no lane is
+    RUNNING: K11 on a CUDA state, its plain version
+    :func:`~jrlqp_tpu_torch.solver.fast.fast_loop_plain` on a CPU one."""
+    dev = state.x.device
+    if dev.type == "cpu":
+        return fast.fast_loop_plain(pb, state, opt)
+    if dev.type != "cuda":
+        raise RuntimeError(f"fast_loop: no kernel for device {dev}")
+    return _fast_loop_cuda(pb, state, opt)
+
+
+def fast_loop_smem_bytes(n: int, m: int, itemsize: int) -> int:
+    """Dynamic shared memory of one K11 block at (n, m) (``smem_bytes`` in
+    ``csrc/fast_loop.cu``): 8n + 2 + m words of the working type (x, u and
+    the stepped u, n+, z, r, G n_l, the scaled update vector, C x) and
+    m + 3n int32 (status, aorder and a removal's aorder), in 16 bytes."""
+    raw = (8 * n + 2 + m) * itemsize + (m + 3 * n) * 4
+    return (raw + 15) // 16 * 16
+
+
+def _require_fits(n: int, m: int, itemsize: int) -> None:
+    """Raise if a K11 block at (n, m) needs more shared memory than a
+    block may have."""
+    smem = fast_loop_smem_bytes(n, m, itemsize)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"fast_loop: n={n}, m={m} needs {smem} B of shared "
+                         f"memory, more than a block's {_SMEM_LIMIT}")
+
+
+def fast_loop_config(n: int, m: int, dtype=torch.float32) -> dict:
+    """Threads, shared bytes, resident blocks per SM, registers and spilled
+    bytes per thread of the K11 instance that (n, m) launches, on the
+    current card."""
+    out = (ctypes.c_int * 5)()
+    lib = _build.library()
+    _build.check(lib.jrlqp_fast_loop_config(
+        n, m, int(dtype == torch.float64), out), "jrlqp_fast_loop_config")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
+                     "local_bytes"), out))
+
+
+def _own(t: torch.Tensor, dtype) -> torch.Tensor:
+    """A fresh contiguous copy of ``t`` in ``dtype`` (the kernel writes its
+    state in place)."""
+    return torch.clone(t.to(dtype), memory_format=torch.contiguous_format)
+
+
+def _fast_loop_cuda(pb: QPProblem, state: FastState, opt: SolverOptions
+                    ) -> FastState:
+    global launches
+    B, n = state.x.shape
+    m = state.status.shape[1] - n
+    dt, dev = state.x.dtype, state.x.device
+    entry = _ENTRIES.get(dt)
+    if entry is None:
+        raise TypeError(f"fast_loop: no kernel for {dt}")
+    prob = (pb.G, pb.C, pb.l, pb.u, pb.xl, pb.xu)
+    for name, t in zip(("G", "C", "l", "u", "xl", "xu"), prob):
+        if t.device != dev or t.dtype != dt or t.shape[0] != B:
+            raise ValueError(f"fast_loop: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{dt} with batch {B} on {dev}")
+    if pb.C.shape[1:] != (m, n) or pb.G.shape[1:] != (n, n):
+        raise ValueError(f"fast_loop: G is {tuple(pb.G.shape)} and C "
+                         f"{tuple(pb.C.shape)}, the state has n={n}, m={m}")
+    _require_fits(n, m, state.x.element_size())
+    if B == 0:
+        return state
+    i32 = torch.int32
+    ins = tuple(t.contiguous() for t in prob) + (
+        state.hscale.to(dt).contiguous(),)
+    x, f, H, Ns, u = (_own(t, dt) for t in (state.x, state.f, state.H,
+                                            state.Ns, state.u))
+    status, aorder = _own(state.status, i32), _own(state.aorder, i32)
+    scal = torch.stack([t.to(i32) for t in (
+        state.q, state.it, state.term, state.skip1, state.sc_idx,
+        state.sc_status)], dim=1)
+    outs = (x, f, H, Ns, status, aorder, u, scal)
+    lib = _build.library()
+    # the runtime launches on the current device and sets the kernel's
+    # shared-memory limit there: make it the tensors' card
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, entry)(
+            *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
+            B, n, m, int(opt.max_iter), float(opt.big_bnd),
+            float(opt.zero_z_threshold), _dep_eps(dt), stream)
+    _build.check(code, entry)
+    with _count_lock:
+        launches += 1
+    q, it, term, skip1, sc_idx, sc_status = scal.t().contiguous()
+    return FastState(x=x, f=f, H=H, Ns=Ns, status=status, aorder=aorder, u=u,
+                     q=q, it=it, term=term, skip1=skip1.bool(),
+                     sc_idx=sc_idx, sc_status=sc_status, hscale=state.hscale)
+
+
+def _adds_removes(it, q0, q_end):
+    """(adds, removals, mean active count) per lane: each iteration adds a
+    constraint (q + 1) or removes one (q - 1)."""
+    it, q0, q_end = (v.double() for v in (it, q0, q_end))
+    dq = q_end - q0
+    return (it + dq) / 2, (it - dq) / 2, ((q0 + q_end) / 2)
+
+
+def fast_loop_flops(it, q0, q_end, n: int, m: int) -> float:
+    """FLOPs of K11's iterations at (n, m), summed over the lanes; ``it``,
+    ``q0`` and ``q_end`` are (B,) tensors of each lane's iterations and its
+    active count at the start and at the end, which give its adds and
+    removals exactly. Each is counted at the lane's mean active count q,
+    with a general row's normal: every iteration forms z = H n+ (2n^2) and
+    r = N* n+ over the q active rows (2qn); an add also the selection C x
+    that chose its candidate (2mn) and the updates of H (2n^2) and of the
+    q rows of N* (2qn); a removal v = G n_l (2n^2), w = N* v (2qn) and the
+    same two updates. Exact where every candidate is a general row (the
+    headline and IK sets have no variable bounds); a bound's z and r are a
+    column read, so the count is above the kernel's on bound candidates."""
+    adds, removes, q = _adds_removes(it, q0, q_end)
+    per_add = 2 * m * n + 4 * n * n + 4 * q * n
+    per_remove = 6 * n * n + 6 * q * n
+    return float((adds * per_add + removes * per_remove).sum())
+
+
+def fast_loop_bytes(batch: int, n: int, m: int, itemsize: int) -> int:
+    """Bytes K11 must move at (n, m): the problem (G, C, l, u, xl, xu) and
+    hscale read once, and the state (x, f, H, N*, u in the working type;
+    status, aorder and six scalars in int32) read once and written once."""
+    problem = itemsize * (n * n + m * n + 2 * m + 2 * n + 1)
+    state = itemsize * (2 * n * n + 2 * n + 2) + 4 * (m + 2 * n + 6)
+    return batch * (problem + 2 * state)
+
+
+def fast_loop_stream_bytes(it, q0, q_end, n: int, m: int,
+                           itemsize: int) -> float:
+    """Bytes this design streams from device memory, summed over the lanes,
+    where H, N* and G stay in the lane's slab (n = 387 in f32: 599 KB each,
+    beyond a block's shared memory). Every iteration reads H for z (n^2)
+    and the q active rows of N* for r (qn); an add also reads C (mn) and
+    reads and writes H (2n^2) and those rows (2qn); a removal reads G
+    (n^2) and the rows for w (qn), and reads and writes H and the rows.
+    Normals and counts as in :func:`fast_loop_flops`."""
+    adds, removes, q = _adds_removes(it, q0, q_end)
+    per_add = m * n + 3 * n * n + 3 * q * n
+    per_remove = 4 * n * n + 4 * q * n
+    return float(itemsize * (adds * per_add + removes * per_remove).sum())

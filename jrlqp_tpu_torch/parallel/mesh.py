@@ -127,12 +127,12 @@ def _solve_shard(pb: QPProblem, opt: SolverOptions, engine: str,
     return solve_batch(pb, opt)
 
 
-# The engines whose shards run on a thread per card. "refined" (a Python
-# loop of masked passes that waits on the card at every pass) and "f64"
+# The engines whose shards run on a thread per card. "refined" and "f64"
 # solve their shards one after another in the caller's thread: on four
-# H100s a thread per card ran "f64" 5.8x slower than one thread when it
-# too was such a loop (PERF.md §6); now the torch init and one K10 launch,
-# it stays here until measured on threads (ROADMAP P5)
+# H100s a thread per card ran them 6.5x and 5.8x slower than one thread
+# when each was a Python loop of masked passes (PERF.md §6); now the torch
+# init and one launch of K11 or K10, they stay here until measured on
+# threads (ROADMAP P5)
 _THREADED_ENGINES = ("pallas",)
 
 
@@ -268,7 +268,7 @@ def solve_sharded(
 
     Each shard runs the chosen engine on its device: ``"f64"`` the J/R
     engine (:func:`jrlqp_tpu_torch.solver.dense.solve_batch`),
-    ``"refined"`` the f32 torch loop with f64 refinement
+    ``"refined"`` the f32 explicit-form loop (K11) with f64 refinement
     (:func:`~jrlqp_tpu_torch.solver.fast.solve_refined`), ``"pallas"``
     the kernel path :func:`~jrlqp_tpu_torch.solver.fast.
     solve_refined_kernel` with ``fused_init`` (``False``, the JAX default:

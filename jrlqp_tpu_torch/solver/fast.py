@@ -36,15 +36,20 @@ The refinement is the native-f64 branch of ``_refine_batch``
 one-hot gathers of the TPU branch become plain f64 products,
 ``torch.gather`` and ``scatter_add``.
 
-The XLA engine is here too, batched with masked lanes: compact slots that
-shift on removal, not the kernels' hole-based slots. Its cold inits
-(``_init_fast``, ``_init_fast_from_ops``) serve the warm init's fallback
-and the structured layer; its loop (``fast_iteration`` run by
-``_run_loop`` until no lane is RUNNING) is the GI loop of the structured
-path, whose n is too large for the kernels' shared memory, of the
-engine ``solve_refined`` and of ``solve_fast`` / ``solve_fast_warm`` (no
-refinement, the problems' dtype); ``_init_fast_from_carry`` starts the loop
-from a carried operator.
+The XLA engine is here too, batched: compact slots that shift on removal,
+not the kernels' hole-based slots. Its cold inits (``_init_fast``,
+``_init_fast_from_ops``) serve the warm init's fallback and the structured
+layer; ``_init_fast_from_carry`` starts its loop from a carried operator.
+Its loop, which the JAX package compiles into one ``lax.while_loop`` of
+``fast_iteration`` (fast.py:349, :911), is the GI loop of the structured
+path, whose n is too large for K1-K9's shared memory, of the engine
+``solve_refined`` and of ``solve_fast`` / ``solve_fast_warm`` (no
+refinement, the problems' dtype). ``_run_loop`` runs it as one launch of
+the CUDA kernel K11 on a card (``ops/cuda/fast_loop.py``,
+``csrc/fast_loop.cu``: a thread block per lane, its iterations back to
+back). Its plain version :func:`fast_loop_plain`, which the tracer's
+hooked loop also runs, is :func:`fast_iteration` on every lane in a host
+loop while any lane is RUNNING.
 """
 from __future__ import annotations
 
@@ -97,7 +102,8 @@ __all__ = ["FastState", "WarmCarry", "solve_refined_kernel",
            "solve_refined_warm_kernel", "solve_refined_kernel_carry",
            "solve_refined_kernel_compact", "solve_refined_kernel_compacted",
            "solve_refined_kernel_rescued",
-           "fast_iteration", "solve_refined", "solve_fast", "solve_fast_warm"]
+           "fast_iteration", "fast_loop_plain", "solve_refined",
+           "solve_fast", "solve_fast_warm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -613,13 +619,15 @@ def fast_iteration(pb: QPProblem, state: FastState, opt: SolverOptions
                         _where_state(go & ~full_step, removed, held))
 
 
-def _run_loop(pb: QPProblem, state: FastState, opt: SolverOptions,
-              on_pass=None) -> FastState:
+def fast_loop_plain(pb: QPProblem, state: FastState, opt: SolverOptions,
+                    on_pass=None) -> FastState:
     """:func:`fast_iteration` until no lane is RUNNING: the XLA engine's
-    while loop (fast.py:342-351) over the batch. A lane that reaches
+    while loop (fast.py:342-351) over the batch, one masked pass per
+    iteration and a host sync after each. A lane that reaches
     ``opt.max_iter`` while RUNNING ends MAX_ITER_REACHED there, so it
-    stops where its own loop would. ``on_pass(before, after)``, if given,
-    sees every pass (the tracer records with it)."""
+    stops where its own loop would. Without a hook it is the plain PyTorch
+    version of K11 (``ops/cuda/fast_loop.py``); ``on_pass(before, after)``,
+    if given, sees every pass (the tracer records with it)."""
     while True:
         capped = (state.term == RUNNING) & (state.it >= opt.max_iter)
         state = dataclasses.replace(state, term=torch.where(
@@ -632,6 +640,21 @@ def _run_loop(pb: QPProblem, state: FastState, opt: SolverOptions,
         state = nxt
 
 
+def _run_loop(pb: QPProblem, state: FastState, opt: SolverOptions,
+              on_pass=None) -> FastState:
+    """Run the explicit-form GI loop from ``state`` until no lane is
+    RUNNING (fast.py:342-351). Without a hook it is one launch of K11 on a
+    CUDA state (``ops/cuda/fast_loop.fast_loop``), each lane's iterations
+    back to back, and :func:`fast_loop_plain` on a CPU one; ``on_pass``
+    (the tracer) runs :func:`fast_loop_plain` with it."""
+    if on_pass is None:
+        # imported here: fast_loop imports this module
+        from ..ops.cuda.fast_loop import fast_loop
+
+        return fast_loop(pb, state, opt)
+    return fast_loop_plain(pb, state, opt, on_pass)
+
+
 def _run_fast(pb: QPProblem, opt: SolverOptions) -> FastState:
     return _run_loop(pb, _init_fast(pb, opt), opt)
 
@@ -639,8 +662,9 @@ def _run_fast(pb: QPProblem, opt: SolverOptions) -> FastState:
 def solve_fast(pbs: QPProblem, opt: SolverOptions = SolverOptions()
                ) -> GIResult:
     """Explicit-form GI solve of a batch in the problems' dtype (counterpart
-    of ``vmap(solve_fast)``, fast.py:365-370): the cold init and the loop
-    in torch, no kernel, no refinement."""
+    of ``vmap(solve_fast)``, fast.py:365-370): the torch cold init, then
+    the loop (:func:`_run_loop`: one K11 launch on a card), no
+    refinement."""
     return finalize(pbs, _run_fast(pbs, opt))
 
 
@@ -656,10 +680,9 @@ def solve_fast_warm(pbs: QPProblem, as_hints,
 def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
                   ir_steps: int = 3) -> GIResult:
     """The dense engine, batched: the f32 cold init (Cholesky of G), the
-    f32 explicit-form loop in torch, then ``ir_steps`` steps of f64
-    refinement (counterpart of ``vmap(jrlqp_tpu.solver.fast.
-    solve_refined)``, fast.py:620-635). It launches no kernel, so it runs
-    at any n, on any device."""
+    f32 explicit-form loop (:func:`_run_loop`: one K11 launch on a card),
+    then ``ir_steps`` steps of f64 refinement (counterpart of
+    ``vmap(jrlqp_tpu.solver.fast.solve_refined)``, fast.py:620-635)."""
     pb32 = pbs.with_dtype(torch.float32)
     opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
     return _refine_batch(pbs, _run_fast(pb32, opt32), ir_steps, exact=True)

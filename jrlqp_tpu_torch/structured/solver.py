@@ -4,8 +4,9 @@ the explicit-operator GI engine (BlockGISolver analog).
 Counterpart of the fast entry points of :mod:`jrlqp_tpu.structured.solver`
 (solver.py:210-515). A cold solve computes H = G^-1 from the block chain,
 O(nb s^3) for the factor and O(n^2 s) for the inverse instead of a dense
-O(n^3) Cholesky, then runs the XLA engine's loop (``fast_iteration``, here
-batched torch) and the f64 refinement. ``backend`` picks how H is made:
+O(n^3) Cholesky, then runs the XLA engine's loop (``fast_iteration`` until
+no lane is RUNNING) and the f64 refinement. ``backend`` picks how H is
+made:
 
 - ``"auto"``: the kernels K5 and K6, or K7 and K8 for an arrow
   (:mod:`jrlqp_tpu_torch.ops.cuda.block_llt`), one launch each for the
@@ -15,8 +16,11 @@ batched torch) and the f64 refinement. ``backend`` picks how H is made:
   :mod:`.blocks` (the JAX package's ``backend="xla"``), only when asked for
   by name.
 
-The GI loop stays torch: at IK sizes (n = 387) the kernels' K = [H | N*^T]
-does not fit a thread block's shared memory.
+The GI loop is ``fast._run_loop`` in all three fast entry points: one
+launch of the CUDA kernel K11 (``ops/cuda/fast_loop.py``) on a card, a
+thread block per lane with H and N* in the lane's device-memory slab (at
+IK sizes, n = 387, K1's K = [H | N*^T] does not fit a block's shared
+memory), and its plain version on the CPU.
 
 The J/R ``solve_structured`` (solver.py:60-207) runs the dense engine
 (:mod:`jrlqp_tpu_torch.solver.dense`) from the blocked factorization, with
@@ -276,8 +280,8 @@ def solve_structured_fast_carry(
     solver.py:370-454); returns ``(result, carry)``. ``carry=None`` solves
     cold as :func:`solve_structured_fast_batch`. A carry from the previous
     step, whose G and C must be this step's (only a and the bounds drift),
-    starts the loop from its operators: no factorization, no kernel
-    launch. With ``opt.validate`` a warm step also ends lanes with
+    starts the loop from its operators: no factorization, one K11 launch
+    on a card. With ``opt.validate`` a warm step also ends lanes with
     inconsistent data INCONSISTENT_INPUT."""
     if carry is None:
         pbs, _, _, states = _solve_structured_states(

@@ -11,7 +11,7 @@ engines; chunk c of the global batch is drawn from seed c, so every layout
 solves the same problems), and the global batch grows with the cards.
 Each engine of ``--engines`` ("pallas": ``fused_init=True``, K1;
 "pallas_k3": ``fused_init=False``, the torch init and K3; "f64": the J/R
-engine; "refined": the f32 torch loop) runs in two layouts:
+engine; "refined": the f32 loop in K11) runs in two layouts:
 
 1. one process, a mesh of the first k cards (``make_mesh(k)``): the batch
    starts on card 0 and ``solve_sharded`` solves its shards on their

@@ -1,11 +1,12 @@
-"""The port's kernels (K1-K10) on a CUDA card, held against their plain
+"""The port's kernels (K1-K11) on a CUDA card, held against their plain
 PyTorch versions on the same card; the launch counts of the structured
 path, the compact-slot path, the trajectory capture and the rescue; the
 box solve, the sharded solve on one card and on several (its shards at the
 same time, by CUDA events) and K3 at the corpus's largest
 bucket; K1 at the size sweep's largest row, the compacted solve and the
-harness's kernel rows; K10 (the J/R engine's loop) against its plain
-version on each lane kind, and a lane alone against its batch; the
+harness's kernel rows; K10 (the J/R engine's loop) and K11 (the
+explicit-form engine's loop) against their plain versions on each lane
+kind, and a lane alone against its batch; the
 default device; the lanes of the miss census
 (``tests/data/missed_lanes_port.npz`` and ``missed_lanes_jax.npz``), each
 solved alone by its path's kernel and plain version to its recorded
@@ -40,7 +41,7 @@ from jrlqp_tpu_torch import (
     stack_problems,
 )
 from jrlqp_tpu_torch.bench import bench_warm_start_trajectory, time_batch
-from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel, jr_kernel
+from jrlqp_tpu_torch.ops.cuda import block_llt, fast_loop, gi_kernel, jr_kernel
 from jrlqp_tpu_torch.parallel import make_mesh, shard_batch, solve_sharded
 from jrlqp_tpu_torch.parallel import mesh as mesh_mod
 from jrlqp_tpu_torch.solver import dense, fast
@@ -51,8 +52,10 @@ from jrlqp_tpu_torch.structured import (
     structured_from_numpy,
     structured_qp_problem,
 )
+from jrlqp_tpu_torch.structured import solver as ssolver
 from jrlqp_tpu_torch.testing import (
     ProblemCharacteristics,
+    fast_parting,
     k1_replay,
     miss_census,
     order_exact,
@@ -461,7 +464,9 @@ def _ik_problem(d, gtype, device):
 @pytest.mark.parametrize("gtype", list(GType))
 def test_structured_launch_counts_and_cpu_parity(cuda_device, gtype):
     # a cold batch launches the factorization and the solve once each and
-    # no GI kernel; a warm carry step launches nothing
+    # no GI kernel of K1-K9 (its loop is one K11 launch:
+    # test_fast_paths_launch_k11_once); a warm carry step launches none of
+    # them
     d = ik_batch(6, nb=3, s=8, mc=2, seed=5)
     opt = SolverOptions(max_iter=200)
     before = _struct_counts()
@@ -1527,3 +1532,296 @@ def test_jr_loop_kernel_linear_dependency(cuda_device):
     for dev in (cuda_device, "cpu"):
         res = solve_batch(problem_from_numpy(**d, device=dev), opt)
         assert int(res.status[0]) == 5 and int(res.iterations[0]) == 2
+
+
+# ---- K11, the explicit-form engine's loop ----
+
+def _fast_opt(dtype, **kw):
+    if dtype == torch.float32:
+        kw = {"zero_z_threshold": 1e-6, **kw}
+    return SolverOptions(dtype=dtype, **kw)
+
+
+def _fast_against_plain(pb, st0, opt, label, x_tol, max_parted=0,
+                        max_split=0):
+    """K11 against its plain version from ``st0``
+    (``fast_parting.against_plain``): the state passed in unchanged; the
+    same status, iterations, active count and active set on every lane but
+    at most ``max_parted`` (the count the runs on an H100 showed for the
+    batch), each parting lane printed with its first parting iteration and
+    both sides' deciding margins there, witnessed by
+    ``fast_parting.near_ties`` (in f64 only a vertex; in f32 a margin
+    within the two sides' measured rounding: the same algorithm in another
+    summation order can flip only a test that rounding decides), and with
+    sound outcomes on both sides (``fast_parting.outcomes``: the same
+    class of end, or both refined to KKT <= 1e-8 and the same objective)
+    on all but at most ``max_split`` lanes, each parted at a vertex, where
+    one side ends with an answer and the other with none (on the same
+    draws the JAX package's own loop splits so from the plain version,
+    ``test_torch_fast_loop.py::test_jax_splits_answers_at_f32_vertices``);
+    x within ``x_tol`` max(1, |x|) on the lanes whose x is an
+    answer, and in f32 with m > 0 within 1e-7 after three steps of f64
+    refinement on every same lane that ends SUCCESS and refines to KKT <=
+    1e-8 in both. Returns (K11's state, the plain version's, the same
+    lanes)."""
+    keep = {f.name: getattr(st0, f.name).clone()
+            for f in dataclasses.fields(st0)}
+    before = fast_loop.launches
+    cmp = fast_parting.against_plain(pb, st0, opt)
+    torch.cuda.synchronize()
+    # the comparison's own bisection launches K11 once per step
+    assert fast_loop.launches > before
+    for k, v in keep.items():
+        assert torch.equal(getattr(st0, k), v), f"the input's {k} changed"
+    got, want, same = cmp["k11"], cmp["plain"], cmp["same"]
+    for lane, part in cmp["partings"].items():
+        print(f"{label} lane {lane}: {part}")
+    # f32 with general rows (the KKT oracle needs m > 0): the refinement
+    # solve_refined runs
+    ok = same & (want.term == 0) & (st0.x.dtype == torch.float32) & (pb.m > 0)
+    if bool(ok.any()):
+        pb64 = pb.with_dtype(torch.float64)
+        rk, rp = (fast._refine_batch(pb64, st, 3, exact=True)
+                  for st in (got, want))
+        for r in (rk, rp):
+            ok &= kkt_residual(r.x, r.multipliers, pb64) <= 1e-8
+    ref_err = float((rk.x - rp.x).abs().amax(dim=1)[ok].max()) \
+        if bool(ok.any()) else 0.0
+    err = cmp["rel_x_err"]
+    parts = cmp["partings"]
+    print(f"{label}: {len(parts)} of {len(same)} lanes part (at most "
+          f"{max_parted}), outcomes "
+          f"{sorted({str(p['outcome']['terms']) for p in parts.values()})}, "
+          f"max |x err| / max(1, |x|) {err!r} on {int(cmp['answer'].sum())} "
+          f"lanes, refined {ref_err!r} on {int(ok.sum())}")
+    assert [lane for lane, part in parts.items()
+            if not part["near_ties"]] == []
+    split = [lane for lane, part in parts.items()
+             if not part["outcome"]["sound"]]
+    print(f"{label}: split outcomes (at most {max_split}) on lanes {split}")
+    assert all("vertex" in parts[lane]["near_ties"] for lane in split)
+    assert len(split) <= max_split, (split, max_split)
+    assert len(parts) <= max_parted, (len(parts), max_parted)
+    assert err <= x_tol and ref_err <= 1e-7, (err, ref_err)
+    return got, want, same
+
+
+def _fast_tol(dtype):
+    # x within 1e-10 max(1, |x|) in f64 (the same algorithm in another
+    # summation order), 1e-3 in f32, as K10's
+    return 1e-10 if dtype == torch.float64 else 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_fast_loop_kernel_matches_plain_headline(cuda_device, dtype):
+    # the headline set (n = 50, m = 100, act_frac 0.3) at 1024 lanes
+    pb = problem_from_numpy(**np_qp_batch(0, 1024, 50, 100, 0.3),
+                            device=cuda_device).with_dtype(dtype)
+    opt = _fast_opt(dtype, max_iter=150)
+    _, _, same = _fast_against_plain(pb, fast._init_fast(pb, opt), opt,
+                                     f"headline {dtype}", _fast_tol(dtype))
+    assert bool(same.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("m", [0, 1, 100])
+@pytest.mark.parametrize("n", [10, 50, 128])
+def test_fast_loop_kernel_matches_plain(cuda_device, n, m, dtype):
+    # each lane kind of jr_card_batch (act_frac 0.3 and 0.9, equalities
+    # and fixed variables, a box, an exactly INFEASIBLE lane), uncapped
+    # and capped at 5 iterations. Where m >= n, lanes reach a vertex (q =
+    # n), where H is zero in exact arithmetic and the engine's tests read
+    # its rounding noise: such lanes part from the plain version (as the
+    # JAX package's XLA loop parts from it on the CPU), each at a witnessed
+    # near tie
+    batch = 64 if dtype == torch.float64 else 256
+    d = jr_card_batch(n, m, batch, seed=n + m + 7)
+    pb = problem_from_numpy(**d, device=cuda_device).with_dtype(dtype)
+    # the uncapped lanes that parted on an H100 (none at m < n or capped),
+    # and of them those whose ends split into an answer and none
+    parted = {torch.float64: {10: 9, 50: 4, 128: 4},
+              torch.float32: {10: 66, 50: 52, 128: 32}}[dtype][n] * (m == 100)
+    split = 6 * (dtype == torch.float32 and n == 10 and m == 100)
+    for opt, most, most_split in (
+            (_fast_opt(dtype, max_iter=4 * n + m), parted, split),
+            (_fast_opt(dtype, max_iter=5), 0, 0)):
+        _, want, _ = _fast_against_plain(
+            pb, fast._init_fast(pb, opt), opt,
+            f"n={n} m={m} {dtype} max_iter={opt.max_iter}", _fast_tol(dtype),
+            most, most_split)
+    terms = set(want.term.tolist())
+    assert 4 in terms                       # the cap of 5 iterations
+    assert 3 in terms or m == 0             # the INFEASIBLE lane
+
+
+def _ik_state(d, device, gtype=GType.TRI_BLOCK_DIAGONAL):
+    """(f32 problem, options, cold state) of the structured path on the IK
+    draws ``d``: H = G^-1 by K5 + K6, then the torch init."""
+    sg, a, sc, lo, up = _ik_problem(d, gtype, device)
+    opt = SolverOptions(max_iter=200)
+    _, pb32, opt32 = ssolver._problems(sg, a, sc, lo, up, None, None, opt)
+    H, posdef = ssolver._structured_inverse_kernel_batch(
+        sg.diag.float(), sg.off.float(), sg.gtype)
+    eye = torch.eye(pb32.n, device=H.device)
+    H = torch.where(posdef[:, None, None], H, eye)
+    x = torch.where(posdef[:, None], -fast._bmv(H, pb32.a), 0.0)
+    return pb32, opt32, fast._init_fast_from_ops(pb32, H, x, posdef, opt32)
+
+
+@pytest.mark.cuda
+def test_fast_loop_kernel_at_the_ik_shape(cuda_device):
+    # the IK cold batch (n = 387, m = 36, 256 threads a block) at 1024
+    # lanes, then one carried warm step from K11's own final state
+    d = ik_batch(1024, seed=3)
+    pb, opt, st0 = _ik_state(d, cuda_device)
+    got, _, _ = _fast_against_plain(pb, st0, opt, "IK cold", 1e-3)
+    step = ik_step(d, 0.02, np.random.default_rng(4))
+    sg, a, sc, lo, up = _ik_problem(step, GType.TRI_BLOCK_DIAGONAL,
+                                    cuda_device)
+    _, pb2, _ = ssolver._problems(sg, a, sc, lo, up, None, None, opt)
+    st_w = fast._init_fast_from_carry(pb2, got.H, got.Ns, got.status,
+                                      got.aorder, got.q)
+    _fast_against_plain(pb2, st_w, opt, "IK warm step", 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_fast_loop_kernel_resumes_a_pending_candidate(cuda_device, dtype):
+    # lanes capped right after a partial step keep their candidate (skip1);
+    # set RUNNING again, K11 resumes them without a selection
+    pb = problem_from_numpy(**np_qp_batch(5, 256, 30, 60, 0.9),
+                            device=cuda_device).with_dtype(dtype)
+    opt = _fast_opt(dtype, max_iter=150)
+    st0 = fast._init_fast(pb, opt)
+    mid = fast.fast_loop_plain(pb, st0, opt.with_(max_iter=6))
+    capped = mid.term == 4
+    assert bool((capped & mid.skip1).any())
+    mid = dataclasses.replace(mid, term=torch.where(capped, -1, mid.term).to(
+        torch.int32))
+    _fast_against_plain(pb, mid, opt, f"pending {dtype}", _fast_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_fast_loop_kernel_from_warm_hints(cuda_device, dtype):
+    # the hint init that solve_fast_warm runs (_init_fast_warm: H and N*
+    # from the hinted set, rows of N* from q on zero) on the headline set
+    # at 1024 lanes: the solved active sets with one active row dropped on
+    # the even lanes and an inactive row hinted at its lower bound on the
+    # odd ones; then solve_fast_warm launches K11 once
+    pb = problem_from_numpy(**np_qp_batch(11, 1024, 50, 100, 0.3),
+                            device=cuda_device).with_dtype(dtype)
+    opt = _fast_opt(dtype, max_iter=150, warm_start=True)
+    hints = fast.fast_loop_plain(pb, fast._init_fast(pb, opt), opt
+                                 ).status.clone()
+    act = hints[:, :pb.m] != 0
+    first_on = act.long().argmax(dim=1)
+    first_off = (~act).long().argmax(dim=1)
+    rows = torch.arange(pb.batch, device=cuda_device)
+    even = rows % 2 == 0
+    hints[rows[even], first_on[even]] = 0
+    hints[rows[~even], first_off[~even]] = 1       # LOWER
+    st0 = fast._init_fast_warm(pb, hints, opt)
+    assert int(st0.q.min()) > 0
+    assert bool((st0.Ns[torch.arange(pb.n, device=cuda_device)[None, :]
+                        >= st0.q[:, None].long()] == 0).all())
+    _fast_against_plain(pb, st0, opt, f"warm hints {dtype}",
+                        _fast_tol(dtype))
+    k11 = fast_loop.launches
+    fast.solve_fast_warm(pb, hints, opt)
+    torch.cuda.synchronize()
+    assert fast_loop.launches == k11 + 1
+
+
+def _lanes_of(st, idx):
+    return dataclasses.replace(st, **{f.name: getattr(st, f.name)[idx]
+                                      for f in dataclasses.fields(st)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["headline", "ik"])
+def test_fast_loop_kernel_lane_alone_equals_its_batch(cuda_device, shape):
+    # a lane's result is a function of its own inputs: alone, or in
+    # another place of another batch, it is bit for bit the same (128
+    # threads a block at the headline width, 256 at the IK width)
+    if shape == "headline":
+        pb = problem_from_numpy(**np_qp_batch(31, 1024, 50, 100, 0.3),
+                                device=cuda_device).with_dtype(torch.float32)
+        opt = _fast_opt(torch.float32, max_iter=150)
+        st0 = fast._init_fast(pb, opt)
+        lanes = (0, 1, 57, 511, 1023)
+    else:
+        pb, opt, st0 = _ik_state(ik_batch(64, seed=8), cuda_device)
+        lanes = (0, 5, 63)
+    B = pb.batch
+    out = fast_loop.fast_loop(pb, st0, opt)
+    rev = torch.arange(B - 1, -1, -1, device=cuda_device)
+    out_rev = fast_loop.fast_loop(pb._map(lambda t: t[rev]),
+                                  _lanes_of(st0, rev), opt)
+    for i in lanes:
+        alone = fast_loop.fast_loop(pb._map(lambda t: t[i:i + 1]),
+                                    _lanes_of(st0, slice(i, i + 1)), opt)
+        for f in dataclasses.fields(out):
+            assert torch.equal(getattr(alone, f.name)[0],
+                               getattr(out, f.name)[i]), (i, f.name)
+            assert torch.equal(getattr(out_rev, f.name)[B - 1 - i],
+                               getattr(out, f.name)[i]), (i, f.name)
+
+
+@pytest.mark.cuda
+def test_fast_paths_launch_k11_once(cuda_device):
+    # solve_refined, solve_fast and the structured cold batch and warm step
+    # run the loop as one K11 launch (the structured cold batch besides K5
+    # and K6 once each); the tracer's hooked loop and an empty batch launch
+    # nothing
+    d, max_iter = make_case("eq_fixed")
+    opt = SolverOptions(max_iter=max_iter)
+    pb = problem_from_numpy(**d, device=cuda_device)
+    for solve in (fast.solve_refined, fast.solve_fast):
+        before, k11 = _launches(), fast_loop.launches
+        res = solve(pb, opt)
+        torch.cuda.synchronize()
+        assert fast_loop.launches == k11 + 1 and _launches() == before
+        _assert_same_result(res, solve(problem_from_numpy(**d, device="cpu"),
+                                       opt), x_tol=1e-10)
+    k11 = fast_loop.launches
+    empty = fast.solve_refined(pb._map(lambda t: t[:0]), opt)
+    assert empty.x.shape == (0, pb.n) and fast_loop.launches == k11
+    st0 = fast._init_fast(pb, opt)
+    fast._run_loop(pb, st0, opt, on_pass=lambda a, b: None)
+    assert fast_loop.launches == k11
+    k = ik_batch(4, nb=3, s=8, mc=2, seed=3)
+    struct, k11 = _struct_counts(), fast_loop.launches
+    res, carry = solve_structured_fast_carry(
+        *_ik_problem(k, GType.TRI_BLOCK_DIAGONAL, cuda_device), None,
+        opt=SolverOptions(max_iter=200))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_struct_counts(), struct)] == [1, 1, 0, 0]
+    assert fast_loop.launches == k11 + 1
+    step = ik_step(k, 0.02, np.random.default_rng(1))
+    solve_structured_fast_carry(
+        *_ik_problem(step, GType.TRI_BLOCK_DIAGONAL, cuda_device), carry,
+        opt=SolverOptions(max_iter=200))
+    torch.cuda.synchronize()
+    assert fast_loop.launches == k11 + 2
+
+
+@pytest.mark.cuda
+def test_fast_loop_config_fits_the_ik_batch_in_one_wave(cuda_device):
+    # 256 threads from n = 256 on; the C and Python shared-memory sizes
+    # agree; 8 blocks of the IK shape (f32) fit an SM, so 1024 lanes are
+    # resident at once on an H100's 132 SMs
+    for n, m, dt in ((50, 100, torch.float32), (387, 36, torch.float32),
+                     (387, 36, torch.float64)):
+        cfg = fast_loop.fast_loop_config(n, m, dt)
+        print(n, m, dt, cfg)
+        assert cfg["threads"] == (256 if n >= 256 else 128)
+        assert cfg["smem_bytes"] == fast_loop.fast_loop_smem_bytes(
+            n, m, 8 if dt == torch.float64 else 4)
+    assert fast_loop.fast_loop_config(387, 36)["blocks_per_sm"] >= 8

@@ -77,7 +77,9 @@ def test_importing_port_loads_no_jax():
             "jrlqp_tpu_torch.solver.box_single, jrlqp_tpu_torch.solver.mixed, "
             "jrlqp_tpu_torch.bench, jrlqp_tpu_torch.io.ikmat, "
             "jrlqp_tpu_torch.io.native, jrlqp_tpu_torch.reference_impl, "
-            "jrlqp_tpu_torch.ops.cuda.jr_kernel; "
+            "jrlqp_tpu_torch.ops.cuda.jr_kernel, "
+            "jrlqp_tpu_torch.ops.cuda.fast_loop, "
+            "jrlqp_tpu_torch.testing.fast_parting; "
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jrlqp_tpu')))")
     out = subprocess.run([sys.executable, "-c", code, str(PKG.parent)],
