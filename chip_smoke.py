@@ -375,6 +375,7 @@ def main() -> int:
     )
     from jrlqp_tpu_torch.parallel import make_mesh, shard_batch, solve_sharded
     from jrlqp_tpu_torch.testing import shard_timeline
+    from jrlqp_tpu_torch.utils import spans
     from jrlqp_tpu_torch.solver.box_single import box_qp_problem, solve_box_gi
     from jrlqp_tpu_torch.testing import ProblemCharacteristics, random_problem
     from jrlqp_tpu_torch import solve_refined_kernel_compacted
@@ -397,17 +398,7 @@ def main() -> int:
     opt32_w = opt_w.with_(dtype=f32, zero_z_threshold=1e-6)
 
     def reset_counts():
-        gi_kernel.launches = 0
-        gi_kernel.loop_launches = 0
-        gi_kernel.warm_launches = 0
-        gi_kernel.compact_launches = 0
-        block_llt.launches = 0
-        block_llt.tri_llt_launches = 0
-        block_llt.tri_solve_launches = 0
-        block_llt.arrow_llt_launches = 0
-        block_llt.arrow_solve_launches = 0
-        jr_kernel.launches = 0
-        fast_loop.launches = 0
+        spans.reset("launch")
 
     def counts():
         return {"gi_fused": gi_kernel.launches,
@@ -1835,15 +1826,15 @@ def main() -> int:
                          int(it.max())), f"{name}: BatchStats {stats}")
             ov17 = tl17.overlap()
             _require(len(tl17.shards) == mesh.size
-                     and ov17["shards_with_kernels"]
-                     == (mesh.size if engine == "pallas" else 0),
+                     and ov17["shards_with_kernels"] == mesh.size,
                      f"{name}: timeline {ov17}")
             print(json.dumps({"phase": 17, "timeline": name,
-                              "overlap": ov17, "shards": tl17.shards}))
+                              "overlap": ov17, "shards": tl17.shards,
+                              "moves": tl17.moves}))
             phase_line(17, name, ms, cnt, batch=pb_.batch, shards=mesh.size,
                        max_abs_x_err_vs_unsharded=err,
                        bit_for_bit_vs_shards_alone=True,
-                       kernel_concurrency=ov17["concurrency"],
+                       loop_concurrency=ov17["concurrency"],
                        stats=dataclasses.asdict(stats), card=card)
     bare17 = _wall_s(lambda: solve_refined_kernel(pb17, opt))
     mesh17 = _wall_s(lambda: solve_sharded(pb17, opt, mesh=mesh1,

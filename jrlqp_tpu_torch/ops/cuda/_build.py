@@ -7,8 +7,9 @@ takes seconds). The library goes to ``build/jrlqp_tpu_torch/`` beside the
 package, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as is. Each C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on a nonzero
-code. ``loads`` counts the builds and loads of the library in this
-process (:func:`jrlqp_tpu_torch.utils.no_retrace` reads it).
+code. The counter ``library.load`` of :mod:`jrlqp_tpu_torch.utils.spans`
+counts the builds and loads of the library in this process, readable here
+as ``loads`` (:func:`jrlqp_tpu_torch.utils.no_retrace` reads it).
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -23,6 +24,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ...utils import spans
 
 __all__ = ["library", "check", "build_info"]
 
@@ -73,7 +76,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}
-loads = 0     # builds and loads of the library in this process
+__getattr__ = spans.kept_names(__name__, {"loads": "library.load"})
 
 
 def _nvcc() -> str:
@@ -141,10 +144,10 @@ def _build() -> Path:
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on the first call."""
-    global _lib, loads
+    global _lib
     with _lock:
         if _lib is None:
-            loads += 1
+            spans.count("library.load")
             lib = ctypes.CDLL(str(_build()))
             for name, args in _SIGNATURES.items():
                 fn = getattr(lib, name)

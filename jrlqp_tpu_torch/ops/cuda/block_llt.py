@@ -33,10 +33,10 @@ the pivot at 1e-30 and let :func:`posdef_plain` flag the block.
 """
 from __future__ import annotations
 
-import threading
 
 import torch
 
+from ...utils import spans
 from . import _build
 
 __all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain",
@@ -47,14 +47,13 @@ __all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain",
            "pad_cols",
            "padded_rhs", "identity_rhs"]
 
-# launches of each CUDA kernel since the last reset (set to 0 to reset):
-# K2 (chol_inv_b), K5, K6, K7 and K8, each counted under _count_lock
-_count_lock = threading.Lock()
-launches = 0
-tri_llt_launches = 0
-tri_solve_launches = 0
-arrow_llt_launches = 0
-arrow_solve_launches = 0
+# the launches of K2's thin kernel (chol_inv_b), K5, K6, K7 and K8 are
+# counters of utils.spans (set back by ``spans.reset("launch.K5")`` and so
+# on), readable here under these names
+__getattr__ = spans.kept_names(__name__, {
+    "launches": "launch.chol_inv_b", "tri_llt_launches": "launch.K5",
+    "tri_solve_launches": "launch.K6", "arrow_llt_launches": "launch.K7",
+    "arrow_solve_launches": "launch.K8"})
 
 # K6 stages six s x round4(s) f32 blocks (two per stage) in a thread
 # block's shared memory, K5 and K7 keep three: s <= 96 fits
@@ -104,7 +103,6 @@ def posdef_plain(L: torch.Tensor) -> torch.Tensor:
 
 
 def _chol_inv_b_cuda(A: torch.Tensor):
-    global launches
     B, s, _ = A.shape
     L = torch.empty_like(A)
     Li = torch.empty_like(A)
@@ -116,8 +114,7 @@ def _chol_inv_b_cuda(A: torch.Tensor):
                                     Li.data_ptr(), pd.data_ptr(), B, s,
                                     stream)
     _build.check(code, "chol_inv_b")
-    with _count_lock:
-        launches += 1
+    spans.count("launch.chol_inv_b")
     return L, Li, pd.bool()
 
 
@@ -399,13 +396,11 @@ def tri_block_llt(diag: torch.Tensor, off: torch.Tensor):
     runs the kernel K5, whose outputs are views ``[..., :s]`` of buffers
     with rows of ``round4(s)`` floats, the layout K6 reads; a CPU batch runs
     its plain version; any other device raises."""
-    global tri_llt_launches
     _check_factor_shapes("tri_block_llt", diag, off)
     if not _chain_on_cuda("tri_block_llt", diag.shape[-1], diag, off):
         return tri_block_llt_plain(diag, off)
     out = _tri_llt_cuda(diag.contiguous(), off.contiguous())
-    with _count_lock:
-        tri_llt_launches += 1
+    spans.count("launch.K5")
     return out
 
 
@@ -416,13 +411,11 @@ def tri_block_solve(L_off: torch.Tensor, Linv: torch.Tensor, r: torch.Tensor,
     ``tri_block_solve_pallas``. A CUDA batch runs the kernel K6 (its
     result a view ``y[..., :k]`` of a padded buffer), a CPU batch its plain
     version; any other device raises."""
-    global tri_solve_launches
     _check_solve_shapes("tri_block_solve", L_off, Linv, r)
     if not _chain_on_cuda("tri_block_solve", r.shape[2], L_off, Linv, r):
         return tri_block_solve_plain(L_off, Linv, r, lower_only)
     y = _tri_solve_cuda(L_off, Linv, r, lower_only)
-    with _count_lock:
-        tri_solve_launches += 1
+    spans.count("launch.K6")
     return y
 
 
@@ -433,13 +426,11 @@ def block_arrow_llt(diag: torch.Tensor, side: torch.Tensor, up: bool = False):
     ``block_arrow_llt_pallas``. An up arrow's factor is in the rolled block
     order (block 0 last). A CUDA batch runs the kernel K7, a CPU batch its
     plain version; any other device raises."""
-    global arrow_llt_launches
     _check_factor_shapes("block_arrow_llt", diag, side)
     if not _chain_on_cuda("block_arrow_llt", diag.shape[-1], diag, side):
         return block_arrow_llt_plain(diag, side, up)
     out = _arrow_llt_cuda(diag.contiguous(), side.contiguous(), up)
-    with _count_lock:
-        arrow_llt_launches += 1
+    spans.count("launch.K7")
     return out
 
 
@@ -449,12 +440,10 @@ def block_arrow_solve(L_side: torch.Tensor, Linv: torch.Tensor,
     :func:`block_arrow_llt` with the same ``up``: the counterpart of
     ``block_arrow_solve_pallas``. A CUDA batch runs the kernel K8, a CPU
     batch its plain version; any other device raises."""
-    global arrow_solve_launches
     _check_solve_shapes("block_arrow_solve", L_side, Linv, r)
     if not _chain_on_cuda("block_arrow_solve", r.shape[2], L_side, Linv, r):
         return block_arrow_solve_plain(L_side, Linv, r, up)
     y = _arrow_solve_cuda(L_side.contiguous(), Linv.contiguous(),
                           r.contiguous(), up)
-    with _count_lock:
-        arrow_solve_launches += 1
+    spans.count("launch.K8")
     return y

@@ -22,7 +22,6 @@ its sums: the same status, iterations and active set, x within rounding.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -30,16 +29,16 @@ from ...problems import QPProblem
 from ...solver import fast
 from ...solver.fast import FastState, _dep_eps
 from ...types import SolverOptions
+from ...utils import spans
 from . import _build
 
 __all__ = ["fast_loop", "fast_loop_config",
            "fast_loop_smem_bytes", "fast_loop_flops", "fast_loop_bytes",
            "fast_loop_stream_bytes"]
 
-# launches of K11 since the last reset (set to 0 to reset), counted under
-# _count_lock, as the shards of a sharded solve may launch from threads
-_count_lock = threading.Lock()
-launches = 0
+# the launches of K11 are the counter ``launch.K11`` of utils.spans (set
+# back by ``spans.reset("launch.K11")``), readable here as ``launches``
+__getattr__ = spans.kept_names(__name__, {"launches": "launch.K11"})
 
 _ENTRIES = {torch.float32: "jrlqp_fast_loop_f32",
             torch.float64: "jrlqp_fast_loop_f64"}
@@ -99,7 +98,6 @@ def _own(t: torch.Tensor, dtype) -> torch.Tensor:
 
 def _fast_loop_cuda(pb: QPProblem, state: FastState, opt: SolverOptions
                     ) -> FastState:
-    global launches
     B, n = state.x.shape
     m = state.status.shape[1] - n
     dt, dev = state.x.dtype, state.x.device
@@ -138,8 +136,7 @@ def _fast_loop_cuda(pb: QPProblem, state: FastState, opt: SolverOptions
             B, n, m, int(opt.max_iter), float(opt.big_bnd),
             float(opt.zero_z_threshold), _dep_eps(dt), stream)
     _build.check(code, entry)
-    with _count_lock:
-        launches += 1
+    spans.count("launch.K11")
     q, it, term, skip1, sc_idx, sc_status = scal.t().contiguous()
     return FastState(x=x, f=f, H=H, Ns=Ns, status=status, aorder=aorder, u=u,
                      q=q, it=it, term=term, skip1=skip1.bool(),

@@ -28,8 +28,6 @@ without changing any lane's result, is left out.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from ...types import (
@@ -47,6 +45,7 @@ from ...types import (
     UPPER,
     UPPER_BOUND,
 )
+from ...utils import spans
 from . import _build
 from .block_llt import chol_b_plain, posdef_plain, tri_inv_b_plain
 
@@ -60,15 +59,12 @@ BIG = 1e30           # f32 infinity proxy inside the loop
 INF_BOUND = 1e31     # infinite bounds in the padded f32 inputs
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 
-# launches of each CUDA kernel since the last reset (set to 0 to reset):
-# K1 (gi_fused), K3 (gi_loop), K4 (gi_warm) and K9 (gi_compact); each is
-# counted under _count_lock, as the shards of a sharded solve launch from
-# threads of their own
-_count_lock = threading.Lock()
-launches = 0
-loop_launches = 0
-warm_launches = 0
-compact_launches = 0
+# the launches of K1 (gi_fused), K3 (gi_loop), K4 (gi_warm) and K9
+# (gi_compact) are counters of utils.spans (set back by
+# ``spans.reset("launch.K1")`` and so on), readable here under these names
+__getattr__ = spans.kept_names(__name__, {
+    "launches": "launch.K1", "loop_launches": "launch.K3",
+    "warm_launches": "launch.K4", "compact_launches": "launch.K9"})
 
 _F, _I = torch.float32, torch.int32
 # input dtypes of the C entry points, in argument order
@@ -136,7 +132,9 @@ def prepare(pb32):
     inputs, (n, m) = _padded(pb32)
     G = inputs[0]
     k = torch.arange(n, G.shape[1], device=G.device)
-    G[:, k, k] = 1.0
+    # indexing by a tensor on the card waits on it
+    with spans.sync("pad"):
+        G[:, k, k] = 1.0
     return inputs, (n, m)
 
 
@@ -728,38 +726,30 @@ def _launch(entry, dtypes, ins, n, m, max_iter):
 
 
 def _gi_fused_cuda_raw(*args):
-    global launches
     *ins, n, m, max_iter = args
     outs = _launch("jrlqp_gi_fused", _FUSED_IN, ins, n, m, max_iter)
-    with _count_lock:
-        launches += 1
+    spans.count("launch.K1")
     return outs
 
 
 def _gi_loop_cuda_raw(*args):
-    global loop_launches
     *ins, n, m, max_iter = args
     outs = _launch("jrlqp_gi_loop", _LOOP_IN, ins, n, m, max_iter)
-    with _count_lock:
-        loop_launches += 1
+    spans.count("launch.K3")
     return outs
 
 
 def _gi_compact_cuda_raw(*args):
-    global compact_launches
     *ins, n, m, max_iter = args
     outs = _launch("jrlqp_gi_compact", _LOOP_IN, ins, n, m, max_iter)
-    with _count_lock:
-        compact_launches += 1
+    spans.count("launch.K9")
     return outs
 
 
 def _gi_warm_cuda_raw(*args):
-    global warm_launches
     *ins, n, m, max_iter = args
     outs = _launch("jrlqp_gi_warm", _WARM_IN, ins, n, m, max_iter)
-    with _count_lock:
-        warm_launches += 1
+    spans.count("launch.K4")
     return outs
 
 
@@ -787,14 +777,25 @@ def _carry_raw(inputs, outs):
     return (inputs[0], inputs[1], outs[5], outs[2], outs[3])
 
 
+def _run_remapped(run, inputs, n: int, m: int, max_iter: int
+                  ) -> tuple[dict, tuple]:
+    """``run`` (a kernel's launch or its plain version) on the padded
+    ``inputs`` in a span ``jrlqp.loop``, then the remap in ``jrlqp.remap``:
+    the dict of :func:`postprocess` and the kernel-layout carry."""
+    with spans.span("jrlqp.loop", inputs[0]):
+        outs = run(*inputs, n, m, max_iter)
+    with spans.span("jrlqp.remap", inputs[0]):
+        return postprocess(outs, n, m), _carry_raw(inputs, outs)
+
+
 def run_loop_fused_carry(pb32, max_iter: int) -> tuple[dict, tuple]:
     """:func:`run_loop_fused`, and the kernel-layout carry for
     :func:`prepare_warm_carry`."""
     run = (_gi_fused_cuda_raw if _on_cuda(pb32, "run_loop_fused")
            else _gi_fused_plain_raw)
-    inputs, (n, m) = prepare(pb32)
-    outs = run(*inputs, n, m, max_iter)
-    return postprocess(outs, n, m), _carry_raw(inputs, outs)
+    with spans.span("jrlqp.prepare", pb32.G):
+        inputs, (n, m) = prepare(pb32)
+    return _run_remapped(run, inputs, n, m, max_iter)
 
 
 def run_loop_fused(pb32, max_iter: int) -> dict:
@@ -821,8 +822,9 @@ def run_loop(pb32, state0, max_iter: int) -> dict:
     problem runs the plain version. Any other device raises."""
     run = (_gi_loop_cuda_raw if _on_cuda(pb32, "run_loop")
            else _gi_loop_plain_raw)
-    inputs, (n, m) = prepare_state(pb32, state0)
-    return postprocess(run(*inputs, n, m, max_iter), n, m)
+    with spans.span("jrlqp.prepare", pb32.G):
+        inputs, (n, m) = prepare_state(pb32, state0)
+    return _run_remapped(run, inputs, n, m, max_iter)[0]
 
 
 def gi_warm_plain(pb32, H, Ns, status, aorder, q, max_iter: int) -> dict:
@@ -842,8 +844,7 @@ def warm_step(inputs, n: int, m: int, max_iter: int) -> tuple[dict, tuple]:
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"warm_step: no kernel for device {dev}")
     run = _gi_warm_cuda_raw if dev.type == "cuda" else _gi_warm_plain_raw
-    outs = run(*inputs, n, m, max_iter)
-    return postprocess(outs, n, m), _carry_raw(inputs, outs)
+    return _run_remapped(run, inputs, n, m, max_iter)
 
 
 def run_warm_loop(pb32, H, Ns, status, aorder, q, max_iter: int) -> dict:
@@ -873,5 +874,6 @@ def run_loop_compact(pb32, state0, max_iter: int) -> dict:
     problem runs the plain version. Any other device raises."""
     run = (_gi_compact_cuda_raw if _on_cuda(pb32, "run_loop_compact")
            else _gi_compact_plain_raw)
-    inputs, (n, m) = prepare_state(pb32, state0)
-    return postprocess(run(*inputs, n, m, max_iter), n, m)
+    with spans.span("jrlqp.prepare", pb32.G):
+        inputs, (n, m) = prepare_state(pb32, state0)
+    return _run_remapped(run, inputs, n, m, max_iter)[0]

@@ -19,7 +19,6 @@ its sums: the same status, iterations and active set, x within rounding.
 """
 from __future__ import annotations
 
-import threading
 
 import torch
 
@@ -27,14 +26,14 @@ from ...problems import QPProblem
 from ...solver.dense import jr_loop_plain
 from ...solver.state import GIState
 from ...types import SolverOptions
+from ...utils import spans
 from . import _build
 
 __all__ = ["jr_loop", "jr_loop_plain", "jr_flops", "jr_bytes"]
 
-# launches of K10 since the last reset (set to 0 to reset), counted under
-# _count_lock, as the shards of a sharded solve may launch from threads
-_count_lock = threading.Lock()
-launches = 0
+# the launches of K10 are the counter ``launch.K10`` of utils.spans (set
+# back by ``spans.reset("launch.K10")``), readable here as ``launches``
+__getattr__ = spans.kept_names(__name__, {"launches": "launch.K10"})
 
 _ENTRIES = {torch.float64: "jrlqp_jr_loop_f64",
             torch.float32: "jrlqp_jr_loop_f32"}
@@ -59,7 +58,6 @@ def _own(t: torch.Tensor, dtype) -> torch.Tensor:
 
 def _jr_loop_cuda(pb: QPProblem, state: GIState, opt: SolverOptions
                   ) -> GIState:
-    global launches
     B, n = state.x.shape
     m = state.status.shape[1] - n
     dt, dev = state.x.dtype, state.x.device
@@ -97,8 +95,7 @@ def _jr_loop_cuda(pb: QPProblem, state: GIState, opt: SolverOptions
             B, n, m, int(opt.max_iter), float(opt.big_bnd),
             float(opt.zero_z_threshold), stream)
     _build.check(code, entry)
-    with _count_lock:
-        launches += 1
+    spans.count("launch.K10")
     q, it, term, skip1, sc_idx, sc_status = scal.t().contiguous()
     return GIState(x=x, f=f, J=J, R=R, status=status, aorder=aorder, u=u,
                    q=q, it=it, term=term, skip1=skip1.bool(), sc_idx=sc_idx,

@@ -42,6 +42,7 @@ from ..solver.dense import solve_batch
 from ..solver.fast import solve_refined, solve_refined_kernel
 from ..solver.state import GIResult
 from ..types import SUCCESS, SolverOptions
+from ..utils import spans
 
 __all__ = ["Mesh", "make_mesh", "shard_batch", "solve_sharded", "BatchStats"]
 
@@ -164,29 +165,33 @@ def _caller_streams(pbs: QPProblem, devices) -> list:
     return list(streams.values())
 
 
-def _in_order(items, streams, ready, opt, engine, fused_init) -> list:
-    """One worker's shards on ``streams``: each moved to its device, then,
-    once every worker has issued its moves (``ready``, a barrier of the
-    workers, or None), each solved there, one after another: (result,
-    error) of each. The moves come first so that no card's solve is queued
-    ahead of a copy to another card on the stream of the card that holds
-    the input."""
+def _in_order(items, streams, ready, opt, engine, fused_init,
+              parent=None) -> list:
+    """One worker's shards on ``streams``: each moved to its device (in a
+    span ``jrlqp.scatter``), then, once every worker has issued its moves
+    (``ready``, a barrier of the workers, or None), each solved there, one
+    after another, each in a span ``jrlqp.shard``: (result, error) of each.
+    The moves come first so that no card's solve is queued ahead of a copy
+    to another card on the stream of the card that holds the input. The
+    spans are children of ``parent``, the caller's span."""
     moved, out = [], []
     with contextlib.ExitStack() as on:
         for s in streams:
             on.enter_context(torch.cuda.stream(s))
-        for part, dev in items:
-            try:
-                moved.append((_to(part, dev), None))
-            except Exception as e:  # raised in the caller, with the others
-                moved.append((None, e))
+        with spans.span("jrlqp.scatter", items[0][1], parent):
+            for part, dev in items:
+                try:
+                    moved.append((_to(part, dev), None))
+                except Exception as e:  # raised in the caller, with others
+                    moved.append((None, e))
         if ready is not None:
             ready.wait()
         for (pb, err), (_, dev) in zip(moved, items):
             if err is None:
                 try:
                     with (torch.cuda.device(dev) if dev.type == "cuda"
-                          else contextlib.nullcontext()):
+                          else contextlib.nullcontext()), \
+                            spans.span("jrlqp.shard", pb.G, parent):
                         out.append((_solve_shard(pb, opt, engine,
                                                  fused_init), None))
                     continue
@@ -209,9 +214,11 @@ def _solve_shards(parts, devices, streams, opt, engine,
     jobs = [[(parts[i], devices[i]) for i in idx] for idx in workers]
     done = [None] * len(jobs)
     ready = threading.Barrier(len(jobs)) if len(jobs) > 1 else None
+    parent = spans.current()
 
     def run(w):
-        done[w] = _in_order(jobs[w], streams, ready, opt, engine, fused_init)
+        done[w] = _in_order(jobs[w], streams, ready, opt, engine, fused_init,
+                            parent)
 
     if len(jobs) == 1:
         run(0)
@@ -250,7 +257,9 @@ def _stats(res: GIResult) -> BatchStats:
         dist.all_reduce(sums, op=dist.ReduceOp.SUM)
         dist.all_reduce(mx, op=dist.ReduceOp.MAX)
         vals = torch.cat([sums, mx])
-    total, n_ok, max_it = (int(v) for v in vals.cpu())
+    with spans.sync("stats"):
+        vals = vals.cpu()
+    total, n_ok, max_it = (int(v) for v in vals)
     return BatchStats(total_iterations=total, n_success=n_ok,
                       max_iterations=max_it)
 
@@ -289,14 +298,16 @@ def solve_sharded(
                          f"expected one of {ENGINES}")
     if mesh is None:
         mesh = make_mesh(axis=axis)
-    shards = [(part, dev) for part, dev in
-              zip(_split(pbs, mesh.size), mesh.devices) if part.batch]
-    devices = [d for _, d in shards]
-    results = _solve_shards([p for p, _ in shards], devices,
-                            _caller_streams(pbs, devices), opt, engine,
-                            fused_init)
-    dev0 = mesh.devices[0]
-    res = GIResult(**{f.name: torch.cat([getattr(r, f.name).to(dev0)
-                                         for r in results])
-                      for f in dataclasses.fields(GIResult)})
-    return res, _stats(res)
+    with spans.call("solve_sharded", pbs.G):
+        shards = [(part, dev) for part, dev in
+                  zip(_split(pbs, mesh.size), mesh.devices) if part.batch]
+        devices = [d for _, d in shards]
+        results = _solve_shards([p for p, _ in shards], devices,
+                                _caller_streams(pbs, devices), opt, engine,
+                                fused_init)
+        dev0 = mesh.devices[0]
+        with spans.span("jrlqp.gather", dev0):
+            res = GIResult(**{f.name: torch.cat([getattr(r, f.name).to(dev0)
+                                                 for r in results])
+                              for f in dataclasses.fields(GIResult)})
+            return res, _stats(res)

@@ -48,6 +48,7 @@ from ..types import (
     UPPER_BOUND,
     SolverOptions,
 )
+from ..utils import spans
 from ..validation import inconsistent_mask
 from .state import GIResult, GIState, initial_state
 
@@ -345,7 +346,9 @@ def _replay_equalities(pb: QPProblem, state: GIState, opt: SolverOptions,
     kk = torch.zeros((B,), dtype=torch.long, device=dev)
     while True:
         active = (kk < neq) & (state.term == RUNNING)
-        if not bool(active.any()):
+        with spans.sync("replay"):
+            go = bool(active.any())
+        if not go:
             break
         idx = perm.gather(1, kk.clamp(0, mt - 1)[:, None])[:, 0]
         st = torch.where(idx < m, EQUALITY, FIXED)
@@ -401,7 +404,9 @@ def jr_loop_plain(pb: QPProblem, state: GIState, opt: SolverOptions,
         capped = (state.term == RUNNING) & (state.it >= opt.max_iter)
         state = dataclasses.replace(state, term=torch.where(
             capped, MAX_ITER_REACHED, state.term).to(torch.int32))
-        if not bool((state.term == RUNNING).any()):
+        with spans.sync("pass"):
+            go = bool((state.term == RUNNING).any())
+        if not go:
             return state
         nxt = gi_iteration(pb, state, opt, select_fn, step_fn)
         if on_pass is not None:
@@ -416,13 +421,15 @@ def run_loop(pb: QPProblem, state: GIState, opt: SolverOptions,
     state (``ops/cuda/jr_kernel.jr_loop``), each lane's iterations back to
     back, and :func:`jr_loop_plain` on a CPU one. ``select_fn`` and
     ``step_fn`` (the structured solver's block-sparse hooks) or
-    ``on_pass`` (the tracer) run :func:`jr_loop_plain` with them."""
-    if select_fn is None and step_fn is None and on_pass is None:
-        # imported here: jr_kernel imports this module
-        from ..ops.cuda.jr_kernel import jr_loop
+    ``on_pass`` (the tracer) run :func:`jr_loop_plain` with them. In a
+    span ``jrlqp.loop``."""
+    with spans.span("jrlqp.loop", state.x):
+        if select_fn is None and step_fn is None and on_pass is None:
+            # imported here: jr_kernel imports this module
+            from ..ops.cuda.jr_kernel import jr_loop
 
-        return jr_loop(pb, state, opt)
-    return jr_loop_plain(pb, state, opt, select_fn, step_fn, on_pass)
+            return jr_loop(pb, state, opt)
+        return jr_loop_plain(pb, state, opt, select_fn, step_fn, on_pass)
 
 
 def finalize(pb: QPProblem, state: GIState) -> GIResult:
@@ -439,7 +446,12 @@ def solve_batch(pbs: QPProblem, opt: SolverOptions = SolverOptions()
     method in the problems' dtype (counterpart of ``vmap`` of
     ``jrlqp_tpu.solve``, dense.py:443-446). Runs on the problems' device:
     the torch init, then one launch of K10 on a card (:func:`run_loop`)."""
-    return finalize(pbs, run_loop(pbs, init_state(pbs, opt), opt))
+    with spans.call("solve_batch", pbs.G):
+        with spans.span("jrlqp.init"):
+            state0 = init_state(pbs, opt)
+        state = run_loop(pbs, state0, opt)
+        with spans.span("jrlqp.remap"):
+            return finalize(pbs, state)
 
 
 def solve(pb: QPProblem, opt: SolverOptions = SolverOptions()) -> GIResult:

@@ -84,6 +84,7 @@ from ..types import (
     SolverOptions,
 )
 from ..testing.kkt import kkt_residual
+from ..utils import spans
 from ..validation import inconsistent_mask
 from .dense import (
     _bmtv,
@@ -160,6 +161,13 @@ def _validated(pb: QPProblem, st: FastState, opt: SolverOptions
 
 def _refine_batch(pbs: QPProblem, st: FastState, ir_steps: int,
                   exact: bool = False) -> GIResult:
+    """:func:`_refine` in a span ``jrlqp.refine``."""
+    with spans.span("jrlqp.refine", pbs.a):
+        return _refine(pbs, st, ir_steps, exact)
+
+
+def _refine(pbs: QPProblem, st: FastState, ir_steps: int,
+            exact: bool) -> GIResult:
     """Batched mixed-precision iterative refinement in native f64.
 
     The kernel paths' refinement (``_refine_batch``, fast.py:397-548)
@@ -379,7 +387,9 @@ def _init_fast_from_ops(pb: QPProblem, H, x, posdef, opt: SolverOptions
     kk = torch.zeros((B,), dtype=torch.long, device=dev)
     while True:
         active = (kk < neq) & (state.term == RUNNING)
-        if not bool(active.any()):
+        with spans.sync("replay"):
+            go = bool(active.any())
+        if not go:
             break
         idx = perm.gather(1, kk.clamp(0, mt - 1)[:, None])[:, 0]
         stc = torch.where(idx < m, EQUALITY, FIXED)
@@ -456,7 +466,9 @@ def _init_fast_warm(pb: QPProblem, as_hint, opt: SolverOptions
         skip1=torch.zeros((B,), dtype=torch.bool, device=dev),
         sc_idx=zeros - 1, sc_status=zeros,
         hscale=torch.diagonal(Ginv, dim1=1, dim2=2).sum(dim=1))
-    if not bool(indep.all()):
+    with spans.sync("warm_indep"):
+        all_indep = bool(indep.all())
+    if not all_indep:
         state = _where_state(indep, state, _init_fast(pb, opt))
     return _deactivate_negative_u(pb, _validated(pb, state, opt), b_act)
 
@@ -483,7 +495,9 @@ def _deactivate_negative_u(pb: QPProblem, state: FastState, b_act
         lmin = vals.argmin(dim=1)
         umin = vals.gather(1, lmin[:, None])[:, 0]
         active = (state.term == RUNNING) & (umin < utol)
-        if not bool(active.any()):
+        with spans.sync("deactivate"):
+            go = bool(active.any())
+        if not go:
             return state
         st2 = _apply_remove(pb, state, lmin, state.u)
         q2 = st2.q.long()[:, None]
@@ -632,7 +646,9 @@ def fast_loop_plain(pb: QPProblem, state: FastState, opt: SolverOptions,
         capped = (state.term == RUNNING) & (state.it >= opt.max_iter)
         state = dataclasses.replace(state, term=torch.where(
             capped, MAX_ITER_REACHED, state.term).to(torch.int32))
-        if not bool((state.term == RUNNING).any()):
+        with spans.sync("pass"):
+            go = bool((state.term == RUNNING).any())
+        if not go:
             return state
         nxt = fast_iteration(pb, state, opt)
         if on_pass is not None:
@@ -646,17 +662,21 @@ def _run_loop(pb: QPProblem, state: FastState, opt: SolverOptions,
     RUNNING (fast.py:342-351). Without a hook it is one launch of K11 on a
     CUDA state (``ops/cuda/fast_loop.fast_loop``), each lane's iterations
     back to back, and :func:`fast_loop_plain` on a CPU one; ``on_pass``
-    (the tracer) runs :func:`fast_loop_plain` with it."""
-    if on_pass is None:
-        # imported here: fast_loop imports this module
-        from ..ops.cuda.fast_loop import fast_loop
+    (the tracer) runs :func:`fast_loop_plain` with it. In a span
+    ``jrlqp.loop``."""
+    with spans.span("jrlqp.loop", state.x):
+        if on_pass is None:
+            # imported here: fast_loop imports this module
+            from ..ops.cuda.fast_loop import fast_loop
 
-        return fast_loop(pb, state, opt)
-    return fast_loop_plain(pb, state, opt, on_pass)
+            return fast_loop(pb, state, opt)
+        return fast_loop_plain(pb, state, opt, on_pass)
 
 
 def _run_fast(pb: QPProblem, opt: SolverOptions) -> FastState:
-    return _run_loop(pb, _init_fast(pb, opt), opt)
+    with spans.span("jrlqp.init", pb.G):
+        state0 = _init_fast(pb, opt)
+    return _run_loop(pb, state0, opt)
 
 
 def solve_fast(pbs: QPProblem, opt: SolverOptions = SolverOptions()
@@ -673,8 +693,9 @@ def solve_fast_warm(pbs: QPProblem, as_hints,
     """Warm-started explicit-form solve from (B, m+n) activation hints in
     the problems' dtype (counterpart of ``vmap(solve_fast_warm)``,
     fast.py:898-915). Hints count only with ``opt.warm_start``."""
-    return finalize(pbs, _run_loop(pbs, _init_fast_warm(pbs, as_hints, opt),
-                                   opt))
+    with spans.span("jrlqp.init", pbs.G):
+        state0 = _init_fast_warm(pbs, as_hints, opt)
+    return finalize(pbs, _run_loop(pbs, state0, opt))
 
 
 def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
@@ -683,9 +704,12 @@ def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
     f32 explicit-form loop (:func:`_run_loop`: one K11 launch on a card),
     then ``ir_steps`` steps of f64 refinement (counterpart of
     ``vmap(jrlqp_tpu.solver.fast.solve_refined)``, fast.py:620-635)."""
-    pb32 = pbs.with_dtype(torch.float32)
-    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
-    return _refine_batch(pbs, _run_fast(pb32, opt32), ir_steps, exact=True)
+    with spans.call("solve_refined", pbs.G):
+        with spans.span("jrlqp.prepare"):
+            pb32 = pbs.with_dtype(torch.float32)
+        opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+        return _refine_batch(pbs, _run_fast(pb32, opt32), ir_steps,
+                             exact=True)
 
 
 def solve_refined_kernel(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
@@ -702,9 +726,10 @@ def solve_refined_kernel(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
     CPU batch through its plain PyTorch version. With ``opt.validate``
     lanes with inconsistent data end INCONSISTENT_INPUT on both branches.
     """
-    if not fused_init:
-        return _solve_refined_from_init(pbs, opt, ir_steps, run_loop)
-    return _solve_refined(pbs, opt, ir_steps, run_loop_fused)
+    with spans.call("solve_refined_kernel", pbs.G):
+        if not fused_init:
+            return _solve_refined_from_init(pbs, opt, ir_steps, run_loop)
+        return _solve_refined(pbs, opt, ir_steps, run_loop_fused)
 
 
 def _solve_refined(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
@@ -712,9 +737,12 @@ def _solve_refined(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
     """:func:`solve_refined_kernel` with the f32 loop ``run_loop(pb32,
     max_iter)`` given: the kernel's wrapper, or its plain version for a
     comparison on the card."""
-    pb32 = pbs.with_dtype(torch.float32)
-    st = _state_from_kernel_out(run_loop(pb32, opt.max_iter), pbs.batch)
-    return _refine_batch(pbs, _validated(pb32, st, opt), ir_steps)
+    with spans.span("jrlqp.prepare", pbs.G):
+        pb32 = pbs.with_dtype(torch.float32)
+    out = run_loop(pb32, opt.max_iter)
+    with spans.span("jrlqp.remap", pbs.G):
+        st = _validated(pb32, _state_from_kernel_out(out, pbs.batch), opt)
+    return _refine_batch(pbs, st, ir_steps)
 
 
 def _solve_refined_from_init(pbs: QPProblem, opt: SolverOptions,
@@ -724,11 +752,15 @@ def _solve_refined_from_init(pbs: QPProblem, opt: SolverOptions,
     K9's wrapper, or a plain version -- then ``ir_steps`` steps of f64
     refinement: the body of ``solve_refined_pallas(..., fused_init=False)``
     (fast.py:638-671)."""
-    pb32 = pbs.with_dtype(torch.float32)
+    with spans.span("jrlqp.prepare", pbs.G):
+        pb32 = pbs.with_dtype(torch.float32)
     opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
-    out = run(pb32, _init_fast(pb32, opt32), opt.max_iter)
-    return _refine_batch(pbs, _state_from_kernel_out(out, pbs.batch),
-                         ir_steps)
+    with spans.span("jrlqp.init", pbs.G):
+        state0 = _init_fast(pb32, opt32)
+    out = run(pb32, state0, opt.max_iter)
+    with spans.span("jrlqp.remap", pbs.G):
+        st = _state_from_kernel_out(out, pbs.batch)
+    return _refine_batch(pbs, st, ir_steps)
 
 
 def solve_refined_kernel_compact(pbs: QPProblem,
@@ -739,7 +771,8 @@ def solve_refined_kernel_compact(pbs: QPProblem,
     of ``solve_refined_pallas(pbs, opt, ir_steps, pack=1)``, whose fused
     init falls back to the XLA init at pack 1, fast.py:725-734). A CPU
     batch runs K9's plain version."""
-    return _solve_refined_from_init(pbs, opt, ir_steps, run_loop_compact)
+    with spans.call("solve_refined_kernel_compact", pbs.G):
+        return _solve_refined_from_init(pbs, opt, ir_steps, run_loop_compact)
 
 
 def _lanes(st: FastState, idx: torch.Tensor) -> FastState:
@@ -767,25 +800,38 @@ def solve_refined_kernel_compacted(pbs: QPProblem,
     same status and iterations. The sub-batch is exactly the unfinished
     lanes: the JAX package's power-of-two padding only bounds its
     compiles. A CUDA batch runs K3, a CPU batch its plain version."""
+    with spans.call("solve_refined_kernel_compacted", pbs.G):
+        return _solve_compacted(pbs, opt, ir_steps, phase1_frac)
+
+
+def _solve_compacted(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
+                     phase1_frac: float) -> GIResult:
     phase1 = max(1, min(int(opt.max_iter * phase1_frac), opt.max_iter))
-    pb32 = pbs.with_dtype(torch.float32)
+    with spans.span("jrlqp.prepare", pbs.G):
+        pb32 = pbs.with_dtype(torch.float32)
     opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
-    st = _state_from_kernel_out(
-        run_loop(pb32, _init_fast(pb32, opt32), phase1), pbs.batch)
-    idx = torch.nonzero(st.term == MAX_ITER_REACHED)[:, 0]
+    with spans.span("jrlqp.init", pbs.G):
+        state0 = _init_fast(pb32, opt32)
+    out = run_loop(pb32, state0, phase1)
+    with spans.span("jrlqp.remap", pbs.G):
+        st = _state_from_kernel_out(out, pbs.batch)
+    with spans.sync("compact"):
+        idx = torch.nonzero(st.term == MAX_ITER_REACHED)[:, 0]
     if phase1 < opt.max_iter and idx.numel():
-        sub = _lanes(st, idx)
-        sub = dataclasses.replace(sub, term=torch.full_like(sub.term,
-                                                            RUNNING))
-        fin = _state_from_kernel_out(
-            run_loop(pb32._map(lambda t: t[idx]), sub, opt.max_iter),
-            idx.numel())
-        merged = {}
-        for f in dataclasses.fields(FastState):
-            full = getattr(st, f.name).clone()
-            full[idx] = getattr(fin, f.name)
-            merged[f.name] = full
-        st = FastState(**merged)
+        with spans.span("jrlqp.prepare", pbs.G):
+            sub = _lanes(st, idx)
+            sub = dataclasses.replace(sub, term=torch.full_like(sub.term,
+                                                                RUNNING))
+            pb_sub = pb32._map(lambda t: t[idx])
+        out = run_loop(pb_sub, sub, opt.max_iter)
+        with spans.span("jrlqp.remap", pbs.G):
+            fin = _state_from_kernel_out(out, idx.numel())
+            merged = {}
+            for f in dataclasses.fields(FastState):
+                full = getattr(st, f.name).clone()
+                full[idx] = getattr(fin, f.name)
+                merged[f.name] = full
+            st = FastState(**merged)
     return _refine_batch(pbs, st, ir_steps)
 
 
@@ -815,9 +861,16 @@ def solve_refined_kernel_rescued(pbs: QPProblem,
     are gathered: the JAX package's power-of-two bucket only bounds its
     compiles, and no lane's result depends on it. A batch with no failed
     lane comes back as the first stage left it."""
+    with spans.call("solve_refined_kernel_rescued", pbs.G):
+        return _solve_rescued(pbs, opt, ir_steps, kkt_tol)
+
+
+def _solve_rescued(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
+                   kkt_tol: float) -> GIResult:
     res = _solve_refined_from_init(pbs, opt, ir_steps, run_loop)
     resid = _batch_kkt(pbs, res.x, res.multipliers)
-    bad = torch.nonzero((resid > kkt_tol) | (res.status != SUCCESS))[:, 0]
+    with spans.sync("rescue"):
+        bad = torch.nonzero((resid > kkt_tol) | (res.status != SUCCESS))[:, 0]
     if bad.numel() == 0:
         return res
     sub = _rescue_subbatch(pbs._map(lambda t: t[bad]), opt)
@@ -844,12 +897,16 @@ def solve_refined_warm_kernel(pbs: QPProblem, as_hints,
     ``opt.warm_start``. The f32 warm init runs here in torch, the loop in
     the kernel K3 (a CPU batch: its plain version), then ``ir_steps`` steps
     of f64 refinement."""
-    pb32 = pbs.with_dtype(torch.float32)
-    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
-    state0 = _init_fast_warm(pb32, as_hints, opt32)
-    out = run_loop(pb32, state0, opt.max_iter)
-    return _refine_batch(pbs, _state_from_kernel_out(out, pbs.batch),
-                         ir_steps)
+    with spans.call("solve_refined_warm_kernel", pbs.G):
+        with spans.span("jrlqp.prepare"):
+            pb32 = pbs.with_dtype(torch.float32)
+        opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+        with spans.span("jrlqp.init"):
+            state0 = _init_fast_warm(pb32, as_hints, opt32)
+        out = run_loop(pb32, state0, opt.max_iter)
+        with spans.span("jrlqp.remap"):
+            st = _state_from_kernel_out(out, pbs.batch)
+        return _refine_batch(pbs, st, ir_steps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -899,19 +956,26 @@ def solve_refined_kernel_carry(pbs: QPProblem, carry: WarmCarry | None = None,
     kernels' plain versions. With ``opt.validate`` the cold step ends
     lanes with inconsistent data INCONSISTENT_INPUT (the warm step, like
     the JAX one, does not check)."""
-    if carry is None:
-        pb32 = pbs.with_dtype(torch.float32)
-        out, raw = run_loop_fused_carry(pb32, opt.max_iter)
-        st = _validated(pb32, _state_from_kernel_out(out, pbs.batch), opt)
-    else:
-        if carry.raw is None:
-            inputs, (n, m) = prepare_warm(
-                pbs.with_dtype(torch.float32), carry.H, carry.Ns,
-                carry.status, carry.aorder, carry.q)
+    with spans.call("solve_refined_kernel_carry", pbs.G):
+        if carry is None:
+            with spans.span("jrlqp.prepare"):
+                pb32 = pbs.with_dtype(torch.float32)
+            out, raw = run_loop_fused_carry(pb32, opt.max_iter)
+            with spans.span("jrlqp.remap"):
+                st = _validated(pb32, _state_from_kernel_out(out, pbs.batch),
+                                opt)
         else:
-            inputs, (n, m) = prepare_warm_carry(pbs, carry.raw, carry.q)
-        out, raw = warm_step(inputs, n, m, opt.max_iter)
-        st = _state_from_kernel_out(out, pbs.batch)
-    return (_refine_batch(pbs, st, ir_steps),
-            WarmCarry(H=out["H"], Ns=out["Ns"], status=out["status"],
-                      aorder=out["aorder"], q=out["q"], raw=raw))
+            with spans.span("jrlqp.prepare"):
+                if carry.raw is None:
+                    inputs, (n, m) = prepare_warm(
+                        pbs.with_dtype(torch.float32), carry.H, carry.Ns,
+                        carry.status, carry.aorder, carry.q)
+                else:
+                    inputs, (n, m) = prepare_warm_carry(pbs, carry.raw,
+                                                        carry.q)
+            out, raw = warm_step(inputs, n, m, opt.max_iter)
+            with spans.span("jrlqp.remap"):
+                st = _state_from_kernel_out(out, pbs.batch)
+        return (_refine_batch(pbs, st, ir_steps),
+                WarmCarry(H=out["H"], Ns=out["Ns"], status=out["status"],
+                          aorder=out["aorder"], q=out["q"], raw=raw))

@@ -34,6 +34,7 @@ from ..types import (
     UPPER_BOUND,
     SolverOptions,
 )
+from ..utils import spans
 from .dense import (
     _bmtv,
     _bmv,
@@ -188,7 +189,9 @@ def warm_init_state(pb: QPProblem, as_hint, opt: SolverOptions) -> GIState:
         lmin = vals.argmin(dim=1)
         umin = vals.gather(1, lmin[:, None])[:, 0]
         active = (state.term == RUNNING) & (umin < -1e-14)
-        if not bool(active.any()):
+        with spans.sync("deactivate"):
+            go = bool(active.any())
+        if not go:
             return state
         q_old = state.q.long()
         J2, R2 = givens_remove(state.J, state.R, q_old,

@@ -61,6 +61,7 @@ from ..types import (
     UPPER_BOUND,
     SolverOptions,
 )
+from ..utils import spans
 from .containers import GType, StructuredC, StructuredG
 
 __all__ = ["solve_structured", "solve_structured_fast",
@@ -215,10 +216,12 @@ def _check_backend(backend):
 
 
 def _problems(sgs, a, scs, l, u, xl, xu, opt):
-    """(pbs, pb32, opt32): the dense batch in its dtype and in f32."""
-    pbs = structured_qp_problem(sgs, a, scs, l, u, xl, xu)
-    return (pbs, pbs.with_dtype(torch.float32),
-            opt.with_(dtype=torch.float32, zero_z_threshold=1e-6))
+    """(pbs, pb32, opt32): the dense batch in its dtype and in f32, in a
+    span ``jrlqp.prepare``."""
+    with spans.span("jrlqp.prepare", a):
+        pbs = structured_qp_problem(sgs, a, scs, l, u, xl, xu)
+        return (pbs, pbs.with_dtype(torch.float32),
+                opt.with_(dtype=torch.float32, zero_z_threshold=1e-6))
 
 
 def _solve_structured_states(sgs, a, scs, l, u, xl, xu, opt, backend):
@@ -228,16 +231,18 @@ def _solve_structured_states(sgs, a, scs, l, u, xl, xu, opt, backend):
     pbs, pb32, opt32 = _problems(sgs, a, scs, l, u, xl, xu, opt)
     n = sgs.n
     f32 = torch.float32
-    if backend == "auto":
-        H, posdef = _structured_inverse_kernel_batch(
-            sgs.diag.to(f32), sgs.off.to(f32), sgs.gtype)
-        eye = torch.eye(n, dtype=f32, device=H.device)
-        H = torch.where(posdef[:, None, None], H, eye)
-    else:
-        H, posdef = _structured_inverse_blocks(dataclasses.replace(
-            sgs, diag=sgs.diag.to(f32), off=sgs.off.to(f32)))
-    x = torch.where(posdef[:, None], -_bmv(H, pb32.a), 0.0)
-    state0 = _init_fast_from_ops(pb32, H, x, posdef, opt32)
+    with spans.span("jrlqp.factor", a):
+        if backend == "auto":
+            H, posdef = _structured_inverse_kernel_batch(
+                sgs.diag.to(f32), sgs.off.to(f32), sgs.gtype)
+            eye = torch.eye(n, dtype=f32, device=H.device)
+            H = torch.where(posdef[:, None, None], H, eye)
+        else:
+            H, posdef = _structured_inverse_blocks(dataclasses.replace(
+                sgs, diag=sgs.diag.to(f32), off=sgs.off.to(f32)))
+    with spans.span("jrlqp.init", a):
+        x = torch.where(posdef[:, None], -_bmv(H, pb32.a), 0.0)
+        state0 = _init_fast_from_ops(pb32, H, x, posdef, opt32)
     return pbs, pb32, opt32, _run_loop(pb32, state0, opt32)
 
 
@@ -258,9 +263,10 @@ def solve_structured_fast_batch(
     or a dense (B, m, n) C. H = G^-1 by the block kernels (one launch per
     stage for the whole batch), the GI loop in f32, then ``ir_steps`` steps
     of f64 refinement. Runs on the batch's device."""
-    pbs, _, _, states = _solve_structured_states(sgs, a, scs, l, u, xl, xu,
-                                                 opt, backend)
-    return _refine_batch(pbs, states, ir_steps)
+    with spans.call("solve_structured_fast_batch", a):
+        pbs, _, _, states = _solve_structured_states(sgs, a, scs, l, u, xl,
+                                                     xu, opt, backend)
+        return _refine_batch(pbs, states, ir_steps)
 
 
 def solve_structured_fast_carry(
@@ -283,18 +289,21 @@ def solve_structured_fast_carry(
     starts the loop from its operators: no factorization, one K11 launch
     on a card. With ``opt.validate`` a warm step also ends lanes with
     inconsistent data INCONSISTENT_INPUT."""
-    if carry is None:
-        pbs, _, _, states = _solve_structured_states(
-            sgs, a, scs, l, u, xl, xu, opt, backend)
-    else:
-        _check_backend(backend)
-        pbs, pb32, opt32 = _problems(sgs, a, scs, l, u, xl, xu, opt)
-        state0 = _init_fast_from_carry(pb32, carry.H, carry.Ns, carry.status,
-                                       carry.aorder, carry.q)
-        states = _run_loop(pb32, _validated(pb32, state0, opt), opt32)
-    res = _refine_batch(pbs, states, ir_steps)
-    return res, WarmCarry(H=states.H, Ns=states.Ns, status=states.status,
-                          aorder=states.aorder, q=states.q)
+    with spans.call("solve_structured_fast_carry", a):
+        if carry is None:
+            pbs, _, _, states = _solve_structured_states(
+                sgs, a, scs, l, u, xl, xu, opt, backend)
+        else:
+            _check_backend(backend)
+            pbs, pb32, opt32 = _problems(sgs, a, scs, l, u, xl, xu, opt)
+            with spans.span("jrlqp.init", a):
+                state0 = _validated(pb32, _init_fast_from_carry(
+                    pb32, carry.H, carry.Ns, carry.status, carry.aorder,
+                    carry.q), opt)
+            states = _run_loop(pb32, state0, opt32)
+        res = _refine_batch(pbs, states, ir_steps)
+        return res, WarmCarry(H=states.H, Ns=states.Ns, status=states.status,
+                              aorder=states.aorder, q=states.q)
 
 
 def solve_structured_fast(

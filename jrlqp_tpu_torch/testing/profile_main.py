@@ -2,15 +2,18 @@
 
     python3 -m jrlqp_tpu_torch.testing.profile_main [--batch 16384]
 
-Times each phase of ``solve_refined_kernel`` at n=50, m=100, act_frac 0.3
-(problems made in f32, solved in f64) with CUDA events: host preparation
-(cast and pad), the fused kernel K1, the index remap and the f64
-refinement; then the whole solve by wall clock. One solve under
+Times each stage of ``solve_refined_kernel`` at n=50, m=100, act_frac 0.3
+(problems made in f32, solved in f64) by the program's own spans
+(:mod:`jrlqp_tpu_torch.utils.spans`, CUDA events, under
+``spans.recording()``): preparation (cast and pad), the loop (the fused
+kernel K1), the index remap and the f64 refinement, summed per stage, and
+the whole call; then the whole solve by wall clock, spans off. One solve under
 ``torch.profiler`` gives the device's busy time as the union of its kernel
 and copy intervals, and the idle share against two spans: first kernel
 start to last kernel end, and the profiled solve's host range (the
 profiler's own overhead widens the gaps, so these are upper bounds).
-Last, K1's device time at several batch sizes. Every number is printed;
+Last, the loop stage's (K1's) device time at several batch sizes. Every
+number is printed;
 the last line is one JSON object with all of them.
 """
 from __future__ import annotations
@@ -26,27 +29,24 @@ import time
 import torch
 
 from .. import SolverOptions, solve_refined_kernel
-from ..ops.cuda import gi_kernel
-from ..solver import fast
+from ..utils import spans
 from .batch_gen import random_qp_batch
 
 N, M, ACT_FRAC, MAX_ITER, IR_STEPS = 50, 100, 0.3, 150, 1
 
 
-def _events_ms(fn, reps):
-    """Device ms of ``fn`` per rep by CUDA events, after one warm-up."""
-    fn()
+def _stages_ms(solve, reps):
+    """Per rep, after one warm-up: the device ms of each stage of one
+    ``solve()`` and of the whole call (``call``), by its spans."""
+    solve()
     torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end))
-    return out
+    spans.clear()
+    with spans.recording():
+        for _ in range(reps):
+            solve()
+    torch.cuda.synchronize()
+    return [dict({k: v["device_ms"] for k, v in c["stages"].items()},
+                 call=c["device_ms"]) for c in spans.calls()]
 
 
 def _busy_us(intervals):
@@ -111,24 +111,11 @@ def main(argv=None) -> int:
 
     B = args.batch
     pbs = problems(B)
-    inputs, (n, m) = gi_kernel.prepare(pbs.with_dtype(f32))
-    raw = gi_kernel._gi_fused_cuda_raw(*inputs, n, m, MAX_ITER)
-    out = gi_kernel.postprocess(raw, n, m)
-    phases = {
-        "prepare": _events_ms(
-            lambda: gi_kernel.prepare(pbs.with_dtype(f32)), args.reps),
-        "K1": _events_ms(
-            lambda: gi_kernel._gi_fused_cuda_raw(*inputs, n, m, MAX_ITER),
-            args.reps),
-        "remap": _events_ms(lambda: gi_kernel.postprocess(raw, n, m),
-                            args.reps),
-        "refine": _events_ms(lambda: fast._refine_batch(
-            pbs, fast._state_from_kernel_out(out, B), IR_STEPS), args.reps),
-        "solve": _events_ms(lambda: solve_refined_kernel(pbs, opt, IR_STEPS),
-                            args.reps),
-    }
+    reps = _stages_ms(lambda: solve_refined_kernel(pbs, opt, IR_STEPS),
+                      args.reps)
+    phases = {k: [r.get(k, 0.0) for r in reps] for k in reps[0]}
     for k, v in phases.items():
-        print(f"phase {k}: device ms by CUDA events, {args.reps} reps: {v}")
+        print(f"phase {k}: device ms by its spans, {args.reps} reps: {v}")
 
     walls = []
     for _ in range(args.reps):
@@ -159,13 +146,12 @@ def main(argv=None) -> int:
 
     scaling = {}
     for b in (int(s) for s in args.scaling.split(",") if s):
-        ins, (n_, m_) = gi_kernel.prepare(problems(b).with_dtype(f32))
-        scaling[b] = min(_events_ms(
-            lambda: gi_kernel._gi_fused_cuda_raw(*ins, n_, m_, MAX_ITER),
-            args.reps))
-        del ins
+        pb_b = problems(b)
+        scaling[b] = min(r["loop"] for r in _stages_ms(
+            lambda: solve_refined_kernel(pb_b, opt, IR_STEPS), args.reps))
+        del pb_b
         torch.cuda.empty_cache()
-        print(f"K1 device ms at batch {b}: {scaling[b]!r}")
+        print(f"K1 (loop stage) device ms at batch {b}: {scaling[b]!r}")
 
     print(json.dumps({"card": card, "batch": B, "phases_ms": phases,
                       "solve_wall_ms": walls, "profile": prof,

@@ -139,7 +139,8 @@ def _one_process(name, k, n, m, batch, device, opt, reps):
         best = min(best, time.perf_counter() - t)
     with shard_timeline.record() as tl:
         _solve(name, pbs, opt, mesh)
-    return best, stats, res, {"shards": tl.shards, "overlap": tl.overlap()}
+    return best, stats, res, {"shards": tl.shards, "overlap": tl.overlap(),
+                              "moves": tl.moves}
 
 
 def _merged(intervals, gap=0.0):

@@ -1,0 +1,12 @@
+"""init_device_ms: the card's busy time per traced call on the work the
+program queued inside its ``jrlqp.init`` spans, ms, read from the trace
+(``qpbench/stages.py``): the torch init, that is the cold replay from the
+structured factor, or a warm step's carry init and its deactivation
+rounds. ``init_device_ms.track``, the same quantity in a trajectory cell,
+reads with this file."""
+
+from qpbench import stages
+
+
+def read(run):
+    return stages.stage_device_ms(run, "init")

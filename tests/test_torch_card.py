@@ -10,7 +10,10 @@ kind, and a lane alone against its batch; the
 default device; the lanes of the miss census
 (``tests/data/missed_lanes_port.npz`` and ``missed_lanes_jax.npz``), each
 solved alone by its path's kernel and plain version to its recorded
-outcome; and the numpy batch generators that the CPU tests share.
+outcome; the numpy batch generators that the CPU tests share; and the
+program's spans on the benchmark's three paths (every host sync a
+``jrlqp.sync.*`` span, the stages covering the call, the loop span holding
+its kernel).
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and no jax:
@@ -20,6 +23,7 @@ with a card and no jax:
 Without a card every test here skips.
 """
 import dataclasses
+import json
 import pathlib
 import subprocess
 import sys
@@ -65,6 +69,7 @@ from jrlqp_tpu_torch.testing import (
 from jrlqp_tpu_torch.testing.batch_gen import random_qp_batch
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
+from jrlqp_tpu_torch.utils import spans
 
 
 def np_qp_batch(seed, batch, n, m, act_frac):
@@ -1825,3 +1830,112 @@ def test_fast_loop_config_fits_the_ik_batch_in_one_wave(cuda_device):
         assert cfg["smem_bytes"] == fast_loop.fast_loop_smem_bytes(
             n, m, 8 if dt == torch.float64 else 4)
     assert fast_loop.fast_loop_config(387, 36)["blocks_per_sm"] >= 8
+
+
+def _benchmark_paths(device):
+    """The three paths of the benchmark's cells at their sizes, each a
+    function that makes one call: the dense main path (16,384 problems of
+    n = 50, K1), the IK cold batch and an IK warm step (1,024 problems of
+    n = 387, K5 + K6 and K11; the step from a cold step's carry)."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    pb = random_qp_batch(gen, 16384, 50, 100, 0.3, dtype=torch.float32,
+                         device=device).with_dtype(torch.float64)
+    d = ik_batch(1024, seed=19)
+    cold = _ik_problem(d, GType.TRI_BLOCK_DIAGONAL, device)
+    step = _ik_problem(ik_step(d, 0.02, np.random.default_rng(19)),
+                       GType.TRI_BLOCK_DIAGONAL, device)
+    opt_ik = SolverOptions(max_iter=200)
+    _, carry = solve_structured_fast_carry(*cold, None, opt=opt_ik)
+    return {
+        "dense": lambda: fast.solve_refined_kernel(
+            pb, SolverOptions(max_iter=150), ir_steps=1),
+        "ik_cold": lambda: solve_structured_fast_batch(*cold, opt=opt_ik),
+        "ik_track": lambda: solve_structured_fast_carry(*step, carry,
+                                                        opt=opt_ik)}
+
+
+def _recorded_call(solve):
+    """The spans of one recorded call of ``solve`` (after a warm-up)."""
+    solve()
+    torch.cuda.synchronize()
+    spans.clear()
+    with spans.recording():
+        solve()
+    torch.cuda.synchronize()
+    (call,) = spans.recorded()
+    return call
+
+
+@pytest.mark.cuda
+def test_every_host_sync_of_the_benchmark_paths_is_a_sync_span(cuda_device):
+    # under torch's sync debug mode each synchronizing operation warns: on
+    # each path exactly as often as the call opens jrlqp.sync.* spans
+    import warnings
+
+    for name, solve in _benchmark_paths(cuda_device).items():
+        solve()
+        torch.cuda.synchronize()
+        spans.clear()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with spans.recording():
+                    solve()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [w for w in seen if "called a synchronizing CUDA operation"
+                 in str(w.message)]
+        (call,) = spans.recorded()
+        opened = [s.name for s in call if s.name.startswith("jrlqp.sync.")]
+        print(name, len(syncs), opened)
+        assert len(syncs) == len(opened), (
+            name, opened, [f"{w.filename}:{w.lineno}" for w in syncs])
+    assert opened.count("jrlqp.sync.deactivate") >= 1
+
+
+@pytest.mark.cuda
+def test_the_stages_cover_the_call_on_the_card(cuda_device):
+    # the device spans of the root's children sum to within 3% of the
+    # root's own device span: the stages leave no device time out
+    for name, solve in _benchmark_paths(cuda_device).items():
+        call = _recorded_call(solve)
+        root = call[0]
+        stages = sum(s.device_ms for s in call if s.parent is root)
+        print(name, root.device_ms, stages,
+              {s.stage: round(s.device_ms, 3) for s in call
+               if s.parent is root})
+        assert root.device is not None and root.device.type == "cuda"
+        assert abs(stages - root.device_ms) <= 0.03 * root.device_ms, name
+
+
+@pytest.mark.cuda
+def test_the_loop_span_holds_its_kernel(cuda_device, tmp_path):
+    # one call under torch.profiler and spans.recording(): the loop stage's
+    # device span is at least the loop kernel's own time (K1 on the dense
+    # path, K11 on the IK cold batch), and the spans are user annotations
+    # of the trace
+    kernels = {"dense": "gi_fused_kernel", "ik_cold": "fast_loop_kernel"}
+    paths = _benchmark_paths(cuda_device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, kernel in kernels.items():
+        paths[name]()
+        torch.cuda.synchronize()
+        spans.clear()
+        with torch.profiler.profile(activities=acts) as prof, \
+                spans.recording():
+            paths[name]()
+            torch.cuda.synchronize()
+        (call,) = spans.recorded()
+        (loop,) = [s for s in call if s.name == "jrlqp.loop"]
+        path = tmp_path / f"{name}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        k_us = sum(float(e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and kernel in e["name"])
+        notes = {e["name"] for e in events
+                 if e.get("cat") == "user_annotation"}
+        print(name, loop.device_ms, k_us / 1e3)
+        assert k_us > 0 and {s.name for s in call} <= notes
+        assert loop.device_ms >= 0.999 * k_us / 1e3 - 1e-3, name

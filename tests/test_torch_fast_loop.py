@@ -40,6 +40,7 @@ from jrlqp_tpu_torch.structured import (
 from jrlqp_tpu_torch.testing import fast_parting
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.types import MAX_ITER_REACHED, RUNNING
+from jrlqp_tpu_torch.utils import spans
 from test_torch_gi_kernel import jax_problem
 from test_torch_jr_kernel import CASES, make
 from test_torch_structured import _args, _assert_same, _jax_args
@@ -264,7 +265,7 @@ def test_cpu_dispatch_runs_the_plain_version(monkeypatch):
         return orig(*args)
 
     monkeypatch.setattr(fast, "fast_loop_plain", plain)
-    fast_loop.launches = 0
+    spans.reset("launch.K11")
     out = fast._run_loop(pb, st0, opt)
     fast.solve_refined(pb.with_dtype(torch.float64), SolverOptions())
     assert calls == [1, 1] and fast_loop.launches == 0

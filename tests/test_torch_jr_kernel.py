@@ -31,6 +31,7 @@ from jrlqp_tpu_torch import (
 from jrlqp_tpu_torch.ops.cuda import _build, jr_kernel
 from jrlqp_tpu_torch.solver import dense
 from jrlqp_tpu_torch.types import MAX_ITER_REACHED, RUNNING
+from jrlqp_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 
@@ -215,7 +216,7 @@ def test_cpu_dispatch_runs_the_plain_version(monkeypatch):
         return dense.jr_loop_plain(*args)
 
     monkeypatch.setattr(jr_kernel, "jr_loop_plain", plain)
-    jr_kernel.launches = 0
+    spans.reset("launch.K10")
     out = dense.run_loop(pb, st0, opt)
     solve_batch(pb, opt)
     assert calls == [1, 1] and jr_kernel.launches == 0
