@@ -38,9 +38,15 @@ width (9 robots x 43 dof, n=387, m=36):
    identity, as the path calls it, against an unpadded factor or rhs,
    copied per call);
 9. the structured cold batch ``solve_structured_fast_batch`` at batch 1024
-   (K5 + K6, the GI loop in one K11 launch, f64 refinement), gated at a
+   (K5 + K6, the GI loop in one K11 launch, f64 refinement on the structure:
+   K13 and K14 once to start and once a step), gated at a
    pass rate of 1.0 and held against the port's dense engine
-   ``solve_refined``; the two arrow layouts (K7 + K8 + K11) gated alike;
+   ``solve_refined``; K13 and K14 held against their plain versions on
+   the batch's own final states (the refinement's start and first step; g
+   within 1e-13 and the tracked state within 1e-12, absolute plus
+   relative), with their ms by events around the wrapper's call, the plain
+   versions' and their bounds; the two arrow layouts (K7 + K8 + K11) gated
+   alike;
    solves/s of the kernel route, the composed ``"blocks"`` route and the
    dense engine, and the time split; K11 (the explicit-form loop) against
    its plain version on the cold batch's own state and at the headline set
@@ -52,7 +58,8 @@ width (9 robots x 43 dof, n=387, m=36):
    launch configuration (threads, shared bytes, blocks per SM, registers);
 10. the IK trajectory: a cold step and 9 warm steps of
    ``solve_structured_fast_carry`` at batch 1024 (10,240 solves; K5 and K6
-   on the cold step, K11 once per step), fresh 0.02 N(0, 1) noise on a and
+   on the cold step, K11 once per step, K13 and K14 four times a step),
+   fresh 0.02 N(0, 1) noise on a and
    a 0.02 N(0, 1) shift of l and u per step, each gated at a pass rate of
    1.0 and held against a cold solve of the step;
 11. K9 (the compact-slot loop) against its plain version, 1024 lanes from
@@ -154,12 +161,13 @@ Every kernel's line in the JSON record carries ``bound_ms``, the least time
 the card could take for the kernel's work on this run's inputs: the larger
 of the bytes it must move (each input read once, each output written once)
 at 3.35 TB/s and its operations at 67 TFLOP/s (f32 outside the tensor
-cores; H100 SXM data sheet), or 33.5 TFLOP/s for K10 and K11 in f64. Both are
-counted at the unpadded sizes, from this run's iteration and active counts,
-with triangular factors counted as triangles, by ``_gi_flops``,
-``_gi_bytes``, ``jr_kernel.jr_flops``, ``jr_kernel.jr_bytes``,
-``fast_loop.fast_loop_flops``, ``fast_loop.fast_loop_bytes`` and the phase
-4 and 8 blocks. Phase 9's own K11 line (not the ``kernels`` line) also
+cores; H100 SXM data sheet), or 33.5 TFLOP/s for K10, K11, K13 and K14 in
+f64. Both are counted at the unpadded sizes, from this run's iteration and
+active counts, with triangular factors counted as triangles, by
+``_gi_flops``, ``_gi_bytes``, ``jr_kernel.jr_flops``,
+``jr_kernel.jr_bytes``, ``fast_loop.fast_loop_flops``,
+``fast_loop.fast_loop_bytes``, the phase 4 and 8 blocks and phase 9's
+``refine_kernels_check``. Phase 9's own K11 line (not the ``kernels`` line) also
 carries ``stream_ms``, a model and not a measurement: the bytes K11's
 design moves (H, N* and G stay in device memory and are streamed every
 iteration, ``fast_loop.fast_loop_stream_bytes``) over 3.35 TB/s.
@@ -352,6 +360,7 @@ def main() -> int:
         fast_loop,
         gi_kernel,
         jr_kernel,
+        struct_refine,
     )
     from jrlqp_tpu_torch.solver import dense, fast
     from jrlqp_tpu_torch.structured import (
@@ -411,7 +420,9 @@ def main() -> int:
                 "block_arrow_llt": block_llt.arrow_llt_launches,
                 "block_arrow_solve": block_llt.arrow_solve_launches,
                 "jr_loop": jr_kernel.launches,
-                "fast_loop": fast_loop.launches}
+                "fast_loop": fast_loop.launches,
+                "struct_gmul": spans.counter("launch.K13"),
+                "struct_update": spans.counter("launch.K14")}
 
     def drifted(pb, scale):
         """``pb`` with l and u shifted together by scale * N(0, 1)."""
@@ -1033,6 +1044,109 @@ def main() -> int:
           f"torch.cholesky_solve, dense factor): {lib_ms}")
     del Ld, Lo, Li, aLd, aLo, aLi, uLd, uLo, uLi, eye_ik, eye_d, eye_sh
 
+    def refine_kernels_check(args):
+        """K13 and K14 against their plain versions on the same card
+        tensors, at the main path's shape: the refinement of the cold
+        batch's own final states, its start (G x, then the update from
+        zero) and its first step; the kernels' max_abs_err (gated as the
+        card test gates them: g within 1e-13, the tracked state within
+        1e-12, absolute plus relative), ms, plain_ms and bound_ms."""
+        sg, a_, sc, lo_, up_ = args
+        pbs_, _, _, st = ssolver._solve_structured_states(
+            sg, a_, sc, lo_, up_, None, None, opt_ik, "auto")
+        seen = []
+        fast._refine_batch(pbs_, st, 0, products=lambda sl: seen.append(
+            ssolver._BlockProducts(sg, sc, sl)) or seen[-1])
+        ops = seen[0]
+        B_, n_ = ops.a.shape
+        m_, width = ops.C.shape[1], ops.C.shape[2]
+        gm = (ops.diag, ops.off, ops.gtype)
+        tail = (ops.C, ops.mc, ops.idx, ops.sgn, ops.a, ops.b)
+        lam32 = torch.where(ops.sgn != 0, st.u[:, :n_], 0.0).contiguous()
+        x32 = st.x.contiguous()
+        torch.cuda.synchronize()
+        reset_counts()
+
+        def err(got, want, tol):
+            d = (got - want).abs()
+            return float(d.max()), bool((d <= tol + tol * want.abs()).all())
+
+        # the start: G x, then the tracked quantities from zero
+        _, gx = struct_refine.struct_gmul(*gm, None, x32, None)
+        _, gx_p = struct_refine.struct_gmul_plain(*gm, None, x32, None)
+        zero = tuple(torch.zeros_like(ops.a) for _ in range(5))
+        st_k, st_p = zero, tuple(z.clone() for z in zero)
+        r_k = struct_refine.struct_update(*tail, x32, lam32, gx, st_k)
+        r_p = struct_refine.struct_update_plain(*tail, x32, lam32, gx, st_p)
+        e_g, e_state, e_t, e_r = [err(gx, gx_p, 1e-13)], [], [], []
+        e_state += [err(k, p_, 1e-12) for k, p_ in zip(st_k, st_p)]
+        e_r += [err(k, p_, 1e-5) for k, p_ in zip(r_k, r_p)]
+        # the first step, from the kernels' residuals
+        r1, r2 = r_k
+        nstr2 = fast._bmtv(st.Ns, r2)
+        dx = fast._bmv(st.H, r1) + nstr2
+        t, g = struct_refine.struct_gmul(*gm, nstr2, dx, r1)
+        t_p, g_p = struct_refine.struct_gmul_plain(*gm, nstr2, dx, r1)
+        e_g.append(err(g, g_p, 1e-13))
+        e_t.append(err(t, t_p, 1e-5))
+        dlam = fast._bmv(st.Ns, t)
+        st_p = tuple(z.clone() for z in st_k)
+        r_k = struct_refine.struct_update(*tail, dx, dlam, g, st_k)
+        r_p = struct_refine.struct_update_plain(*tail, dx, dlam, g, st_p)
+        e_state += [err(k, p_, 1e-12) for k, p_ in zip(st_k, st_p)]
+        e_r += [err(k, p_, 1e-5) for k, p_ in zip(r_k, r_p)]
+        torch.cuda.synchronize()
+        c = counts()
+        _require({k: v for k, v in c.items() if v}
+                 == {"struct_gmul": 2, "struct_update": 2},
+                 f"the K13/K14 check did not launch each kernel twice: {c}")
+        _require(all(ok for _, ok in e_g + e_t),
+                 f"K13 and its plain version differ: g {e_g}, t {e_t}")
+        _require(all(ok for _, ok in e_state + e_r),
+                 f"K14 and its plain version differ: state {e_state}, "
+                 f"residuals {e_r}")
+        # times, on scratch copies of the state (K14 updates in place)
+        scratch = tuple(z.clone() for z in st_k)
+        ms = {"struct_gmul": (
+            _cuda_ms(lambda: struct_refine.struct_gmul(*gm, nstr2, dx, r1)),
+            _cuda_ms(lambda: struct_refine.struct_gmul_plain(
+                *gm, nstr2, dx, r1))),
+            "struct_update": (
+            _cuda_ms(lambda: struct_refine.struct_update(
+                *tail, dx, dlam, g, scratch)),
+            _cuda_ms(lambda: struct_refine.struct_update_plain(
+                *tail, dx, dlam, g, scratch)))}
+        # bounds: each operand read once and each output written once, f64
+        # operations at the f64 peak. K13: G's f64 blocks, u, v, r (f32)
+        # in, t (f32) and g (f64) out; two columns through nb diagonal and
+        # nb - 1 off blocks, each off block twice (M and M^T)
+        nb_, s_ = ops.diag.shape[1], ops.diag.shape[2]
+        g_bytes = (8 * (ops.diag.numel() + ops.off.numel())
+                   + B_ * n_ * (3 * 4 + 4 + 8))
+        g_flops = 2 * 2 * s_ * s_ * (nb_ + 2 * (nb_ - 1)) * B_
+        # K14: C, idx (int32), sgn, a, b, dy (f64), dx, dlam (f32) in; the
+        # five tracked f64 vectors in and out, r1 and r2 (f32) out; N^T dx
+        # over the active general rows and C^T mu over all of C's rows
+        general = int(((ops.sgn != 0) & (ops.idx < m_)).sum())
+        u_bytes = (8 * ops.C.numel()
+                   + B_ * n_ * (4 + 4 * 8 + 2 * 4 + 5 * 16 + 2 * 4))
+        u_flops = 2 * width * general + 2 * ops.C.numel()
+        bound = {"struct_gmul": _bound(g_flops, g_bytes, PEAK_F64),
+                 "struct_update": _bound(u_flops, u_bytes, PEAK_F64)}
+        out = {
+            "struct_gmul": {
+                "max_abs_err": max(e for e, _ in e_g),
+                "max_abs_err_t": max(e for e, _ in e_t)},
+            "struct_update": {
+                "max_abs_err": max(e for e, _ in e_state),
+                "max_abs_err_residuals": max(e for e, _ in e_r)}}
+        for k in out:
+            out[k].update(ms=ms[k][0], plain_ms=ms[k][1],
+                          bound_ms=bound[k][0], bound_by=bound[k][1])
+        print(f"K13/K14 against their plain versions (the cold batch's "
+              f"states, B={B_}, n={n_}, m={m_}, {card}): {out}")
+        return out
+
     # ---- phase 9: the structured cold batch ----
     opt_ik = SolverOptions(max_iter=IK_MAX_ITER)
     ik_t = {k: torch.from_numpy(ik[k]).to(dev) for k in ("a", "l", "u")}
@@ -1052,10 +1166,16 @@ def main() -> int:
     torch.cuda.synchronize()
     cold_counts = counts()
     print(f"structured cold batch launches: {cold_counts}")
+    # the refinement on the structure: K13 and K14 once to start and once
+    # a step
+    refine_launches = {"struct_gmul": 1 + IK_IR_STEPS,
+                       "struct_update": 1 + IK_IR_STEPS}
     _require({k: v for k, v in cold_counts.items() if v}
-             == {"tri_block_llt": 1, "tri_block_solve": 1, "fast_loop": 1},
+             == {"tri_block_llt": 1, "tri_block_solve": 1, "fast_loop": 1,
+                 **refine_launches},
              "the structured cold batch did not run K5, K6 and K11 once "
-             "each (and nothing else)")
+             "each and K13 and K14 once a refinement step and once more "
+             "(and nothing else)")
     rate9, kkt9, _ = gate("structured cold batch", res9, pb9, 1.0)
     dense9 = fast.solve_refined(pb9, opt_ik, ir_steps=IK_IR_STEPS)
     same_st = int((res9.status != dense9.status).sum())
@@ -1067,6 +1187,7 @@ def main() -> int:
     _require(same_st == 0 and same_as == 0,
              "structured and dense engines disagree on status or active set")
     _require(x9 <= 1e-9, f"structured vs dense x differ by {x9} > 1e-9")
+    k13_14 = refine_kernels_check(args9)
     it9 = res9.iterations.double()
     print(f"structured cold batch: batch {IK_BATCH}, n={n_ik}, "
           f"m={IK_NB * IK_MC}: KKT<=1e-8 & SUCCESS rate {rate9!r}, max KKT "
@@ -1085,8 +1206,9 @@ def main() -> int:
         print(f"structured cold batch ({gtype.name}) launches: {c}")
         _require({k: v for k, v in c.items() if v}
                  == {"block_arrow_llt": 1, "block_arrow_solve": 1,
-                     "fast_loop": 1},
-                 f"{gtype.name}: did not run K7, K8 and K11 once each")
+                     "fast_loop": 1, **refine_launches},
+                 f"{gtype.name}: did not run K7, K8 and K11 once each, "
+                 f"K13 and K14 {1 + IK_IR_STEPS} times each")
         rate_a, kkt_a, _ = gate(f"structured {gtype.name}", res_a,
                                 structured_qp_problem(*args_a))
         print(f"structured cold batch ({gtype.name}): rate {rate_a!r}, "
@@ -1128,7 +1250,7 @@ def main() -> int:
         st = fast._run_loop(pb32, fast._init_fast_from_ops(
             pb32, H, x, posdef, opt32), opt32)
         mark()
-        fast._refine_batch(pbs_, st, IK_IR_STEPS)
+        ssolver._refine_structured(pbs_, sg, sc, st, IK_IR_STEPS)
         mark()
         return [1e3 * (b - a_) for a_, b in zip(marks, marks[1:])]
 
@@ -1238,9 +1360,11 @@ def main() -> int:
           f"{traj_ik_counts}")
     _require({k: v for k, v in traj_ik_counts.items() if v}
              == {"tri_block_llt": 1, "tri_block_solve": 1,
-                 "fast_loop": IK_STEPS},
+                 "fast_loop": IK_STEPS,
+                 **{k: IK_STEPS * v for k, v in refine_launches.items()}},
              "the IK trajectory did not launch K5 and K6 once (the cold "
-             "step) and K11 once per step, and nothing else")
+             "step), K11 once per step and K13 and K14 once per "
+             "refinement step and once more, and nothing else")
     rows_ik = []
     for i, (r_, d) in enumerate(zip(results, traj)):
         args_s = ik_args(d)
@@ -2103,7 +2227,8 @@ def main() -> int:
         max_rel_err_vs_plain=rel_dec)
     bench("bench_structured_ik", lambda: harness.bench_structured_ik(
         nb=IK_NB, s=IK_S, mc=IK_MC, batch=IK_BATCH, seed=SEED, device=dev),
-        ["tri_block_llt", "tri_block_solve", "fast_loop"],
+        ["tri_block_llt", "tri_block_solve", "fast_loop", "struct_gmul",
+         "struct_update"],
         lambda r: (0.999, r["success_rate"]))
 
     # the box batch: the draws of phase 16, whose KKT <= 1e-8 gate holds
@@ -2436,6 +2561,19 @@ def main() -> int:
             for k in ("headline f32", "headline f64")},
         **{k: ik11["config"][k] for k in ("threads", "blocks_per_sm",
                                           "registers", "smem_bytes")}})
+    for name, which in (("struct_gmul", "K13"), ("struct_update", "K14")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "jrlqp_tpu_torch/csrc/struct_refine.cu",
+            "replaces": "jrlqp_tpu/solver/fast.py:397 (XLA ops)",
+            "kernel": which, "launches": cold_counts[name],
+            **k13_14[name],
+            "launches_by_path": {
+                "structured cold batch (phase 9)": cold_counts[name],
+                "structured arrows (phase 9)": sum(
+                    c[name] for c in arrow_counts.values()),
+                "IK trajectory (phase 10)": traj_ik_counts[name],
+                "harness": harness_launches[name]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

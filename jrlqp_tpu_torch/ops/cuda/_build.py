@@ -71,6 +71,11 @@ _SIGNATURES = {
     # stream
     "jrlqp_fast_loop_f32": [_P] * 15 + [_I] * 4 + [_D] * 3 + [_P],
     "jrlqp_fast_loop_f64": [_P] * 15 + [_I] * 4 + [_D] * 3 + [_P],
+    # K13: diag, off, u, v, r; t, g; B, nb, s, gtype; stream
+    "jrlqp_struct_gmul": [_P] * 7 + [_I] * 4 + [_P],
+    # K14: C, idx, sgn, a, b, dx, dlam, dy; x, lam, y, ntx, w in place; r1,
+    # r2; B, n, m, mc, width; stream
+    "jrlqp_struct_update": [_P] * 15 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -54,6 +54,7 @@ loop while any lane is RUNNING.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -160,22 +161,138 @@ def _validated(pb: QPProblem, st: FastState, opt: SolverOptions
 
 
 def _refine_batch(pbs: QPProblem, st: FastState, ir_steps: int,
-                  exact: bool = False) -> GIResult:
-    """:func:`_refine` in a span ``jrlqp.refine``."""
+                  products=None) -> GIResult:
+    """:func:`_refine` in a span ``jrlqp.refine``. ``products(slots)``
+    makes the refinement's products from its :class:`_Slots`; by default
+    :class:`_DenseProducts` on ``pbs``'s G and C (``functools.partial(
+    _DenseProducts, pbs, exact=True)`` recomputes them in f64 at every
+    step)."""
     with spans.span("jrlqp.refine", pbs.a):
-        return _refine(pbs, st, ir_steps, exact)
+        return _refine(pbs, st, ir_steps, products or functools.partial(
+            _DenseProducts, pbs))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Slots:
+    """The active slots of a final state, slot-major (n of them): slot k
+    holds the constraint ``idxs[k]`` (0 at a free slot) with the sign
+    ``sgn64[k]`` (-1 UPPER-active, 1 otherwise, 0 at a free slot), a bound
+    row where ``is_b``, and the signed bound ``b[k]``; ``a64`` is the
+    problem's linear term. Its signed normal is sgn_k C[idx_k] for a
+    general row and sgn_k e_(idx_k - m) for a bound: N^T v gathers [C v, v]
+    at the slots, and N lam = C^T mu_c + mu_b scatters each multiplier alone
+    into its row, so both are exact given C v and C^T mu_c."""
+
+    valid: torch.Tensor
+    idxs: torch.Tensor
+    sgn64: torch.Tensor
+    is_b: torch.Tensor
+    b: torch.Tensor
+    a64: torch.Tensor
+    m: int
+
+    def t(self, cv, v):
+        """N^T v from C v (B, m) and v (B, n)."""
+        return self.sgn64 * torch.cat([cv, v], dim=1).gather(1, self.idxs)
+
+    def split(self, lam):
+        """(mu_c (B, m), mu_b (B, n)) with N lam = C^T mu_c + mu_b."""
+        B, n = lam.shape
+        signed = self.sgn64 * lam
+        cidx = self.idxs.clamp(0, max(self.m - 1, 0))
+        at_c = torch.where(self.is_b, self.m, cidx)
+        at_b = torch.where(self.is_b, (self.idxs - self.m).clamp(0, n - 1),
+                           n)
+        mu_c = torch.zeros((B, self.m + 1), dtype=signed.dtype,
+                           device=lam.device).scatter_add(1, at_c, signed)
+        mu_b = torch.zeros((B, n + 1), dtype=signed.dtype,
+                           device=lam.device).scatter_add(1, at_b, signed)
+        return mu_c[:, :self.m], mu_b[:, :n]
+
+    def rows(self, C):
+        """N^T as a (B, n, n) tensor in C's dtype: row k is slot k's
+        normal."""
+        B, n = self.idxs.shape
+        if self.m > 0:
+            cidx = self.idxs.clamp(0, self.m - 1)
+            Crows = C.gather(1, cidx[:, :, None].expand(-1, -1, n))
+        else:
+            Crows = torch.zeros((B, n, n), dtype=C.dtype, device=C.device)
+        e_b = torch.nn.functional.one_hot(
+            (self.idxs - self.m).clamp(0, n - 1), n).to(C.dtype)
+        return self.sgn64.to(C.dtype)[:, :, None] * torch.where(
+            self.is_b[:, :, None], e_b, Crows)
+
+
+class _DenseProducts:
+    """The refinement's products on the dense G and C of the problem, those
+    of every dense caller. It tracks x, lam and, in f64, y = G x, ntx =
+    N^T x and w = N lam: computed once from f64 copies of G and C, then
+    advanced by the f32 increments of each step through f32 copies of G
+    and of the active normals (the JAX ``_refine_batch``, fast.py:397-548);
+    with ``exact`` computed anew in f64 after every step instead (its
+    ``_refine``, fast.py:569-617). The correction's G N*^T r2 is an f32
+    product either way."""
+
+    def __init__(self, pbs: QPProblem, slots: _Slots, exact: bool = False):
+        f32, f64 = torch.float32, torch.float64
+        self.sl, self.exact, self.C = slots, exact, pbs.C
+        self.G64, self.C64 = pbs.G.to(f64), pbs.C.to(f64)
+        self.G32 = pbs.G.to(f32)
+
+    def start(self, x32, lam32):
+        """Track from the loop's x and multipliers; the residuals (r1, r2)
+        in f32."""
+        self.x, self.lam = x32.to(torch.float64), lam32.to(torch.float64)
+        self._products()
+        return self._residuals()
+
+    def correction(self, nstr2, dx, r1):
+        """G N*^T r2 - r1 in f32, the vector N* takes for dlam."""
+        return _bmv(self.G32, nstr2) - r1
+
+    def advance(self, dx, dlam):
+        """x += dx, lam += dlam at the active slots; the next residuals."""
+        f64 = torch.float64
+        self.x = self.x + dx.to(f64)
+        self.lam = torch.where(self.sl.valid, self.lam + dlam.to(f64), 0.0)
+        if self.exact:
+            self._products()
+        else:
+            self.y = self.y + _bmv(self.G32, dx).to(f64)
+            self.ntx = self.ntx + _bmv(self._nt32, dx).to(f64)
+            self.w = self.w + _bmtv(self._nt32, dlam).to(f64)
+        return self._residuals()
+
+    def _products(self):
+        mu_c, mu_b = self.sl.split(self.lam)
+        self.y = _bmv(self.G64, self.x)
+        self.ntx = self.sl.t(_bmv(self.C64, self.x), self.x)
+        self.w = _bmtv(self.C64, mu_c) + mu_b
+
+    def _residuals(self):
+        r1 = self.w - self.y - self.sl.a64                   # stationarity
+        r2 = torch.where(self.sl.valid, self.sl.b - self.ntx, 0.0)
+        return r1.to(torch.float32), r2.to(torch.float32)    # active feas.
+
+    @functools.cached_property
+    def _nt32(self):
+        return self.sl.rows(self.C.to(torch.float32))
 
 
 def _refine(pbs: QPProblem, st: FastState, ir_steps: int,
-            exact: bool) -> GIResult:
+            products) -> GIResult:
     """Batched mixed-precision iterative refinement in native f64.
 
-    The kernel paths' refinement (``_refine_batch``, fast.py:397-548)
-    computes the f64 products G x, N^T x and N lam once and tracks them
-    with f32 increments; ``exact=True`` recomputes them in f64 at every
-    step instead, as ``_refine`` (fast.py:569-617) behind the JAX
-    ``solve_refined`` does, which keeps an ill-conditioned G's f32
-    rounding out of the residual.
+    ``ir_steps`` steps of the residuals r1 = N lam - G x - a and r2 = b -
+    N^T x in f64, then the correction through the loop's f32 operators:
+
+        dx = H r1 + N*^T r2,   dlam = N* (G N*^T r2 - r1)
+
+    ``products(slots)`` keeps x, lam and the products G x, N^T x and N lam
+    (``start``, ``correction``, ``advance``, then its ``x``, ``lam`` and
+    ``y``): :class:`_DenseProducts` on the dense G and C, or the structured
+    entry points' operator on G's blocks and C's rows.
 
     Slot validity is ``aorder >= 0``: the fused kernel frees a slot by
     zeroing it, so active slots may have holes."""
@@ -187,7 +304,6 @@ def _refine(pbs: QPProblem, st: FastState, ir_steps: int,
     stat = torch.where(valid, st.status.long().gather(1, idxs), 0)
     upperish = (stat == UPPER) | (stat == UPPER_BOUND)
     sgn64 = torch.where(upperish, -1.0, 1.0).to(f64) * valid
-    is_b = stat >= LOWER_BOUND
 
     # per-slot signed bounds: general rows use l/u, bound rows xl/xu
     def clamp(v):
@@ -199,63 +315,19 @@ def _refine(pbs: QPProblem, st: FastState, ir_steps: int,
     b_sel = torch.where(upperish, up_all.gather(1, idxs),
                         lo_all.gather(1, idxs))
     b = sgn64 * b_sel * valid                                # (B, n) signed
-
-    # signed active normals in f32, slot-major: N^T[k] = sgn_k (e | C[idx])
-    G32, C32 = pbs.G.to(f32), pbs.C.to(f32)
-    sgn32 = sgn64.to(f32)
-    cidx = idxs.clamp(0, max(m - 1, 0))
-    bidx = (idxs - m).clamp(0, n - 1)
-    if m > 0:
-        Crows = C32.gather(1, cidx[:, :, None].expand(-1, -1, n))
-    else:
-        Crows = torch.zeros((B, n, n), dtype=f32, device=G32.device)
-    e_b = torch.nn.functional.one_hot(bidx, n).to(f32)
-    Nt32 = sgn32[:, :, None] * torch.where(is_b[:, :, None], e_b, Crows)
-
     a64 = pbs.a.to(f64)
+    ops = products(_Slots(valid, idxs, sgn64, stat >= LOWER_BOUND, b, a64,
+                          m))
+
     H32, Ns32 = st.H, st.Ns
-    x32 = st.x
     lam32 = torch.where(valid, st.u[:, :n], 0.0).to(f32)
-    x = x32.to(f64)
-    lam = lam32.to(f64)
-
-    G64, C64 = pbs.G.to(f64), pbs.C.to(f64)
-    c_at = torch.where(is_b, m, cidx)
-    b_at = torch.where(is_b, bidx, n)
-
-    def products(x, lam):
-        """f64 y = G x, N^T x and w = N lam = C^T mu_c + mu_b (each
-        multiplier lands alone in its row, so the scatters are exact)."""
-        signed = sgn64 * lam
-        mu_c = torch.zeros((B, m + 1), dtype=f64, device=x.device
-                           ).scatter_add(1, c_at, signed)[:, :m]
-        mu_b = torch.zeros((B, n + 1), dtype=f64, device=x.device
-                           ).scatter_add(1, b_at, signed)[:, :n]
-        cx = _bmv(C64, x)
-        return (_bmv(G64, x),
-                sgn64 * torch.cat([cx, x], dim=1).gather(1, idxs),
-                _bmtv(C64, mu_c) + mu_b)
-
-    y, ntx, w = products(x, lam)
-    for step in range(ir_steps):
-        if exact and step:
-            y, ntx, w = products(x, lam)
-        r1 = w - y - a64                                     # stationarity
-        r2 = torch.where(valid, b - ntx, 0.0)                # active feas.
-        r1_32, r2_32 = r1.to(f32), r2.to(f32)
-        nstr2 = _bmtv(Ns32, r2_32)                           # N*^T r2
-        dx = _bmv(H32, r1_32) + nstr2
-        gv = _bmv(G32, nstr2)
-        dlam = _bmv(Ns32, gv - r1_32)
-        x = x + dx.to(f64)
-        lam = torch.where(valid, lam + dlam.to(f64), 0.0)
-        if not exact:
-            # track the f64 quantities with f32 increments
-            y = y + _bmv(G32, dx).to(f64)
-            ntx = ntx + _bmv(Nt32, dx).to(f64)
-            w = w + _bmtv(Nt32, dlam).to(f64)
-    if exact:
-        y = _bmv(G64, x)
+    r1, r2 = ops.start(st.x, lam32)
+    for _ in range(ir_steps):
+        nstr2 = _bmtv(Ns32, r2)                              # N*^T r2
+        dx = _bmv(H32, r1) + nstr2
+        dlam = _bmv(Ns32, ops.correction(nstr2, dx, r1))
+        r1, r2 = ops.advance(dx, dlam)
+    x, lam, y = ops.x, ops.lam, ops.y
 
     # multipliers in the external sign convention (UPPER-active positive)
     sign_out = torch.where(upperish, 1.0, -1.0).to(f64)
@@ -709,7 +781,8 @@ def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
             pb32 = pbs.with_dtype(torch.float32)
         opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
         return _refine_batch(pbs, _run_fast(pb32, opt32), ir_steps,
-                             exact=True)
+                             functools.partial(_DenseProducts, pbs,
+                                               exact=True))
 
 
 def solve_refined_kernel(pbs: QPProblem, opt: SolverOptions = SolverOptions(),

@@ -32,6 +32,8 @@ __all__ = [
     "block_arrow_lt_solve",
     "tri_block_to_dense",
     "block_arrow_to_dense",
+    "tri_block_matvec",
+    "block_arrow_matvec",
 ]
 
 
@@ -133,6 +135,28 @@ def block_arrow_lt_solve(L_diag, L_side, r, up: bool = False):
     y = torch.cat([y_head, y_last[:, None]], 1)
     if up:
         y = torch.roll(y, 1, dims=1)
+    return y[..., 0] if vec else y
+
+
+def tri_block_matvec(diag, sub, x):
+    """G x of a block-tridiagonal batch by its blocks, in their dtype; x is
+    (B, nb, s) or (B, nb, s, k)."""
+    x, vec = _with_cols(x)
+    y = diag @ x
+    y[:, 1:] += sub @ x[:, :-1]
+    y[:, :-1] += sub.mT @ x[:, 1:]
+    return y[..., 0] if vec else y
+
+
+def block_arrow_matvec(diag, side, x, up: bool = False):
+    """G x of a block-arrow batch by its blocks: coupling in the last block
+    row, or in the first when ``up``; x is (B, nb, s) or (B, nb, s, k)."""
+    x, vec = _with_cols(x)
+    head, tip = ((slice(1, None), slice(0, 1)) if up
+                 else (slice(0, -1), slice(-1, None)))
+    y = diag @ x
+    y[:, tip] += (side @ x[:, head]).sum(1, keepdim=True)
+    y[:, head] += side.mT @ x[:, tip]
     return y[..., 0] if vec else y
 
 

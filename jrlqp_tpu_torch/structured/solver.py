@@ -5,7 +5,9 @@ Counterpart of the fast entry points of :mod:`jrlqp_tpu.structured.solver`
 (solver.py:210-515). A cold solve computes H = G^-1 from the block chain,
 O(nb s^3) for the factor and O(n^2 s) for the inverse instead of a dense
 O(n^3) Cholesky, then runs the XLA engine's loop (``fast_iteration`` until
-no lane is RUNNING) and the f64 refinement. ``backend`` picks how H is
+no lane is RUNNING) and the f64 refinement, whose products with G and the
+active normals come from G's blocks and C's rows (:class:`_BlockProducts`):
+only the loop's H and N* are read whole. ``backend`` picks how H is
 made:
 
 - ``"auto"``: the kernels K5 and K6, or K7 and K8 for an arrow
@@ -29,6 +31,7 @@ block-sparse selection and step hooks when C is a StructuredC.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
@@ -40,6 +43,7 @@ from ..ops.cuda.block_llt import (
     tri_block_llt,
     tri_block_solve,
 )
+from ..ops.cuda.struct_refine import struct_gmul, struct_update
 from ..ops.linalg import tri_solve_masked
 from ..problems import QPProblem
 from ..solver import dense
@@ -50,6 +54,7 @@ from ..solver.fast import (
     _init_fast_from_ops,
     _refine_batch,
     _run_loop,
+    _Slots,
     _validated,
 )
 from ..solver.state import GIResult, GIState, initial_state
@@ -246,6 +251,66 @@ def _solve_structured_states(sgs, a, scs, l, u, xl, xu, opt, backend):
     return pbs, pb32, opt32, _run_loop(pb32, state0, opt32)
 
 
+class _BlockProducts:
+    """The refinement's products on the structure (``fast._refine``), for
+    the structured entry points: G by its f64 blocks, the active normals by
+    the rows of C as the caller passed it (a StructuredC or a dense (B, m,
+    n) C), the tracked x, lam, G x, N^T x and N lam advanced by f64
+    increments, and no (B, n, n) operand built or read: the correction
+    reads only the loop's H and N*. Each step is two launches, K13 and K14
+    (:mod:`jrlqp_tpu_torch.ops.cuda.struct_refine`), on a card. Counts
+    ``refine.structured`` once per refinement."""
+
+    def __init__(self, sg: StructuredG, sc: Union[StructuredC, torch.Tensor],
+                 slots: _Slots):
+        spans.count("refine.structured")
+        f64 = torch.float64
+        self.diag = sg.diag.to(f64).contiguous()
+        self.off = sg.off.to(f64).contiguous()
+        self.gtype = int(sg.gtype)
+        B, n = slots.a64.shape
+        if isinstance(sc, StructuredC):
+            self.C = sc.blocks.to(f64).reshape(B, sc.m, sc.s).contiguous()
+            self.mc = sc.mc
+        else:
+            self.C, self.mc = sc.to(f64).contiguous(), sc.shape[1]
+        self.idx = slots.idxs.to(torch.int32)
+        self.sgn, self.b = slots.sgn64.contiguous(), slots.b.contiguous()
+        self.a = slots.a64.contiguous()
+        self.state = tuple(torch.zeros((B, n), dtype=f64,
+                                       device=slots.a64.device)
+                           for _ in range(5))
+        self.x, self.lam, self.y = self.state[:3]
+        self.dy = None
+
+    def start(self, x32, lam32):
+        """Track from the loop's x and multipliers: the increments of x and
+        lam from zero; the residuals (r1, r2) in f32."""
+        _, self.dy = struct_gmul(self.diag, self.off, self.gtype, None,
+                                 x32.contiguous(), None)
+        return self.advance(x32.contiguous(), lam32)
+
+    def correction(self, nstr2, dx, r1):
+        """f32(G N*^T r2) - r1, and G dx in f64 for :meth:`advance`, in one
+        pass over G's blocks."""
+        t, self.dy = struct_gmul(self.diag, self.off, self.gtype, nstr2, dx,
+                                 r1)
+        return t
+
+    def advance(self, dx, dlam):
+        """The tracked quantities advanced by dx, dlam and G dx; the next
+        residuals."""
+        return struct_update(self.C, self.mc, self.idx, self.sgn, self.a,
+                             self.b, dx, dlam, self.dy, self.state)
+
+
+def _refine_structured(pbs, sgs, scs, states, ir_steps):
+    """``ir_steps`` steps of f64 refinement of the loop's final states on
+    the structure (:class:`_BlockProducts`)."""
+    return _refine_batch(pbs, states, ir_steps,
+                         products=functools.partial(_BlockProducts, sgs, scs))
+
+
 def solve_structured_fast_batch(
     sgs: StructuredG,
     a: torch.Tensor,
@@ -262,11 +327,12 @@ def solve_structured_fast_batch(
     (B, nb, s, s), ``a`` (B, n), ``l``/``u`` (B, m), ``scs`` a StructuredC
     or a dense (B, m, n) C. H = G^-1 by the block kernels (one launch per
     stage for the whole batch), the GI loop in f32, then ``ir_steps`` steps
-    of f64 refinement. Runs on the batch's device."""
+    of f64 refinement on the blocks of G and the rows of C. Runs on the
+    batch's device."""
     with spans.call("solve_structured_fast_batch", a):
         pbs, _, _, states = _solve_structured_states(sgs, a, scs, l, u, xl,
                                                      xu, opt, backend)
-        return _refine_batch(pbs, states, ir_steps)
+        return _refine_structured(pbs, sgs, scs, states, ir_steps)
 
 
 def solve_structured_fast_carry(
@@ -301,7 +367,7 @@ def solve_structured_fast_carry(
                     pb32, carry.H, carry.Ns, carry.status, carry.aorder,
                     carry.q), opt)
             states = _run_loop(pb32, state0, opt32)
-        res = _refine_batch(pbs, states, ir_steps)
+        res = _refine_structured(pbs, sgs, scs, states, ir_steps)
         return res, WarmCarry(H=states.H, Ns=states.Ns, status=states.status,
                               aorder=states.aorder, q=states.q)
 

@@ -9,6 +9,7 @@ tests and ``chip_smoke.py`` hold K11 with it."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -164,7 +165,8 @@ def outcomes(pb, got: fast.FastState, want: fast.FastState, lanes,
     for name, st in (("plain", want), ("k11", got)):
         sub = dataclasses.replace(st, **{f.name: getattr(st, f.name)[idx]
                                          for f in dataclasses.fields(st)})
-        r = (fast._refine_batch(pb64, sub, ir_steps, exact=True)
+        r = (fast._refine_batch(pb64, sub, ir_steps, functools.partial(
+                 fast._DenseProducts, pb64, exact=True))
              if st.x.dtype == torch.float32 else fast.finalize(pb64, sub))
         x = r.x
         obj = 0.5 * fast._dot(x, fast._bmv(pb64.G, x)) + fast._dot(pb64.a, x)

@@ -23,6 +23,7 @@ with a card and no jax:
 Without a card every test here skips.
 """
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -45,7 +46,13 @@ from jrlqp_tpu_torch import (
     stack_problems,
 )
 from jrlqp_tpu_torch.bench import bench_warm_start_trajectory, time_batch
-from jrlqp_tpu_torch.ops.cuda import block_llt, fast_loop, gi_kernel, jr_kernel
+from jrlqp_tpu_torch.ops.cuda import (
+    block_llt,
+    fast_loop,
+    gi_kernel,
+    jr_kernel,
+    struct_refine,
+)
 from jrlqp_tpu_torch.parallel import make_mesh, shard_batch, solve_sharded
 from jrlqp_tpu_torch.parallel import mesh as mesh_mod
 from jrlqp_tpu_torch.solver import dense, fast
@@ -1586,7 +1593,8 @@ def _fast_against_plain(pb, st0, opt, label, x_tol, max_parted=0,
     ok = same & (want.term == 0) & (st0.x.dtype == torch.float32) & (pb.m > 0)
     if bool(ok.any()):
         pb64 = pb.with_dtype(torch.float64)
-        rk, rp = (fast._refine_batch(pb64, st, 3, exact=True)
+        exact = functools.partial(fast._DenseProducts, pb64, exact=True)
+        rk, rp = (fast._refine_batch(pb64, st, 3, exact)
                   for st in (got, want))
         for r in (rk, rp):
             ok &= kkt_residual(r.x, r.multipliers, pb64) <= 1e-8
@@ -1830,6 +1838,124 @@ def test_fast_loop_config_fits_the_ik_batch_in_one_wave(cuda_device):
         assert cfg["smem_bytes"] == fast_loop.fast_loop_smem_bytes(
             n, m, 8 if dt == torch.float64 else 4)
     assert fast_loop.fast_loop_config(387, 36)["blocks_per_sm"] >= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_kind", ["blocks", "dense"])
+@pytest.mark.parametrize("gtype", list(GType))
+@pytest.mark.parametrize("shape", [(3, 8, 2, 6), (9, 43, 4, 64)],
+                         ids=["small", "ik"])
+def test_struct_refine_kernels_match_plain(cuda_device, shape, gtype,
+                                           c_kind):
+    # K13 and K14 against their plain versions on the same card tensors: a
+    # structured state's slots, the start from the loop's x and
+    # multipliers, then one step's products and update
+    nb, s, mc, B = shape
+    d = ik_batch(B, nb=nb, s=s, mc=mc, seed=nb + s + int(gtype))
+    sg, a, sc, lo, up = _ik_problem(d, gtype, cuda_device)
+    if c_kind == "dense":
+        sc = sc.to_dense()
+    pbs, _, _, st = ssolver._solve_structured_states(
+        sg, a, sc, lo, up, None, None, SolverOptions(max_iter=200), "auto")
+    seen = []
+    fast._refine_batch(pbs, st, 0, products=lambda sl: seen.append(sl) or
+                       fast._DenseProducts(pbs, sl))
+    ops = ssolver._BlockProducts(sg, sc, seen[0])
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    u, v, r, dlam = (torch.randn(pbs.a.shape, generator=gen,
+                                 device=cuda_device) for _ in range(4))
+    args = (ops.diag, ops.off, ops.gtype)
+    t, g = struct_refine.struct_gmul(*args, u, v, r)
+    t_p, g_p = struct_refine.struct_gmul_plain(*args, u, v, r)
+    torch.testing.assert_close(g, g_p, rtol=1e-13, atol=1e-13)
+    torch.testing.assert_close(t, t_p, rtol=1e-6, atol=1e-5)
+    _, g1 = struct_refine.struct_gmul(*args, None, v, None)
+    torch.testing.assert_close(g1, g_p, rtol=1e-13, atol=1e-13)
+    tail = (ops.C, ops.mc, ops.idx, ops.sgn, ops.a, ops.b)
+    state = tuple(torch.zeros_like(ops.a) for _ in range(5))
+    state_p = tuple(z.clone() for z in state)
+    lam32 = torch.where(seen[0].valid, st.u[:, :pbs.n], 0.0).contiguous()
+    for dx, dl, dy in ((st.x.contiguous(), lam32, g1), (v, dlam, g)):
+        res = struct_refine.struct_update(*tail, dx, dl, dy, state)
+        res_p = struct_refine.struct_update_plain(*tail, dx, dl, dy,
+                                                  state_p)
+        for got, want in zip(state, state_p):
+            torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+        for got, want in zip(res, res_p):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gtype", list(GType))
+@pytest.mark.parametrize("nb, s", [(3, 97), (2, 150)])
+def test_struct_gmul_takes_blocks_wider_than_its_threads(cuda_device, nb, s,
+                                                         gtype):
+    # K13 past the structured factor's block limit of 96 and past 128 (2 s
+    # rows over 256 threads), against its plain version
+    gen = torch.Generator(device=cuda_device).manual_seed(nb * s)
+    B = 5
+
+    def randn(*shape, dtype=torch.float64):
+        return torch.randn(shape, generator=gen, device=cuda_device,
+                           dtype=dtype)
+
+    diag, off = randn(B, nb, s, s), randn(B, nb - 1, s, s)
+    u, v, r = (randn(B, nb * s, dtype=torch.float32) for _ in range(3))
+    before = spans.counter("launch.K13")
+    t, g = struct_refine.struct_gmul(diag, off, int(gtype), u, v, r)
+    _, g1 = struct_refine.struct_gmul(diag, off, int(gtype), None, v, None)
+    assert spans.counter("launch.K13") == before + 2
+    t_p, g_p = struct_refine.struct_gmul_plain(diag, off, int(gtype), u, v,
+                                               r)
+    torch.testing.assert_close(g, g_p, rtol=1e-13, atol=1e-12)
+    torch.testing.assert_close(g1, g_p, rtol=1e-13, atol=1e-12)
+    torch.testing.assert_close(t, t_p, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_structured_refinement_at_the_ik_shape(cuda_device):
+    # the IK cold batch (1024 x 387) and a warm step from its carry: the
+    # refinement on the structure raises the peak of allocated memory by
+    # less than one (B, n, n) f32 tensor, and its lanes pass SUCCESS with
+    # KKT <= 1e-8 at least as often as the dense refinement's on the same
+    # states; refine.structured reads 1 a call
+    d = ik_batch(1024, seed=3)
+    opt = SolverOptions(max_iter=200)
+    cold = _ik_problem(d, GType.TRI_BLOCK_DIAGONAL, cuda_device)
+    pbs, pb32, opt32, st = ssolver._solve_structured_states(
+        *cold, None, None, opt, "auto")
+    step = _ik_problem(ik_step(d, 0.02, np.random.default_rng(3)),
+                       GType.TRI_BLOCK_DIAGONAL, cuda_device)
+    pbs_w, pb32_w, _ = ssolver._problems(*step, None, None, opt)
+    st_w = fast._run_loop(pb32_w, fast._init_fast_from_carry(
+        pb32_w, st.H, st.Ns, st.status, st.aorder, st.q), opt32)
+    B, n = pbs.a.shape
+
+    def refined(refine):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = refine()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - base
+
+    def passes(res, pb):
+        kkt = kkt_residual(res.x, res.multipliers, pb)
+        return int(((res.status == 0) & (kkt <= 1e-8)).sum())
+
+    for name, args, pb, states in (("cold", cold, pbs, st),
+                                   ("warm", step, pbs_w, st_w)):
+        sg, _, sc, _, _ = args
+        ours, rise = refined(lambda: ssolver._refine_structured(
+            pb, sg, sc, states, 3))
+        dense, rise_dense = refined(lambda: fast._refine_batch(pb, states,
+                                                               3))
+        print(name, rise, rise_dense, passes(ours, pb), passes(dense, pb))
+        assert rise < B * n * n * 4, name
+        assert passes(ours, pb) >= passes(dense, pb), name
+    spans.reset("refine.structured")
+    solve_structured_fast_batch(*cold, opt=opt)
+    assert spans.counter("refine.structured") == 1
 
 
 def _benchmark_paths(device):
