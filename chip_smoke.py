@@ -442,13 +442,18 @@ def main() -> int:
         _require(rate >= min_rate, f"{name}: pass rate {rate} < {min_rate}")
         return rate, float(resid.max()), passed
 
-    def against_plain(name, ok_k, ok_p, pb64):
+    def against_plain(name, ok_k, ok_p, pb64, same_path=False):
         """Kernel vs plain outputs: term may differ on <= 0.1% of the
         lanes, it, status and aorder on <= 1%; raw x, u, H and Ns within
         1e-4 times max(1, the lane's largest entry) on the lanes that take
         the same path and end SUCCESS (far from the start, near a vertex,
         multipliers reach tens and the summation order moves them by ~1e-4
-        relative); refined x within 1e-7. Returns the max raw f32 error."""
+        relative); refined x within 1e-7 on the lanes SUCCESS in both, or
+        with ``same_path`` on those of them that took the same path (at
+        full width an f32 near-tie sends a lane down another path in one
+        of the two, to another active set whose refined x lies ~1e-6 away;
+        the path gates count those lanes). Returns the max raw f32
+        error."""
         Bc = pb64.batch
         differ = {k: ok_k[k] != ok_p[k] for k in ("term", "it", "q",
                                                    "status", "aorder")}
@@ -481,9 +486,16 @@ def main() -> int:
         rp = fast._refine_batch(pb64, fast._state_from_kernel_out(ok_p, Bc),
                                 IR_STEPS)
         both = (rk.status == 0) & (rp.status == 0)
+        if same_path:
+            off = both & ~same
+            print(f"{name}: lanes SUCCESS in both on another path: "
+                  f"{off.nonzero()[:, 0].tolist()[:8]}, refined |x err| "
+                  f"{(rk.x[off] - rp.x[off]).abs().amax(1).tolist()[:8]}")
+            both = both & same
         ref_err = float((rk.x[both] - rp.x[both]).abs().max())
         print(f"{name} vs plain after refinement: {int(both.sum())} lanes "
-              f"SUCCESS in both, max |x err| {ref_err:.3e}")
+              f"SUCCESS in both{' on the same path' * same_path}, max |x "
+              f"err| {ref_err:.3e}")
         _require(ref_err <= 1e-7,
                  f"{name} refined x differs from plain by > 1e-7")
         return err
@@ -729,8 +741,8 @@ def main() -> int:
     k4_err = 0.0
     for scale in (DRIFT, 0.5):
         pb6 = drifted(base5, scale)
-        ins6, (n, m) = gi_kernel.prepare_warm_carry(pb6, carry6.raw,
-                                                    carry6.q)
+        ins6, (n, m) = gi_kernel.prepare_warm_carry(
+            pb6, carry6.raw, carry6.q, carry6.reset, carry6.first)
         ok_k = gi_kernel.postprocess(
             gi_kernel._gi_warm_cuda_raw(*ins6, n, m, MAX_ITER), n, m)
         ok_p = gi_kernel.postprocess(
@@ -821,6 +833,40 @@ def main() -> int:
     print(f"hint step (ir_steps {IR_STEPS}, not gated): KKT<=1e-8 & SUCCESS "
           f"rate {float(passed1.double().mean())!r}")
 
+    # K4 at full width on step 10's inputs as the trajectory hands them
+    # (the carry's own reset flags and cold state), with every other lane
+    # flagged besides, so that both of K4's starts meet its plain version;
+    # and a flagged lane's step is K4's step from the cold state itself,
+    # bit for bit
+    reset10 = int(carry_in.reset.sum())
+    print(f"K4 inputs of warm step 10: {reset10} of {BATCH} lanes flagged "
+          f"for reset by step 9")
+    flags = carry_in.reset | (torch.arange(BATCH, device=dev) % 2).to(
+        torch.int32)
+    ins7, (n, m) = gi_kernel.prepare_warm_carry(
+        pb10, carry_in.raw, carry_in.q, flags, carry_in.first)
+    ok_k = gi_kernel.postprocess(
+        gi_kernel._gi_warm_cuda_raw(*ins7, n, m, MAX_ITER), n, m)
+    ok_p = gi_kernel.postprocess(
+        gi_kernel._gi_warm_plain_raw(*ins7, n, m, MAX_ITER), n, m)
+    ins_c, _ = gi_kernel.prepare_warm_carry(
+        pb10, carry_in.raw[:2] + carry_in.first[:3], carry_in.first[3],
+        torch.zeros_like(flags), carry_in.first)
+    from_cold = gi_kernel.postprocess(
+        gi_kernel._gi_warm_cuda_raw(*ins_c, n, m, MAX_ITER), n, m)
+    torch.cuda.synchronize()
+    put = flags.bool()
+    _require(all(torch.equal(ok_k[k][put], from_cold[k][put])
+                 for k in ok_k),
+             "K4: a lane flagged for reset does not take the step from the "
+             "cold state")
+    print(f"K4 (batch {BATCH}): the {int(put.sum())} flagged lanes take the "
+          f"step from the cold state, bit for bit")
+    k4_err = max(k4_err, against_plain(
+        f"K4 (batch {BATCH}, every other lane reset)", ok_k, ok_p, pb10,
+        same_path=True))
+    del ins7, ins_c, ok_k, ok_p, from_cold, flags, put
+
     # timing on step 10's batch
     pb10_32 = pb10.with_dtype(f32)
     co = (carry_in.H, carry_in.Ns, carry_in.status, carry_in.aorder,
@@ -860,8 +906,8 @@ def main() -> int:
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
 
-        ins, (n_, m_) = gi_kernel.prepare_warm_carry(pb10, carry_in.raw,
-                                                     carry_in.q)
+        ins, (n_, m_) = gi_kernel.prepare_warm_carry(
+            pb10, carry_in.raw, carry_in.q, carry_in.reset, carry_in.first)
         mark()
         raw = gi_kernel._gi_warm_cuda_raw(*ins, n_, m_, MAX_ITER)
         mark()
@@ -882,7 +928,8 @@ def main() -> int:
           f"carry of plain tensors (cast to f32, G, C, K, status and aorder "
           f"packed) {pack_ms!r}")
     ins3, (n, m) = gi_kernel.prepare_state(pb10_32, state0)
-    ins4, _ = gi_kernel.prepare_warm_carry(pb10, carry_in.raw, carry_in.q)
+    ins4, _ = gi_kernel.prepare_warm_carry(pb10, carry_in.raw, carry_in.q,
+                                           carry_in.reset, carry_in.first)
     k3_ms = _cuda_ms(lambda: gi_kernel._gi_loop_cuda_raw(*ins3, n, m,
                                                          MAX_ITER))
     k3_plain_ms = _cuda_ms(lambda: gi_kernel._gi_loop_plain_raw(
@@ -900,9 +947,10 @@ def main() -> int:
     # K3 starts from K0, x0, u0, status, aorder, statk, scalars and tr0
     k3_bound = _bound(_gi_flops(it3_l, ins3[12][:, 0], outs3[4][:, 0], N, M),
                       _gi_bytes(BATCH, N, M, 2 * N * N + 5 * N + M + 9))
-    # K4 from a, K, status, aorder and q; its closed form x = K [-a; b] and
-    # u = (a + G x)^T K, ~6n^2
-    k4_bound = _bound(_gi_flops(outs4[4][:, 1], co[4], outs4[4][:, 0], N, M)
+    # K4 from a, K, status, aorder and q (a flagged lane's from the cold
+    # state); its closed form x = K [-a; b] and u = (a + G x)^T K, ~6n^2
+    q4 = torch.where(carry_in.reset.bool(), carry_in.first[3], carry_in.q)
+    k4_bound = _bound(_gi_flops(outs4[4][:, 1], q4, outs4[4][:, 0], N, M)
                       + BATCH * 6 * N * N,
                       _gi_bytes(BATCH, N, M, 2 * N * N + 3 * N + M + 1))
     print(f"bounds ({card}): K3 {k3_bound} ({it3} iterations), K4 "
@@ -2485,7 +2533,7 @@ def main() -> int:
          "launches": traj_counts["gi_warm"] + harness_launches["gi_warm"],
          "launches_by_path": {"trajectory": traj_counts["gi_warm"],
                               "harness": harness_launches["gi_warm"]},
-         "max_abs_err": k4_err,
+         "max_abs_err": k4_err, "reset_lanes": reset10,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
          "bound_by": k4_bound[1], "library_ms": None, **res_k4},
         {"name": "gi_compact", "route": "cuda", "source": src,

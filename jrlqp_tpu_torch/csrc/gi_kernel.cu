@@ -19,10 +19,15 @@
 //      it at zero (:648-653), which ends such a lane INFEASIBLE.
 //   K4 gi_warm_kernel <- _kernel_packed_warm (:836, launched by
 //      run_warm_loop_pallas, pallas_call :1456). The carried K, status,
-//      aorder, statk and the new a and signed active bounds b_act come in.
-//      Prologue: tr0 = trace of the carried H, the closed form
-//      x = K [-a; b_act], u = ((a + G x)^T K)[np:] on active slots, then
-//      the one-at-a-time deactivation of u < -1e-5 (lowest slot on ties),
+//      aorder, statk and the new a and signed active bounds b_act come in
+//      (a problem flagged for reset takes a second state's K, status,
+//      aorder and q: the cold step's).
+//      Prologue: a padded slot left occupied is freed, tr0 = trace of the
+//      carried H, the closed form x = K [-a; b_act], u = ((a + G x)^T
+//      K)[np:] on active slots, then the one-at-a-time deactivation of
+//      u < 0 (lowest slot on ties; the Pallas kernel's u < -1e-5 keeps a
+//      slot whose multiplier lies in [-1e-5, 0), which the f64 refinement
+//      then gives the wrong sign),
 //      each a removal followed by a new closed form, counted as an
 //      iteration.
 //   K9 gi_compact_kernel <- _kernel (:104, the pack-1 branch of
@@ -1053,6 +1058,9 @@ gi_compact_kernel(const float* __restrict__ G_in,
 // K0 may be K1's output, whose H carries the identity on its padded
 // diagonal: tr0 sums the n real entries (adding the zeros of a zero-padded
 // H changes no bit), and every other read of the padding meets a zero.
+// A problem whose reset flag is set starts from the second state that comes
+// in (Kr, statusr, aorderr, qr: the trajectory's cold step) in place of K0,
+// status0, aorder0 and q0.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
                const float* __restrict__ l_in, const float* __restrict__ u_in,
@@ -1062,7 +1070,12 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
                const float* __restrict__ K0_in,
                const int* __restrict__ status0_in,
                const int* __restrict__ aorder0_in,
-               const int* __restrict__ q0_in, float* __restrict__ x_out,
+               const int* __restrict__ q0_in,
+               const int* __restrict__ reset_in,
+               const float* __restrict__ Kr_in,
+               const int* __restrict__ statusr_in,
+               const int* __restrict__ aorderr_in,
+               const int* __restrict__ qr_in, float* __restrict__ x_out,
                float* __restrict__ u_out, int* __restrict__ status_out,
                int* __restrict__ aorder_out, int* __restrict__ scal_out,
                float* __restrict__ K_out, float* __restrict__ hscale_out,
@@ -1079,11 +1092,12 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   // G; and C^T, or the part of it behind the staged G's room
   const int g_room = stage_g ? np * (np + 4) : 0;
   const float* Ctb = Ct_in + b * np * mp;
-  copy_async_K(S.K, K0_in + b * np * 2 * np, np);
+  const bool reset = reset_in[b] != 0;
+  copy_async_K(S.K, (reset ? Kr_in : K0_in) + b * np * 2 * np, np);
   copy_async(S.a, a_in + b * np, np);
   load_bounds_async(S, b, l_in, u_in, xl_in, xu_in, np, mp);
-  copy_async(S.aorder, aorder0_in + b * np, np);
-  copy_async(S.status, status0_in + b * mtp, mtp);
+  copy_async(S.aorder, (reset ? aorderr_in : aorder0_in) + b * np, np);
+  copy_async(S.status, (reset ? statusr_in : status0_in) + b * mtp, mtp);
   copy_async_commit();
   if (stage_g) copy_async_G(S.C, np + 4, Gb, np);
   copy_async_commit();
@@ -1091,14 +1105,24 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   copy_async_commit();
   S.G = stage_g ? S.C : Gb;
   S.ldg = stage_g ? np + 4 : np;
-  int q = q0_in[b];
+  int q = reset ? qr_in[b] : q0_in[b];
   copy_async_wait_group<2>();  // K, a, the bounds, status and aorder
   __syncthreads();
   // The carry holds n slots, as the library's does: a padded slot that the
   // last kernel left occupied (a lane that ended LINEAR_DEPENDENCY_DETECTED
-  // at q > n) comes in free, its N* column zero.
+  // at q > n) comes in free, its N* column zero, its constraint inactive
+  // and no longer counted in q (the Pallas kernel keeps the constraint
+  // active in status, where no slot holds it: it is never tested again).
+  for (int k = n; k < np; ++k) {
+    const int idx = S.aorder[k];
+    if (idx >= 0) {
+      --q;
+      if (tid == 0) S.status[idx] = 0;
+    }
+  }
   for (int e = tid; e < np * (np - n); e += kThreads)
     S.K[(e / (np - n)) * ldk + np + n + e % (np - n)] = 0.0f;
+  __syncthreads();
   // slot k: its status, and its signed active bound from the new bounds
   // (LOWER / EQUALITY -> l, UPPER -> -u, LOWER_BOUND / FIXED -> xl,
   // UPPER_BOUND -> -xu, clamped to +/-1e30; 0 on a free slot)
@@ -1129,7 +1153,7 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
   closed_form(S, np, true);
   const float tr0 = fmaxf(S.zr[0], 1e-30f);
 
-  // u < -1e-5 deactivations, one slot at a time, lowest slot on ties
+  // u < 0 deactivations, one slot at a time, lowest slot on ties
   int it = 0, parity = 0;
   while (true) {
     Red r = red_identity();
@@ -1139,7 +1163,7 @@ gi_warm_kernel(const float* __restrict__ G_in, const float* __restrict__ Ct_in,
       argmin_in(r.v, r.i, elig ? S.u[k] : 0.0f, k);
     }
     r = block_reduce<true, false, 0>(r, S.red, parity);
-    if (!(r.v < -1e-5f)) break;
+    if (!(r.v < 0.0f)) break;
     const int lpos = r.i;
     remove_slot(S, lpos, np, mtp);
     if (tid == 0) S.bact[lpos] = 0.0f;
@@ -1269,7 +1293,10 @@ extern "C" int jrlqp_gi_warm(const void* G, const void* Ct, const void* l,
                              const void* u, const void* xl, const void* xu,
                              const void* a, const void* K0,
                              const void* status0, const void* aorder0,
-                             const void* q0, void* x_out, void* u_out,
+                             const void* q0, const void* reset,
+                             const void* Kr, const void* statusr,
+                             const void* aorderr, const void* qr,
+                             void* x_out, void* u_out,
                              void* status_out, void* aorder_out,
                              void* scal_out, void* K_out, void* hscale_out,
                              int B, int n, int m, int np, int mp,
@@ -1282,7 +1309,9 @@ extern "C" int jrlqp_gi_warm(const void* G, const void* Ct, const void* l,
         (const float*)G, (const float*)Ct, (const float*)l, (const float*)u,
         (const float*)xl, (const float*)xu, (const float*)a,
         (const float*)K0, (const int*)status0, (const int*)aorder0,
-        (const int*)q0, (float*)x_out,
+        (const int*)q0, (const int*)reset, (const float*)Kr,
+        (const int*)statusr, (const int*)aorderr, (const int*)qr,
+        (float*)x_out,
         (float*)u_out, (int*)status_out, (int*)aorder_out, (int*)scal_out,
         (float*)K_out, (float*)hscale_out, n, m, np, mp, max_iter);
   return (int)cudaGetLastError();

@@ -49,9 +49,10 @@ _SIGNATURES = {
     "jrlqp_gi_loop": [_P] * 21 + [_I] * 6 + [_P],
     # K9: K3's arguments
     "jrlqp_gi_compact": [_P] * 21 + [_I] * 6 + [_P],
-    # G, Ct, l, u, xl, xu, a, K0, status0, aorder0, q; the 7 outputs as
-    # above; B, n, m, np_, mp_, max_iter; stream
-    "jrlqp_gi_warm": [_P] * 18 + [_I] * 6 + [_P],
+    # G, Ct, l, u, xl, xu, a, K0, status0, aorder0, q, reset, Kr, statusr,
+    # aorderr, qr; the 7 outputs as above; B, n, m, np_, mp_, max_iter;
+    # stream
+    "jrlqp_gi_warm": [_P] * 23 + [_I] * 6 + [_P],
     # diag, off; Ld, Lo, Li; B, nb, s; stream
     "jrlqp_tri_block_llt": [_P] * 5 + [_I] * 3 + [_P],
     # diag, side; Ld, Lo, Li; B, nb, s, up; stream

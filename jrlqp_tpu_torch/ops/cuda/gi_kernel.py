@@ -70,7 +70,7 @@ _F, _I = torch.float32, torch.int32
 # input dtypes of the C entry points, in argument order
 _FUSED_IN = (_F,) * 7
 _LOOP_IN = (_F,) * 9 + (_I,) * 4 + (_F,)
-_WARM_IN = (_F,) * 8 + (_I,) * 3
+_WARM_IN = (_F,) * 8 + (_I,) * 4 + (_F,) + (_I,) * 3
 
 
 def _round_up(x: int, m: int) -> int:
@@ -183,23 +183,24 @@ def prepare_warm(pb32, H, Ns, status, aorder, q):
     formed inside the kernel (and its plain version) from status, aorder
     and the NEW bounds: LOWER / EQUALITY -> l, UPPER -> -u, LOWER_BOUND /
     FIXED -> xl, UPPER_BOUND -> -xu, each clamped to +/-1e30, 0 on a free
-    slot."""
+    slot. No problem is flagged for reset (see :func:`prepare_warm_carry`)."""
     (G, Ct, lo, up, xlo, xup, a), (n, m) = _padded(pb32)
     np_, mp_ = G.shape[1], Ct.shape[2]
-    return ((G, Ct, lo, up, xlo, xup, a, _operator(H, Ns, np_),
-             _pad_status(status, n, m, mp_, np_),
-             _pad_aorder(aorder.long(), n, m, mp_, np_), q.to(_I)),
-            (n, m))
+    state = (_operator(H, Ns, np_), _pad_status(status, n, m, mp_, np_),
+             _pad_aorder(aorder.long(), n, m, mp_, np_), q.to(_I))
+    return ((G, Ct, lo, up, xlo, xup, a, *state, torch.zeros_like(state[3]),
+             *state), (n, m))
 
 
-def prepare_warm_carry(pb, raw, q):
+def prepare_warm_carry(pb, raw, q, reset, cold):
     """K4's inputs from a carry in the kernels' own layout: ``raw`` is
     (G, Ct, K, status, aorder) as :func:`warm_step` or
     :func:`run_loop_fused_carry` returned them -- the padded f32 G and C^T
     of the trajectory's first step, and the previous kernel's K = [H |
     N*^T], status and aorder outputs, untouched -- so only a and the four
     bound rows of the new problem ``pb`` (any float dtype) are padded
-    here."""
+    here. The problems flagged in ``reset`` (B,) int32 start from ``cold``
+    (K, status, aorder and q in the same layout) instead."""
     G, Ct, K, status, aorder = raw
     n, m = pb.a.shape[1], pb.C.shape[1]
     np_, mp_ = G.shape[1], Ct.shape[2]
@@ -209,7 +210,8 @@ def prepare_warm_carry(pb, raw, q):
     return ((G, Ct, _padrow(pb.l, mp_, -INF_BOUND),
              _padrow(pb.u, mp_, INF_BOUND), _padrow(pb.xl, np_, -INF_BOUND),
              _padrow(pb.xu, np_, INF_BOUND), _padrow(pb.a, np_, 0.0), K,
-             status, aorder, q.to(_I)),
+             status, aorder, q.to(_I), reset, cold[0], cold[1], cold[2],
+             cold[3].to(_I)),
             (n, m))
 
 
@@ -598,16 +600,25 @@ def _warm_slots(lo, up, xlo, xup, status, aorder):
 
 
 def _gi_warm_plain_raw(G, Ct, lo, up, xlo, xup, a, K0, status0, aorder0,
-                       q0, n, m, max_iter):
+                       q0, reset, Kr, statusr, aorderr, qr, n, m, max_iter):
     """K4's computation: the per-slot statuses and signed active bounds
     from status, aorder and the new bounds (see :func:`prepare_warm`), then
     ``_kernel_packed_warm``'s prologue (tr0 from the carried H, the closed
-    form, the u < -1e-5 deactivations) and the loop. K0 may carry K1's
-    identity on the padded diagonal of H: the trace runs over the n real
-    entries, and nothing else reads the padding. The carry holds n slots,
-    as the library's does: a padded slot that the last kernel left occupied
-    (a lane that ended LINEAR_DEPENDENCY_DETECTED at q > n) comes in free,
-    its N* column zero."""
+    form, the deactivations) and the loop. K0 may carry K1's identity on
+    the padded diagonal of H: the trace runs over the n real entries, and
+    nothing else reads the padding. The carry holds n slots, as the
+    library's does: a padded slot that the last kernel left occupied (a
+    lane that ended LINEAR_DEPENDENCY_DETECTED at q > n) comes in free, its
+    N* column zero, its constraint inactive and no longer counted in q.
+    Every slot whose multiplier is negative is deactivated: the Pallas
+    kernel's u < -1e-5 keeps those in [-1e-5, 0), which the f64 refinement
+    then gives the wrong sign (see ``gi_warm_kernel``). A problem flagged
+    in ``reset`` starts from (Kr, statusr, aorderr, qr)."""
+    put = reset != 0
+    K0 = torch.where(put[:, None, None], Kr, K0)
+    status0 = torch.where(put[:, None], statusr, status0)
+    aorder0 = torch.where(put[:, None], aorderr, aorder0)
+    q0 = torch.where(put, qr, q0)
     B, np_, _ = G.shape
     mtp_ = Ct.shape[2] + np_
     dev, i64 = G.device, torch.int64
@@ -615,10 +626,13 @@ def _gi_warm_plain_raw(G, Ct, lo, up, xlo, xup, a, K0, status0, aorder0,
     iot_mt = torch.arange(mtp_, device=dev, dtype=i64)[None, :]
     lane2 = torch.arange(2 * np_, device=dev, dtype=i64)[None, None, :]
     K = torch.where(lane2 >= np_ + n, 0.0, K0)
-    status = status0.long()
+    padded = (iot_n >= n) & (aorder0.long() >= 0)
+    dropped = torch.zeros((B, mtp_), dtype=i64, device=dev).scatter_add_(
+        1, torch.where(padded, aorder0.long(), 0), padded.long())
+    status = torch.where(dropped > 0, 0, status0.long())
     aorder = torch.where(iot_n < n, aorder0.long(), -1)
     statk, b = _warm_slots(lo, up, xlo, xup, status, aorder)
-    q = q0.long()[:, None]
+    q = q0.long()[:, None] - padded.sum(dim=1, keepdim=True)
     diag = torch.diagonal(K[:, :, :np_], dim1=1, dim2=2)
     tr0 = torch.clamp_min(torch.where(iot_n < n, diag, 0.0)
                           .sum(dim=1, keepdim=True), 1e-30)
@@ -634,7 +648,7 @@ def _gi_warm_plain_raw(G, Ct, lo, up, xlo, xup, a, K0, status0, aorder0,
     while True:
         elig = (statk != 0) & (statk != EQUALITY) & (statk != FIXED)
         mn, lpos = _rowmin(torch.where(elig, u, 0.0), iot_n)
-        act = mn < -1e-5
+        act = mn < 0.0
         if not bool(act.any()):
             break
         nl = _col(K, np_ + lpos)

@@ -271,9 +271,12 @@ class _DenseProducts:
         self.w = _bmtv(self.C64, mu_c) + mu_b
 
     def _residuals(self):
+        """(r1, r2) at the tracked x and lam, also kept as ``residuals``."""
         r1 = self.w - self.y - self.sl.a64                   # stationarity
         r2 = torch.where(self.sl.valid, self.sl.b - self.ntx, 0.0)
-        return r1.to(torch.float32), r2.to(torch.float32)    # active feas.
+        self.residuals = (r1.to(torch.float32),              # active feas.
+                          r2.to(torch.float32))
+        return self.residuals
 
     @functools.cached_property
     def _nt32(self):
@@ -999,9 +1002,10 @@ class WarmCarry:
     and aorder outputs -- so the next step pads only a and the bounds. H
     and Ns are then views of that K, and status and aorder its index remap,
     in the library's index space. A step from a carry with ``raw`` reads
-    ``raw`` and ``q`` and nothing else: ``H``, ``Ns``, ``status`` and
-    ``aorder`` are then its read-only picture. To step from edited or
-    replaced fields, pass them with ``raw=None``
+    ``raw``, ``q``, ``first`` and ``reset`` and nothing else: ``H``,
+    ``Ns``, ``status`` and ``aorder`` are then its read-only picture (of
+    the step's end, before any reset). To
+    step from edited or replaced fields, pass them with ``raw=None``
     (``dataclasses.replace(carry, status=..., raw=None)``): a carry of the
     five plain tensors alone is packed into the kernel's layout by its
     step and gives the same result."""
@@ -1014,6 +1018,25 @@ class WarmCarry:
     # (G, Ct, K, status, aorder) in the kernels' padded layout, or None
     raw: tuple | None = dataclasses.field(default=None, repr=False,
                                           compare=False)
+    # the cold step's K, status, aorder and q in the kernels' layout, and
+    # (B,) int32 flags of the lanes that start the next step from it
+    first: tuple | None = dataclasses.field(default=None, repr=False,
+                                            compare=False)
+    reset: torch.Tensor | None = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
+
+
+# A lane whose refinement left a residual above this starts the next step
+# from the cold step's state: see solve_refined_kernel_carry
+RESET_TOL = 1e-10
+
+
+def _spoiled(residuals) -> torch.Tensor:
+    """(B,) int32 flags of the lanes whose refinement left a residual
+    (r1 or r2, the largest entry) above RESET_TOL."""
+    r1, r2 = (torch.linalg.vector_norm(r, float("inf"), dim=1)
+              for r in residuals)
+    return (torch.maximum(r1, r2) > RESET_TOL).to(torch.int32)
 
 
 def solve_refined_kernel_carry(pbs: QPProblem, carry: WarmCarry | None = None,
@@ -1028,7 +1051,19 @@ def solve_refined_kernel_carry(pbs: QPProblem, carry: WarmCarry | None = None,
     the kernels' layout (see :class:`WarmCarry`). A CPU batch runs the
     kernels' plain versions. With ``opt.validate`` the cold step ends
     lanes with inconsistent data INCONSISTENT_INPUT (the warm step, like
-    the JAX one, does not check)."""
+    the JAX one, does not check).
+
+    A warm step updates the carried f32 operators by rank-one steps and
+    never forms them anew, so their rounding grows along the trajectory,
+    and a step through an ill-conditioned active set (a nearly dependent
+    vertex) can spoil a lane's at once; such lanes then miss, or answer
+    less exactly, at their later steps, in ever more lanes. So each lane
+    whose refinement left a residual above RESET_TOL starts the next step
+    from the cold step's state (K4 reads it in place of its own), whose
+    operators K1 formed. The JAX carry does not. At the 16,384 problems of
+    n = 50, m = 100 of the benchmark cell ``dense50-track`` on an H100,
+    the share of lanes that miss rose from 4e-4 to 1e-2 over 4,000 steps
+    without the resets."""
     with spans.call("solve_refined_kernel_carry", pbs.G):
         if carry is None:
             with spans.span("jrlqp.prepare"):
@@ -1044,11 +1079,22 @@ def solve_refined_kernel_carry(pbs: QPProblem, carry: WarmCarry | None = None,
                         pbs.with_dtype(torch.float32), carry.H, carry.Ns,
                         carry.status, carry.aorder, carry.q)
                 else:
-                    inputs, (n, m) = prepare_warm_carry(pbs, carry.raw,
-                                                        carry.q)
+                    inputs, (n, m) = prepare_warm_carry(
+                        pbs, carry.raw, carry.q, carry.reset, carry.first)
             out, raw = warm_step(inputs, n, m, opt.max_iter)
             with spans.span("jrlqp.remap"):
                 st = _state_from_kernel_out(out, pbs.batch)
-        return (_refine_batch(pbs, st, ir_steps),
-                WarmCarry(H=out["H"], Ns=out["Ns"], status=out["status"],
-                          aorder=out["aorder"], q=out["q"], raw=raw))
+        made = []
+
+        def products(slots):
+            made.append(_DenseProducts(pbs, slots))
+            return made[-1]
+
+        res = _refine_batch(pbs, st, ir_steps, products)
+        with spans.span("jrlqp.refine", pbs.a):
+            reset = _spoiled(made[0].residuals)
+        first = (carry.first if carry is not None and carry.first is not None
+                 else raw[2:] + (out["q"],))
+        return (res, WarmCarry(H=out["H"], Ns=out["Ns"], status=out["status"],
+                               aorder=out["aorder"], q=out["q"], raw=raw,
+                               first=first, reset=reset))

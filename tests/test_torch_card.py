@@ -13,7 +13,8 @@ solved alone by its path's kernel and plain version to its recorded
 outcome; the numpy batch generators that the CPU tests share; and the
 program's spans on the benchmark's three paths (every host sync a
 ``jrlqp.sync.*`` span, the stages covering the call, the loop span holding
-its kernel).
+its kernel) and on a warm step of the dense control loop (one K4 launch,
+its stages covering the call).
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and no jax:
@@ -614,7 +615,8 @@ def test_gi_kernels_match_plain_ragged(cuda_device, kernel, n, m):
 def _warm_kernel_and_plain(pb, carry, max_iter):
     """K4 and its plain version on the same inputs, from a carry in the
     kernels' own layout; K4 launches once."""
-    ins, (n, m) = gi_kernel.prepare_warm_carry(pb, carry.raw, carry.q)
+    ins, (n, m) = gi_kernel.prepare_warm_carry(pb, carry.raw, carry.q,
+                                               carry.reset, carry.first)
     before = gi_kernel.warm_launches
     ours = gi_kernel.postprocess(
         gi_kernel._gi_warm_cuda_raw(*ins, n, m, max_iter), n, m)
@@ -2065,3 +2067,92 @@ def test_the_loop_span_holds_its_kernel(cuda_device, tmp_path):
         print(name, loop.device_ms, k_us / 1e3)
         assert k_us > 0 and {s.name for s in call} <= notes
         assert loop.device_ms >= 0.999 * k_us / 1e3 - 1e-3, name
+
+
+def _dense_track_step(device):
+    """One warm step of the dense control loop at the benchmark cell
+    ``dense50-track``'s shape (16,384 problems of n = 50, m = 100, 40% of
+    the rows tight, one refinement step): the step of a drifted problem
+    from a cold step's carry."""
+    gen = torch.Generator(device=device).manual_seed(22)
+    pb = random_qp_batch(gen, 16384, 50, 100, 0.4, dtype=torch.float32,
+                         device=device).with_dtype(torch.float64)
+    kw = dict(generator=gen, dtype=torch.float64, device=device)
+    da = 0.02 * torch.randn(pb.a.shape, **kw)
+    db = 0.02 * torch.randn(pb.l.shape, **kw)
+    step = dataclasses.replace(pb, a=pb.a + da, l=pb.l + db, u=pb.u + db)
+    opt = SolverOptions(max_iter=150)
+    _, carry = fast.solve_refined_kernel_carry(pb, None, opt, ir_steps=1)
+    return lambda: fast.solve_refined_kernel_carry(step, carry, opt,
+                                                   ir_steps=1)
+
+
+@pytest.mark.cuda
+def test_a_dense_warm_step_is_one_k4_launch_inside_its_stages(cuda_device):
+    # one warm step: one K4 launch and no K1; as many synchronizing
+    # operations as jrlqp.sync.* spans; and its prepare, loop, remap and
+    # refine stages cover the call's device span within 5%
+    import warnings
+
+    step = _dense_track_step(cuda_device)
+    step()
+    torch.cuda.synchronize()
+    spans.reset("launch")
+    spans.clear()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with spans.recording():
+                step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = spans.counts("launch")
+    assert launches.get("launch.K4") == 1 and not launches.get("launch.K1")
+    syncs = [w for w in seen if "called a synchronizing CUDA operation"
+             in str(w.message)]
+    (call,) = spans.recorded()
+    opened = [s.name for s in call if s.name.startswith("jrlqp.sync.")]
+    root = call[0]
+    stages = [s for s in call if s.parent is root]
+    by_stage = {}
+    for s in stages:
+        by_stage[s.stage] = by_stage.get(s.stage, 0.0) + s.device_ms
+    print(launches, opened, root.device_ms, by_stage)
+    assert len(syncs) == len(opened), (
+        opened, [f"{w.filename}:{w.lineno}" for w in syncs])
+    assert set(by_stage) == {"prepare", "loop", "remap", "refine"}
+    assert abs(sum(by_stage.values()) - root.device_ms) <= \
+        0.05 * root.device_ms
+
+
+@pytest.mark.cuda
+def test_gi_warm_kernel_takes_the_cold_state_on_flagged_lanes(cuda_device):
+    # K4 with every other lane flagged for reset: those lanes start from
+    # the cold step's state, as its plain version does, and their step is
+    # the step from the cold carry itself, bit for bit
+    d = np_qp_batch(11, 64, 12, 20, 0.4)
+    max_iter = 200
+    opt = SolverOptions(max_iter=max_iter)
+    _, cold = fast.solve_refined_kernel_carry(
+        problem_from_numpy(**d, device=cuda_device), None, opt)
+    _, carry = fast.solve_refined_kernel_carry(
+        problem_from_numpy(**drifted(d, 0.02, 3), device=cuda_device), cold,
+        opt)
+    pb = problem_from_numpy(**drifted(d, 0.02, 4), device=cuda_device)
+    reset = (torch.arange(64, device=cuda_device) % 2).to(torch.int32)
+    ins, (n, m) = gi_kernel.prepare_warm_carry(pb, carry.raw, carry.q,
+                                               reset, cold.first)
+    ours = gi_kernel.postprocess(
+        gi_kernel._gi_warm_cuda_raw(*ins, n, m, max_iter), n, m)
+    _assert_close_scaled(ours, gi_kernel.postprocess(
+        gi_kernel._gi_warm_plain_raw(*ins, n, m, max_iter), n, m))
+    ins_c, _ = gi_kernel.prepare_warm_carry(pb, cold.raw, cold.q,
+                                            torch.zeros_like(reset),
+                                            cold.first)
+    from_cold = gi_kernel.postprocess(
+        gi_kernel._gi_warm_cuda_raw(*ins_c, n, m, max_iter), n, m)
+    odd = reset.bool()
+    for k in ours:
+        assert torch.equal(ours[k][odd], from_cold[k][odd]), k
