@@ -58,10 +58,13 @@ width (9 robots x 43 dof, n=387, m=36):
    launch configuration (threads, shared bytes, blocks per SM, registers);
 10. the IK trajectory: a cold step and 9 warm steps of
    ``solve_structured_fast_carry`` at batch 1024 (10,240 solves; K5 and K6
-   on the cold step, K11 once per step, K13 and K14 four times a step),
-   fresh 0.02 N(0, 1) noise on a and
+   on the cold step, K12 once per warm step, K11 once per step, K13 and
+   K14 four times a step), fresh 0.02 N(0, 1) noise on a and
    a 0.02 N(0, 1) shift of l and u per step, each gated at a pass rate of
-   1.0 and held against a cold solve of the step;
+   1.0 and held against a cold solve of the step; and K12 (the carry
+   init) against its plain version on the last warm step's carry, with
+   its device ms, the plain version's, its bound and its launch
+   configuration;
 11. K9 (the compact-slot loop) against its plain version, 1024 lanes from
    the torch cold init, and lane for lane against the XLA engine's loop
    in its plain version (``fast.fast_loop_plain``);
@@ -357,6 +360,7 @@ def main() -> int:
     from jrlqp_tpu_torch.ops.cuda import (
         _build,
         block_llt,
+        carry_init,
         fast_loop,
         gi_kernel,
         jr_kernel,
@@ -422,7 +426,8 @@ def main() -> int:
                 "jr_loop": jr_kernel.launches,
                 "fast_loop": fast_loop.launches,
                 "struct_gmul": spans.counter("launch.K13"),
-                "struct_update": spans.counter("launch.K14")}
+                "struct_update": spans.counter("launch.K14"),
+                "carry_init": spans.counter("launch.K12")}
 
     def drifted(pb, scale):
         """``pb`` with l and u shifted together by scale * N(0, 1)."""
@@ -1408,11 +1413,12 @@ def main() -> int:
           f"{traj_ik_counts}")
     _require({k: v for k, v in traj_ik_counts.items() if v}
              == {"tri_block_llt": 1, "tri_block_solve": 1,
-                 "fast_loop": IK_STEPS,
+                 "carry_init": IK_STEPS - 1, "fast_loop": IK_STEPS,
                  **{k: IK_STEPS * v for k, v in refine_launches.items()}},
              "the IK trajectory did not launch K5 and K6 once (the cold "
-             "step), K11 once per step and K13 and K14 once per "
-             "refinement step and once more, and nothing else")
+             "step), K12 once per warm step, K11 once per step and K13 "
+             "and K14 once per refinement step and once more, and nothing "
+             "else")
     rows_ik = []
     for i, (r_, d) in enumerate(zip(results, traj)):
         args_s = ik_args(d)
@@ -1446,6 +1452,44 @@ def main() -> int:
           f"warm step {IK_BATCH / warm_s!r} ({warm_s * 1e3!r} ms), cold "
           f"step {IK_BATCH / cold_s!r} ({cold_s * 1e3!r} ms); "
           f"{IK_STEPS} steps = {IK_STEPS * IK_BATCH} solves")
+
+    # K12 (the carry init) against its plain version on the last warm
+    # step's own carry: status, aorder, q, it and term equal, the floats
+    # within the card test's tolerances (test_torch_card._k12_against_plain)
+    _, pb32_10, _ = ssolver._problems(*last, None, None, opt_ik)
+    carry10 = (carry_prev.H, carry_prev.Ns, carry_prev.status,
+               carry_prev.aorder, carry_prev.q)
+    got12 = carry_init.carry_init(pb32_10, *carry10)
+    want12 = fast._init_fast_from_carry(pb32_10, *carry10)
+    for k in ("status", "aorder", "q", "it", "term", "skip1", "sc_idx",
+              "sc_status"):
+        _require(torch.equal(getattr(got12, k), getattr(want12, k)),
+                 f"K12 vs plain: {k} differs")
+    k12_err = {}
+    for k, tol in (("x", 2e-5), ("u", 2e-5), ("f", 2e-5), ("hscale", 2e-5),
+                   ("H", 1e-6), ("Ns", 1e-6)):
+        g_, w_ = (getattr(s_, k).reshape(IK_BATCH, -1)
+                  for s_ in (got12, want12))
+        k12_err[k] = float(((g_ - w_).abs().amax(dim=1)
+                            / w_.abs().amax(dim=1).clamp_min(1.0)).max())
+        _require(k12_err[k] <= tol, f"K12 vs plain: {k} differs by "
+                 f"{k12_err[k]} > {tol}")
+    its12 = want12.it
+    bd12 = _bound(carry_init.carry_init_flops(carry_prev.q, its12, n_ik),
+                  carry_init.carry_init_bytes(carry_prev.q, n_ik,
+                                              IK_NB * IK_MC))
+    k12 = {"batch": IK_BATCH, "n": n_ik, "m": IK_NB * IK_MC,
+           "ms": _cuda_ms(lambda: carry_init.carry_init(pb32_10, *carry10)),
+           "plain_ms": _cuda_ms(lambda: fast._init_fast_from_carry(
+               pb32_10, *carry10), reps=1),
+           "bound_ms": bd12[0], "bound_by": bd12[1],
+           "stream_ms": 1e3 * carry_init.carry_init_stream_bytes(
+               carry_prev.q, its12, n_ik, IK_NB * IK_MC) / PEAK_BW,
+           "deactivations": torch.bincount(its12).tolist(),
+           "max_rel_err": k12_err,
+           "config": carry_init.carry_init_config(n_ik, IK_NB * IK_MC)}
+    print(json.dumps({"phase": 10, "K12": k12, "card": card}))
+    del got12, want12, carry10, pb32_10
 
     del results, traj, carry_t, carry_prev, res9, pb9, args9
     opt32 = opt.with_(dtype=f32, zero_z_threshold=1e-6)
@@ -2608,6 +2652,18 @@ def main() -> int:
             "max_rel_x_err")}
             for k in ("headline f32", "headline f64")},
         **{k: ik11["config"][k] for k in ("threads", "blocks_per_sm",
+                                          "registers", "smem_bytes")}})
+    kernels.append({
+        "name": "carry_init", "route": "cuda",
+        "source": "jrlqp_tpu_torch/csrc/carry_init.cu", "kernel": "K12",
+        "replaces": "jrlqp_tpu/solver/fast.py:851-895, :971-1009 (XLA)",
+        "launches": traj_ik_counts["carry_init"],
+        "launches_by_path": {
+            "IK trajectory (phase 10)": traj_ik_counts["carry_init"]},
+        "max_abs_err": k12["max_rel_err"]["x"],
+        **{k: k12[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        **{k: k12["config"][k] for k in ("threads", "blocks_per_sm",
                                           "registers", "smem_bytes")}})
     for name, which in (("struct_gmul", "K13"), ("struct_update", "K14")):
         kernels.append({

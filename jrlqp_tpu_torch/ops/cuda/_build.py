@@ -77,6 +77,9 @@ _SIGNATURES = {
     # K14: C, idx, sgn, a, b, dx, dlam, dy; x, lam, y, ntx, w in place; r1,
     # r2; B, n, m, mc, width; stream
     "jrlqp_struct_update": [_P] * 15 + [_I] * 5 + [_P],
+    # K12: G, l, u, xl, xu, a, H, Ns, status, aorder, q; x, f, H, Ns,
+    # status, aorder, u, scal, hscale; B, n, m; stream
+    "jrlqp_carry_init": [_P] * 20 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -176,6 +179,9 @@ def library() -> ctypes.CDLL:
             lib.jrlqp_fast_loop_config.argtypes = [
                 _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
             lib.jrlqp_fast_loop_config.restype = _I
+            lib.jrlqp_carry_init_config.argtypes = [
+                _I, _I, ctypes.POINTER(ctypes.c_int)]
+            lib.jrlqp_carry_init_config.restype = _I
             _lib = lib
     return _lib
 

@@ -39,7 +39,9 @@ one-hot gathers of the TPU branch become plain f64 products,
 The XLA engine is here too, batched: compact slots that shift on removal,
 not the kernels' hole-based slots. Its cold inits (``_init_fast``,
 ``_init_fast_from_ops``) serve the warm init's fallback and the structured
-layer; ``_init_fast_from_carry`` starts its loop from a carried operator.
+layer; ``_init_fast_from_carry`` starts its loop from a carried operator
+(the plain version of K12, ``ops/cuda/carry_init.py``, which runs it on a
+card in one launch).
 Its loop, which the JAX package compiles into one ``lax.while_loop`` of
 ``fast_iteration`` (fast.py:349, :911), is the GI loop of the structured
 path, whose n is too large for K1-K9's shared memory, of the engine
@@ -545,12 +547,23 @@ def _init_fast_warm(pb: QPProblem, as_hint, opt: SolverOptions
         all_indep = bool(indep.all())
     if not all_indep:
         state = _where_state(indep, state, _init_fast(pb, opt))
-    return _deactivate_negative_u(pb, _validated(pb, state, opt), b_act)
+    utol = -1e-14 if pb.G.dtype == torch.float64 else -1e-5
+    return _deactivate_negative_u(pb, _validated(pb, state, opt), b_act,
+                                  utol)
 
 
-def _deactivate_negative_u(pb: QPProblem, state: FastState, b_act
+# The carry init drops every slot whose multiplier is negative, as K4 does
+# for the dense carry: a multiplier kept in [-1e-5, 0), the hint init's
+# band in f32, ends with the wrong sign after the f64 refinement, a
+# complementarity residual that no refinement step removes. A dropped
+# constraint that the answer needs is violated at the init's x, and the
+# loop adds it back with a multiplier >= 0.
+_CARRY_UTOL = 0.0
+
+
+def _deactivate_negative_u(pb: QPProblem, state: FastState, b_act, utol
                            ) -> FastState:
-    """Deactivate hinted constraints with u < 0 one at a time, the most
+    """Deactivate constraints with u < ``utol`` one at a time, the most
     negative first (lowest slot on ties), while the lane is RUNNING
     (fast.py:851-895): a remove update, then the closed form on the
     reduced set, each counted as an iteration. ``b_act`` are the signed
@@ -558,7 +571,6 @@ def _deactivate_negative_u(pb: QPProblem, state: FastState, b_act
     B, n = pb.a.shape
     m = pb.m
     k = torch.arange(n, device=pb.G.device)[None, :]
-    utol = -1e-14 if pb.G.dtype == torch.float64 else -1e-5
     b = b_act
     while True:
         q = state.q.long()[:, None]
@@ -600,7 +612,9 @@ def _init_fast_from_carry(pb: QPProblem, H, Ns, status, aorder, q
         x = N*^T b_act - H a,   u = N* (G x + a)   (active slots)
 
     with hscale = trace(H), and the one-at-a-time deactivation of slots
-    with u < 0."""
+    with u < 0: every negative multiplier, where the JAX init keeps those
+    in [-1e-5, 0) (``_CARRY_UTOL``). The plain version of K12
+    (``ops/cuda/carry_init.py``), which runs it on a card in one launch."""
     from .warm_start import _active_normals_and_bounds
 
     B, n = pb.a.shape
@@ -624,7 +638,7 @@ def _init_fast_from_carry(pb: QPProblem, H, Ns, status, aorder, q
         skip1=torch.zeros((B,), dtype=torch.bool, device=dev),
         sc_idx=zeros - 1, sc_status=zeros,
         hscale=torch.diagonal(H, dim1=1, dim2=2).sum(dim=1))
-    return _deactivate_negative_u(pb, state, b_act)
+    return _deactivate_negative_u(pb, state, b_act, _CARRY_UTOL)
 
 
 def fast_iteration(pb: QPProblem, state: FastState, opt: SolverOptions

@@ -43,6 +43,7 @@ from ..ops.cuda.block_llt import (
     tri_block_llt,
     tri_block_solve,
 )
+from ..ops.cuda.carry_init import carry_init
 from ..ops.cuda.struct_refine import struct_gmul, struct_update
 from ..ops.linalg import tri_solve_masked
 from ..problems import QPProblem
@@ -50,7 +51,6 @@ from ..solver import dense
 from ..solver.fast import (
     WarmCarry,
     _bmv,
-    _init_fast_from_carry,
     _init_fast_from_ops,
     _refine_batch,
     _run_loop,
@@ -352,9 +352,11 @@ def solve_structured_fast_carry(
     solver.py:370-454); returns ``(result, carry)``. ``carry=None`` solves
     cold as :func:`solve_structured_fast_batch`. A carry from the previous
     step, whose G and C must be this step's (only a and the bounds drift),
-    starts the loop from its operators: no factorization, one K11 launch
-    on a card. With ``opt.validate`` a warm step also ends lanes with
-    inconsistent data INCONSISTENT_INPUT."""
+    starts the loop from its operators: no factorization; on a card one
+    launch of K12 for the carry init (``ops/cuda/carry_init.py``, which
+    drops every negative multiplier, where the JAX init keeps those in
+    [-1e-5, 0)) and one of K11, with no host read. With ``opt.validate`` a
+    warm step also ends lanes with inconsistent data INCONSISTENT_INPUT."""
     with spans.call("solve_structured_fast_carry", a):
         if carry is None:
             pbs, _, _, states = _solve_structured_states(
@@ -363,7 +365,7 @@ def solve_structured_fast_carry(
             _check_backend(backend)
             pbs, pb32, opt32 = _problems(sgs, a, scs, l, u, xl, xu, opt)
             with spans.span("jrlqp.init", a):
-                state0 = _validated(pb32, _init_fast_from_carry(
+                state0 = _validated(pb32, carry_init(
                     pb32, carry.H, carry.Ns, carry.status, carry.aorder,
                     carry.q), opt)
             states = _run_loop(pb32, state0, opt32)

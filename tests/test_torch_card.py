@@ -1,4 +1,4 @@
-"""The port's kernels (K1-K11) on a CUDA card, held against their plain
+"""The port's kernels (K1-K14) on a CUDA card, held against their plain
 PyTorch versions on the same card; the launch counts of the structured
 path, the compact-slot path, the trajectory capture and the rescue; the
 box solve, the sharded solve on one card and on several (its shards at the
@@ -13,8 +13,9 @@ solved alone by its path's kernel and plain version to its recorded
 outcome; the numpy batch generators that the CPU tests share; and the
 program's spans on the benchmark's three paths (every host sync a
 ``jrlqp.sync.*`` span, the stages covering the call, the loop span holding
-its kernel) and on a warm step of the dense control loop (one K4 launch,
-its stages covering the call).
+its kernel; an IK warm step one K12 and one K11 launch and no host read)
+and on a warm step of the dense control loop (one K4 launch, its stages
+covering the call).
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and no jax:
@@ -49,6 +50,7 @@ from jrlqp_tpu_torch import (
 from jrlqp_tpu_torch.bench import bench_warm_start_trajectory, time_batch
 from jrlqp_tpu_torch.ops.cuda import (
     block_llt,
+    carry_init,
     fast_loop,
     gi_kernel,
     jr_kernel,
@@ -134,6 +136,11 @@ CASES = {
     "vertex_touch": (41, 12, 4, 16, 0.9, 120, None),
     "non_spd": (18, 4, 8, 12, 0.3, 60, _non_spd),
 }
+
+
+# (seed, batch, n, m, act_frac): batches whose kernel carry has a lane with
+# a free slot before an active one
+HOLES = {"holes_n8": (0, 16, 8, 16, 0.9), "holes_n10": (2, 16, 10, 20, 0.5)}
 
 
 def make_case(name):
@@ -1960,6 +1967,93 @@ def test_structured_refinement_at_the_ik_shape(cuda_device):
     assert spans.counter("refine.structured") == 1
 
 
+def _k12_against_plain(pb, carry, name):
+    """K12's state from ``carry`` (H, N*, status, aorder, q) against its
+    plain version's on the card: one launch; status, aorder, q, it, term
+    and the pending candidate equal; x, u, f and hscale within 2e-5 and H
+    and N* within 1e-6 of max(1, |lane|): the f32 dot products' sums run
+    in another order, over n terms (on an H100 the widest read 1.5e-6 and
+    1.2e-7, at the IK shape and on the ragged carries). Returns the plain
+    state."""
+    before = spans.counter("launch.K12")
+    got = carry_init.carry_init(pb, *carry)
+    torch.cuda.synchronize()
+    assert spans.counter("launch.K12") == before + 1, name
+    want = fast._init_fast_from_carry(pb, *carry)
+    for k in ("status", "aorder", "q", "it", "term", "skip1", "sc_idx",
+              "sc_status"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), (name, k)
+    errs = {}
+    for k in ("x", "u", "f", "hscale", "H", "Ns"):
+        g, w = (getattr(s, k).reshape(pb.batch, -1) for s in (got, want))
+        errs[k] = float(((g - w).abs().amax(dim=1)
+                         / w.abs().amax(dim=1).clamp_min(1.0)).max())
+    print(name, "deactivations", torch.bincount(want.it).tolist(), errs)
+    for k, tol in (("x", 2e-5), ("u", 2e-5), ("f", 2e-5), ("hscale", 2e-5),
+                   ("H", 1e-6), ("Ns", 1e-6)):
+        assert errs[k] <= tol, (name, k, errs[k])
+    return want
+
+
+@pytest.mark.cuda
+def test_carry_init_kernel_matches_plain_at_the_ik_shape(cuda_device):
+    # K12 from a real carry at the benchmark cell ik9x43-track's shape
+    # (1,024 problems of n = 387, m = 36): K11's final states of the IK
+    # cold batch, then a step drifted by 0.02 on most lanes and by 0.5 on
+    # every eighth, so that lanes deactivate none, one and three or more
+    # slots
+    d = ik_batch(1024, seed=3)
+    pb, opt, st0 = _ik_state(d, cuda_device)
+    got = fast_loop.fast_loop(pb, st0, opt)
+    rng = np.random.default_rng(4)
+    step, wide = ik_step(d, 0.02, rng), ik_step(d, 0.5, rng)
+    for k in ("a", "l", "u"):
+        step[k][::8] = wide[k][::8]
+    sg, a, sc, lo, up = _ik_problem(step, GType.TRI_BLOCK_DIAGONAL,
+                                    cuda_device)
+    _, pb2, _ = ssolver._problems(sg, a, sc, lo, up, None, None, opt)
+    want = _k12_against_plain(
+        pb2, (got.H, got.Ns, got.status, got.aorder, got.q), "IK")
+    assert bool((want.it == 0).any() and (want.it == 1).any()
+                and (want.it >= 3).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.02, 0.5])
+@pytest.mark.parametrize("name", list(HOLES))
+def test_carry_init_kernel_matches_plain_on_ragged_carries(cuda_device, name,
+                                                           scale):
+    # K12 from K1's carries, whose slots hold holes, on drifted bounds
+    seed, B, n, m, act_frac = HOLES[name]
+    d = np_qp_batch(seed, B, n, m, act_frac)
+    _, carry = fast.solve_refined_kernel_carry(
+        problem_from_numpy(**d, device=cuda_device), None,
+        SolverOptions(max_iter=100))
+    ao = carry.aorder
+    assert bool(((ao[:, :-1] < 0) & (ao[:, 1:] >= 0)).any())
+    d2 = {k: v.astype(np.float32) for k, v in drifted(d, scale, 3).items()}
+    want = _k12_against_plain(
+        problem_from_numpy(**d2, device=cuda_device),
+        (carry.H, carry.Ns, carry.status, carry.aorder, carry.q),
+        f"{name} drift {scale}")
+    if scale == 0.5:
+        assert int(want.it.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_carry_init_kernel_takes_float32_only(cuda_device):
+    d = np_qp_batch(0, 4, 8, 16, 0.5)
+    pb = problem_from_numpy(**d, device=cuda_device)
+    _, carry = fast.solve_refined_kernel_carry(pb, None,
+                                               SolverOptions(max_iter=100))
+    args = (carry.H, carry.Ns, carry.status, carry.aorder, carry.q)
+    with pytest.raises(TypeError, match="float32"):
+        carry_init.carry_init(pb, *args)             # a float64 problem
+    with pytest.raises(RuntimeError, match="no kernel"):
+        carry_init.carry_init(pb.with_dtype(torch.float32)._map(
+            lambda t: t.to("meta")), *(t.to("meta") for t in args))
+
+
 def _benchmark_paths(device):
     """The three paths of the benchmark's cells at their sizes, each a
     function that makes one call: the dense main path (16,384 problems of
@@ -2019,7 +2113,26 @@ def test_every_host_sync_of_the_benchmark_paths_is_a_sync_span(cuda_device):
         print(name, len(syncs), opened)
         assert len(syncs) == len(opened), (
             name, opened, [f"{w.filename}:{w.lineno}" for w in syncs])
-    assert opened.count("jrlqp.sync.deactivate") >= 1
+        if name == "ik_track":             # the carry init is one K12
+            assert opened == []
+
+
+@pytest.mark.cuda
+def test_an_ik_warm_step_launches_k12_once_and_reads_nothing_back(
+        cuda_device):
+    # the warm step of ik9x43-track's path: one K12 and one K11 launch a
+    # step, and no jrlqp.sync.* span
+    step = _benchmark_paths(cuda_device)["ik_track"]
+    step()
+    torch.cuda.synchronize()
+    spans.reset("launch")
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    assert spans.counter("launch.K12") == 3
+    assert spans.counter("launch.K11") == 3
+    call = _recorded_call(step)
+    assert [s.name for s in call if s.name.startswith("jrlqp.sync.")] == []
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ from jrlqp_tpu_torch.ops.cuda import (
     jr_kernel,
 )
 from jrlqp_tpu_torch.parallel import make_mesh, solve_sharded
+from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.structured import (
     GType,
     StructuredC,
@@ -34,7 +35,6 @@ from jrlqp_tpu_torch.structured import (
     solve_structured_fast_batch,
     solve_structured_fast_carry,
 )
-from jrlqp_tpu_torch.structured import solver as st_solver
 from jrlqp_tpu_torch.testing.batch_gen import random_qp_batch
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.utils import spans
@@ -208,14 +208,16 @@ def test_an_inner_entry_point_opens_no_second_root():
 def test_carry_step_syncs_once_per_deactivation_round_and_once_more(
         monkeypatch):
     _, carry = solve_structured_fast_carry(*_ik(IK_BASE), None, opt=OPT_IK)
+    # the CPU batch's carry init is the plain version of K12, a round of
+    # torch ops and a host read per deactivation
     inits = []
-    init = st_solver._init_fast_from_carry
+    init = fast._init_fast_from_carry
 
     def kept(*args):
         inits.append(init(*args))
         return inits[-1]
 
-    monkeypatch.setattr(st_solver, "_init_fast_from_carry", kept)
+    monkeypatch.setattr(fast, "_init_fast_from_carry", kept)
     _, calls = _record(lambda: solve_structured_fast_carry(
         *_ik_step(seed=3, drift=1.0), carry, opt=OPT_IK))
     # each round removes one slot of every lane still active and counts

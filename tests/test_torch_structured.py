@@ -5,6 +5,7 @@ CPU batch runs the plain versions of K5-K8; ``backend="xla"`` for
 ``"blocks"``), on numpy inputs shared by both packages."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 from jrlqp_tpu import SolverOptions as JOptions
 from jrlqp_tpu.structured import containers as jc
+from jrlqp_tpu.solver import fast as jfast
 from jrlqp_tpu.structured import solver as js
 from jrlqp_tpu_torch import SolverOptions, TerminationStatus
 from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
@@ -26,6 +28,9 @@ from jrlqp_tpu_torch.structured import (
 )
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
+from jrlqp_tpu_torch.types import LOWER, UPPER
+from test_torch_gi_kernel import jax_problem
+from test_torch_structured_loop import carry_band
 
 torch.set_num_threads(1)
 
@@ -156,31 +161,114 @@ def test_validate_gates_inconsistent_lanes():
         0, 0, 0, int(TerminationStatus.INCONSISTENT_INPUT), 0]
 
 
+def _jax_carry_init(ds, gtype, jcarry):
+    """The JAX package's carry init of the step ``ds`` from ``jcarry``, as
+    numpy arrays, on the dense f32 problem its warm step builds."""
+    pb = structured_qp_problem(*_args(ds, gtype)).with_dtype(torch.float32)
+    st = jax.vmap(jfast._init_fast_from_carry)(
+        jax_problem({k: getattr(pb, k).numpy()
+                     for k in ("G", "a", "C", "l", "u", "xl", "xu")}),
+        jcarry.H, jcarry.Ns, jcarry.status, jcarry.aorder, jcarry.q)
+    return {f.name: np.asarray(getattr(st, f.name))
+            for f in dataclasses.fields(st)}
+
+
+def _lanes(res, keep):
+    """The lanes ``keep`` of a result of either package, as torch tensors."""
+    return type(res)(**{f.name: torch.as_tensor(np.array(
+        getattr(res, f.name)))[torch.as_tensor(keep)]
+        for f in dataclasses.fields(res)})
+
+
+def _kkt(res, ds, gtype):
+    pb = structured_qp_problem(*_args(ds, gtype))
+    return kkt_residual(torch.as_tensor(np.asarray(res.x)),
+                        torch.as_tensor(np.asarray(res.multipliers)), pb)
+
+
 @pytest.mark.parametrize("gtype", [GType.TRI_BLOCK_DIAGONAL,
                                    GType.BLOCK_ARROW_UP])
 def test_carry_trajectory_matches_jax(gtype):
     # after test_structured_fast_carry_trajectory: a cold step and three
     # warm steps at drift 0.02 (fresh noise on a, a shared shift of l and
-    # u), each equal to the JAX package's and to a cold solve
+    # u), each equal to the JAX package's and to a cold solve; a lane
+    # whose JAX carry init kept a multiplier in [-1e-5, 0), which the
+    # port's drops, parts from the JAX package's from that step on, by
+    # design, with a KKT residual no larger
     d = ik_batch(B, nb=NB, s=S, mc=MC, seed=20 + int(gtype))
     rng = np.random.default_rng(0)
     opt, jopt = SolverOptions(max_iter=200), JOptions(max_iter=200)
     carry = jcarry = None
     warm_its = []
+    parted = np.zeros(B, bool)
     for step in range(4):
         ds = ik_step(d, 0.02, rng)
+        if jcarry is not None:
+            parted |= carry_band(_jax_carry_init(ds, gtype, jcarry))
         res, carry = solve_structured_fast_carry(*_args(ds, gtype), carry,
                                                  opt=opt)
         ref, jcarry = js.solve_structured_fast_carry(
             *_jax_args(ds, gtype), jcarry, opt=jopt, backend="pallas",
             interpret=True)
-        _assert_same(res, ref)
+        _assert_same(_lanes(res, ~parted), _lanes(ref, ~parted))
+        kkt = _kkt(res, ds, gtype)
+        assert bool((kkt[parted] <= _kkt(ref, ds, gtype)[parted]).all())
         assert bool((res.status == 0).all())
         cold = solve_structured_fast_batch(*_args(ds, gtype), opt=opt)
         torch.testing.assert_close(res.x, cold.x, rtol=0, atol=1e-9)
         if step:
             warm_its.append(res.iterations)
     assert float(torch.cat(warm_its).double().mean()) <= 3.0
+
+
+def test_carry_drops_a_wrong_sign_multiplier_the_jax_carry_keeps():
+    # a lane like the benchmark cell ik9x43-track's missed lane (seed
+    # 2147521101, lane 500 of pool key 29): the step's a moved along one
+    # active row's signed normal, so that on the carried active set, in
+    # f64, the row's multiplier is -5e-6 and x is unchanged. The JAX carry
+    # init keeps the row (its band is [-1e-5, 0)), its loop finds nothing
+    # violated and the lane ends SUCCESS with the wrong sign, which no
+    # refinement removes; the port's drops the row and the lane passes at
+    # the cold solve's answer. Every other lane is the JAX package's.
+    gtype, lane = GType.TRI_BLOCK_DIAGONAL, 2
+    d = ik_batch(B, nb=NB, s=S, mc=MC, seed=40)
+    opt, jopt = SolverOptions(max_iter=200), JOptions(max_iter=200)
+    _, carry = solve_structured_fast_carry(*_args(d, gtype), None, opt=opt)
+    _, jcarry = js.solve_structured_fast_carry(
+        *_jax_args(d, gtype), None, opt=jopt, backend="pallas",
+        interpret=True)
+    ds = ik_step(d, 0.02, np.random.default_rng(5))
+    pb = structured_qp_problem(*_args(ds, gtype))
+    q = int(carry.q[lane])
+    rows = carry.aorder[lane, :q].long()
+    st = carry.status[lane, rows]
+    assert bool(((st == LOWER) | (st == UPPER)).all())   # general rows
+    sign = torch.where(st == UPPER, -1.0, 1.0).double()
+    N = (sign[:, None] * pb.C[lane, rows]).T                 # (n, q)
+    b = sign * torch.where(st == UPPER, pb.u[lane, rows], pb.l[lane, rows])
+    n = pb.n
+    kkt = torch.zeros((n + q, n + q), dtype=torch.float64)
+    kkt[:n, :n], kkt[:n, n:], kkt[n:, :n] = pb.G[lane], -N, N.T
+    u = torch.linalg.solve(kkt, torch.cat([-pb.a[lane], b]))[n:]
+    k = int(u.argmax())
+    ds["a"][lane] += ((-5e-6 - u[k]) * N[:, k]).numpy()
+    band = carry_band(_jax_carry_init(ds, gtype, jcarry))
+    assert band.tolist() == [b_ == lane for b_ in range(B)]
+    res, _ = solve_structured_fast_carry(*_args(ds, gtype), carry, opt=opt)
+    ref, _ = js.solve_structured_fast_carry(
+        *_jax_args(ds, gtype), jcarry, opt=jopt, backend="pallas",
+        interpret=True)
+    others = ~band
+    _assert_same(_lanes(res, others), _lanes(ref, others))
+    row = int(rows[k])
+    assert int(res.active_set[lane, row]) == 0
+    assert int(np.asarray(ref.active_set)[lane, row]) != 0
+    assert int(res.iterations[lane]) > int(np.asarray(ref.iterations)[lane])
+    ours, theirs = _kkt(res, ds, gtype)[lane], _kkt(ref, ds, gtype)[lane]
+    print(f"lane {lane}: KKT {float(ours)!r} (JAX carry {float(theirs)!r})")
+    assert int(res.status[lane]) == 0 and float(ours) <= 1e-8 < float(theirs)
+    cold = solve_structured_fast_batch(*_args(ds, gtype), opt=opt)
+    torch.testing.assert_close(res.x[lane], cold.x[lane], rtol=0, atol=1e-9)
 
 
 def test_carry_warm_step_validates():

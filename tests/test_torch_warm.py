@@ -30,6 +30,8 @@ from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.solver.warm_start import _process_initial_active_set
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
 from jrlqp_tpu_torch.types import (
+    EQUALITY,
+    FIXED,
     LOWER,
     MAX_ITER_REACHED,
     RUNNING,
@@ -172,6 +174,98 @@ def test_init_fast_warm_matches_jax(name, kind):
         # the cold fallback in both: no hint survives, q = 0
         assert (ours.q.numpy() == 0).all() and (ref["q"] == 0).all()
         assert (ours.term.numpy() == RUNNING).all()
+
+
+def _deactivate_negative_u_kept(pb, state, b_act):
+    """The hint init's deactivations as they stand in the JAX package and
+    stood in the port before the carry init took a threshold of its own:
+    u < -1e-5 in f32, u < -1e-14 in f64 (fast.py:851-895)."""
+    from jrlqp_tpu_torch.solver.fast import (
+        _apply_remove,
+        _bmtv,
+        _bmv,
+        _dot,
+        _where_state,
+    )
+
+    B, n = pb.a.shape
+    m = pb.m
+    k = torch.arange(n, device=pb.G.device)[None, :]
+    utol = -1e-14 if pb.G.dtype == torch.float64 else -1e-5
+    b = b_act
+    while True:
+        q = state.q.long()[:, None]
+        valid = k < q
+        idxs = torch.where(valid, state.aorder.long(), 0)
+        sts = state.status.long().gather(1, idxs.clamp(0, m + n - 1))
+        elig = valid & (sts != EQUALITY) & (sts != FIXED)
+        vals = torch.where(elig, state.u[:, :n], 0.0)
+        lmin = vals.argmin(dim=1)
+        umin = vals.gather(1, lmin[:, None])[:, 0]
+        active = (state.term == RUNNING) & (umin < utol)
+        if not bool(active.any()):
+            return state
+        st2 = _apply_remove(pb, state, lmin, state.u)
+        q2 = st2.q.long()[:, None]
+        src = torch.where((k >= lmin[:, None]) & (k < q2), k + 1, k)
+        b2 = torch.where(k >= q2, 0.0, b.gather(1, src.clamp(0, n - 1)))
+        nb = _bmtv(st2.Ns, b2)
+        x2 = nb - _bmv(st2.H, pb.a)
+        u2 = torch.where(k < q2, _bmv(st2.Ns, pb.a + _bmv(pb.G, nb)), 0.0)
+        st2 = dataclasses.replace(
+            st2, x=x2, f=0.5 * _dot(x2, _bmv(pb.G, x2)) + _dot(pb.a, x2),
+            u=torch.cat([u2, torch.zeros_like(u2[:, :1])], dim=1),
+            it=state.it + 1)
+        state = _where_state(active, st2, state)
+        b = torch.where(active[:, None], b2, b)
+
+
+def _same_state(ours, want):
+    for f in dataclasses.fields(ours):
+        assert torch.equal(getattr(ours, f.name), getattr(want, f.name)), \
+            f.name
+
+
+@pytest.mark.parametrize("name,kind", [("n13_m7", "half"),
+                                       ("eq_fixed", "half")])
+def test_init_fast_warm_deactivates_as_before_bit_for_bit(monkeypatch, name,
+                                                           kind):
+    # the hint init keeps its threshold (-1e-5 in f32) and its rounds: its
+    # state is a copy of the former deactivations' bit for bit, also where
+    # a multiplier lies in [-1e-5, 0), which the carry init drops
+    d, hints, max_iter = _init_case(name, kind)
+    _, opt = _opt32(max_iter)
+    pb = problem_from_numpy(**_f32(d), device="cpu")
+    seen = []
+    real = fast._deactivate_negative_u
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(fast, "_deactivate_negative_u", spy)
+    ours = fast._init_fast_warm(pb, torch.from_numpy(hints), opt)
+    (pb_, st0, b_act, utol), = seen
+    assert utol == -1e-5
+    assert int(ours.it.sum()) > 0                # some deactivations ran
+    _same_state(ours, _deactivate_negative_u_kept(pb_, st0, b_act))
+    # lane 0's most negative removable multiplier moved into the band
+    n = pb.n
+    k = torch.arange(n)[None, :]
+    valid = k < st0.q.long()[:, None]
+    sts = st0.status.long().gather(
+        1, torch.where(valid, st0.aorder.long(), 0).clamp(0, pb.m + n - 1))
+    elig = valid & (sts != EQUALITY) & (sts != FIXED)
+    u = torch.where(elig, st0.u[:, :n].abs() + 1e-3, st0.u[:, :n])
+    slot = int(elig[0].long().argmax())
+    assert bool(elig[0, slot])
+    u[0, slot] = -5e-6
+    st_band = dataclasses.replace(st0, u=torch.cat([u, st0.u[:, n:]], 1))
+    kept = real(pb_, st_band, b_act, utol)
+    _same_state(kept, _deactivate_negative_u_kept(pb_, st_band, b_act))
+    assert int(kept.it[0]) == 0 and int(kept.q[0]) == int(st0.q[0])
+    dropped = real(pb_, st_band, b_act, fast._CARRY_UTOL)
+    assert int(dropped.it[0]) >= 1 and int(dropped.q[0]) < int(st0.q[0])
 
 
 @pytest.mark.parametrize("name,kind", [
