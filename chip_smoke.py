@@ -414,17 +414,17 @@ def main() -> int:
         spans.reset("launch")
 
     def counts():
-        return {"gi_fused": gi_kernel.launches,
-                "chol_inv_b": block_llt.launches,
-                "gi_loop": gi_kernel.loop_launches,
-                "gi_warm": gi_kernel.warm_launches,
-                "gi_compact": gi_kernel.compact_launches,
-                "tri_block_llt": block_llt.tri_llt_launches,
-                "tri_block_solve": block_llt.tri_solve_launches,
-                "block_arrow_llt": block_llt.arrow_llt_launches,
-                "block_arrow_solve": block_llt.arrow_solve_launches,
-                "jr_loop": jr_kernel.launches,
-                "fast_loop": fast_loop.launches,
+        return {"gi_fused": spans.counter("launch.K1"),
+                "chol_inv_b": spans.counter("launch.chol_inv_b"),
+                "gi_loop": spans.counter("launch.K3"),
+                "gi_warm": spans.counter("launch.K4"),
+                "gi_compact": spans.counter("launch.K9"),
+                "tri_block_llt": spans.counter("launch.K5"),
+                "tri_block_solve": spans.counter("launch.K6"),
+                "block_arrow_llt": spans.counter("launch.K7"),
+                "block_arrow_solve": spans.counter("launch.K8"),
+                "jr_loop": spans.counter("launch.K10"),
+                "fast_loop": spans.counter("launch.K11"),
                 "struct_gmul": spans.counter("launch.K13"),
                 "struct_update": spans.counter("launch.K14"),
                 "carry_init": spans.counter("launch.K12")}
@@ -1356,7 +1356,7 @@ def main() -> int:
                     fast_loop.fast_loop_bytes(B_, n_, m_, isz), peak)
         return {
             "batch": B_, "n": n_, "m": m_, "dtype": str(st0_.x.dtype),
-            "ms": _cuda_ms(lambda: fast_loop.fast_loop(pb_, st0_, opt_)),
+            "ms": _cuda_ms(lambda: fast._run_loop(pb_, st0_, opt_)),
             "plain_ms": _cuda_ms(lambda: fast.fast_loop_plain(
                 pb_, st0_, opt_), reps=1),
             "bound_ms": bd[0], "bound_by": bd[1],
@@ -1459,7 +1459,7 @@ def main() -> int:
     _, pb32_10, _ = ssolver._problems(*last, None, None, opt_ik)
     carry10 = (carry_prev.H, carry_prev.Ns, carry_prev.status,
                carry_prev.aorder, carry_prev.q)
-    got12 = carry_init.carry_init(pb32_10, *carry10)
+    got12 = fast._init_carry(pb32_10, *carry10)
     want12 = fast._init_fast_from_carry(pb32_10, *carry10)
     for k in ("status", "aorder", "q", "it", "term", "skip1", "sc_idx",
               "sc_status"):
@@ -1479,7 +1479,7 @@ def main() -> int:
                   carry_init.carry_init_bytes(carry_prev.q, n_ik,
                                               IK_NB * IK_MC))
     k12 = {"batch": IK_BATCH, "n": n_ik, "m": IK_NB * IK_MC,
-           "ms": _cuda_ms(lambda: carry_init.carry_init(pb32_10, *carry10)),
+           "ms": _cuda_ms(lambda: fast._init_carry(pb32_10, *carry10)),
            "plain_ms": _cuda_ms(lambda: fast._init_fast_from_carry(
                pb32_10, *carry10), reps=1),
            "bound_ms": bd12[0], "bound_by": bd12[1],
@@ -1682,7 +1682,7 @@ def main() -> int:
 
     k10_same, k10_err = jr_against_plain("K10 (f64)", st14, pl14, 0.999,
                                          1e-10)
-    k10_ms = _cuda_ms(lambda: jr_kernel.jr_loop(pb14, st0_14, opt))
+    k10_ms = _cuda_ms(lambda: dense.run_loop(pb14, st0_14, opt))
     k10_plain_ms = _cuda_ms(lambda: dense.jr_loop_plain(pb14, st0_14, opt),
                             reps=1)
     k10_bound = _bound(jr_kernel.jr_flops(st14.it - st0_14.it, st0_14.q,
@@ -1692,11 +1692,11 @@ def main() -> int:
     opt32_m = opt.with_(dtype=f32, zero_z_threshold=F32_ZERO_Z)
     pb14_32 = pb14.with_dtype(f32)
     st0_32 = dense.init_state(pb14_32, opt32_m)
-    k10_32 = jr_kernel.jr_loop(pb14_32, st0_32, opt32_m)
+    k10_32 = dense.run_loop(pb14_32, st0_32, opt32_m)
     k10_same32, k10_err32 = jr_against_plain(
         "K10 (f32)", k10_32, dense.jr_loop_plain(pb14_32, st0_32, opt32_m),
         0.99, 1e-3)
-    k10_ms32 = _cuda_ms(lambda: jr_kernel.jr_loop(pb14_32, st0_32, opt32_m))
+    k10_ms32 = _cuda_ms(lambda: dense.run_loop(pb14_32, st0_32, opt32_m))
     k10_plain_ms32 = _cuda_ms(lambda: dense.jr_loop_plain(
         pb14_32, st0_32, opt32_m), reps=1)
     k10_bound32 = _bound(jr_kernel.jr_flops(k10_32.it, st0_32.q, k10_32.q,
@@ -1876,7 +1876,8 @@ def main() -> int:
             solve_refined_kernel(p_, opt, ir_steps=IR_STEPS)
             solve_refined_kernel_compact(p_, opt, ir_steps=IR_STEPS)
     print(f"no_retrace: 8 solves at (n, m) = ({N}, {M}) and (20, 30) built "
-          f"and loaded nothing (library loads {_build.loads})")
+          f"and loaded nothing (library loads "
+          f"{spans.counter('library.load')})")
     del pb14, pb15, pb15_32, small, fast_trace, cap
 
     # ---- phases 16-18: the small solvers, sharding and the corpus ----

@@ -327,9 +327,10 @@ __device__ __noinline__ void factor_block(float* A, float* X, int ld, int s) {
 }
 
 #ifdef JRLQP_STAMPS
-// A build with -DJRLQP_STAMPS (testing/profile_factor.py) times K5's and
-// K7's stages by clock64(): at each stamp a barrier, then thread 0 adds the
-// cycles since the last stamp to its stage's total.
+// A build with -DJRLQP_STAMPS times K5's and K7's stages by clock64(): at
+// each stamp a barrier, then thread 0 adds the cycles since the last stamp
+// to its stage's total in factor_stamps (read back by
+// cudaMemcpyFromSymbol).
 __device__ unsigned long long factor_stamps[8];
 #define FACTOR_STAMP_INIT long long stamp_t = clock64()
 #define FACTOR_STAMP(k)                                              \

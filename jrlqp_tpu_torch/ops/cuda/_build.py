@@ -8,8 +8,8 @@ package, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as is. Each C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on a nonzero
 code. The counter ``library.load`` of :mod:`jrlqp_tpu_torch.utils.spans`
-counts the builds and loads of the library in this process, readable here
-as ``loads`` (:func:`jrlqp_tpu_torch.utils.no_retrace` reads it).
+counts the builds and loads of the library in this process
+(:func:`jrlqp_tpu_torch.utils.no_retrace` reads it).
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -25,9 +25,11 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from ...utils import spans
 
-__all__ = ["library", "check", "build_info"]
+__all__ = ["library", "check", "own", "build_info"]
 
 _PKG = Path(__file__).resolve().parents[2]          # jrlqp_tpu_torch/
 CSRC = _PKG / "csrc"
@@ -85,7 +87,6 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}
-__getattr__ = spans.kept_names(__name__, {"loads": "library.load"})
 
 
 def _nvcc() -> str:
@@ -191,3 +192,9 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().jrlqp_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def own(t: torch.Tensor, dtype) -> torch.Tensor:
+    """A fresh contiguous copy of ``t`` in ``dtype``, for a kernel that
+    writes its state in place."""
+    return torch.clone(t.to(dtype), memory_format=torch.contiguous_format)

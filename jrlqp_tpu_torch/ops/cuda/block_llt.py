@@ -47,14 +47,6 @@ __all__ = ["chol_inv_b", "chol_b_plain", "tri_inv_b_plain", "posdef_plain",
            "pad_cols",
            "padded_rhs", "identity_rhs"]
 
-# the launches of K2's thin kernel (chol_inv_b), K5, K6, K7 and K8 are
-# counters of utils.spans (set back by ``spans.reset("launch.K5")`` and so
-# on), readable here under these names
-__getattr__ = spans.kept_names(__name__, {
-    "launches": "launch.chol_inv_b", "tri_llt_launches": "launch.K5",
-    "tri_solve_launches": "launch.K6", "arrow_llt_launches": "launch.K7",
-    "arrow_solve_launches": "launch.K8"})
-
 # K6 stages six s x round4(s) f32 blocks (two per stage) in a thread
 # block's shared memory, K5 and K7 keep three: s <= 96 fits
 _STRUCT_MAX_S = 96

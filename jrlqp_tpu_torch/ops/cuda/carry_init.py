@@ -12,13 +12,13 @@ closed form through the carried operators, and the deactivations of the
 negative multipliers one at a time, each a rank-one removal and the closed
 form on the reduced set, with no host read. Its plain version is
 :func:`jrlqp_tpu_torch.solver.fast._init_fast_from_carry`, a round of
-masked passes over the batch per deactivation.
+masked passes over the batch per deactivation; ``solver.fast._init_carry``
+chooses between the two by the problem's device.
 
-:func:`carry_init` takes the plain version for a problem on the CPU and the
-kernel for one on a card, which must be f32; it raises for another device
-or dtype. The kernel's state is the plain version's lane for lane up to
-the order of its sums: the same status, active slots, active count,
-iterations and term, x, u, H and N* within rounding.
+:func:`carry_init` launches the kernel on an f32 problem on a card; it
+raises for another dtype. The kernel's state is the plain version's lane
+for lane up to the order of its sums: the same status, active slots, active
+count, iterations and term, x, u, H and N* within rounding.
 """
 from __future__ import annotations
 
@@ -27,27 +27,12 @@ import ctypes
 import torch
 
 from ...problems import QPProblem
-from ...solver import fast
-from ...solver.fast import FastState
+from ...solver.state import FastState
 from ...utils import spans
 from . import _build
 
 __all__ = ["carry_init", "carry_init_config", "carry_init_flops",
            "carry_init_bytes", "carry_init_stream_bytes"]
-
-
-def carry_init(pb: QPProblem, H, Ns, status, aorder, q) -> FastState:
-    """The warm init of the explicit-form engine from a previous solve's
-    operators H and N*, status, aorder and q, for the batch ``pb`` that
-    shares that solve's G and C: K12 on a card (f32), its plain version
-    :func:`~jrlqp_tpu_torch.solver.fast._init_fast_from_carry` on the CPU.
-    Counts ``launch.K12``."""
-    dev = pb.G.device
-    if dev.type == "cpu":
-        return fast._init_fast_from_carry(pb, H, Ns, status, aorder, q)
-    if dev.type != "cuda":
-        raise RuntimeError(f"carry_init: no kernel for device {dev}")
-    return _carry_init_cuda(pb, H, Ns, status, aorder, q)
 
 
 def carry_init_config(n: int, m: int) -> dict:
@@ -62,7 +47,11 @@ def carry_init_config(n: int, m: int) -> dict:
                      "registers", "local_bytes"), out))
 
 
-def _carry_init_cuda(pb: QPProblem, H, Ns, status, aorder, q) -> FastState:
+def carry_init(pb: QPProblem, H, Ns, status, aorder, q) -> FastState:
+    """The warm init of the explicit-form engine from a previous solve's
+    operators H and N*, status, aorder and q, for the f32 batch ``pb`` on a
+    card that shares that solve's G and C: one launch of K12, counted as
+    ``launch.K12``."""
     B, n = pb.a.shape
     m = pb.m
     dev, f32, i32 = pb.G.device, torch.float32, torch.int32

@@ -1,5 +1,5 @@
 """K11: the explicit-form engine's GI loop as one CUDA kernel, its wrapper,
-and its plain version.
+and its counts of work.
 
 Counterpart of the loop that the JAX package compiles into one
 ``lax.while_loop`` of ``fast_iteration`` (``jrlqp_tpu/solver/fast.py:167-
@@ -12,12 +12,13 @@ a given ``FastState`` with one thread block per lane, each lane's
 iterations back to back, in f32 (``jrlqp_fast_loop_f32``) and f64
 (``jrlqp_fast_loop_f64``). Its plain version is
 :func:`jrlqp_tpu_torch.solver.fast.fast_loop_plain`, the masked passes of
-:func:`~jrlqp_tpu_torch.solver.fast.fast_iteration` in a host loop.
+:func:`~jrlqp_tpu_torch.solver.fast.fast_iteration` in a host loop;
+``solver.fast._run_loop`` chooses between the two by the state's device.
 
-:func:`fast_loop` takes the plain version for a state on the CPU and the
-kernel for a state on a card; it raises for another device or dtype. The
-kernel's result is the plain version's lane for lane up to the order of
-its sums: the same status, iterations and active set, x within rounding.
+:func:`fast_loop` launches the kernel on a CUDA state; it raises for
+another dtype. The kernel's result is the plain version's lane for lane up
+to the order of its sums: the same status, iterations and active set, x
+within rounding.
 """
 from __future__ import annotations
 
@@ -26,8 +27,7 @@ import ctypes
 import torch
 
 from ...problems import QPProblem
-from ...solver import fast
-from ...solver.fast import FastState, _dep_eps
+from ...solver.state import FastState
 from ...types import SolverOptions
 from ...utils import spans
 from . import _build
@@ -36,28 +36,11 @@ __all__ = ["fast_loop", "fast_loop_config",
            "fast_loop_smem_bytes", "fast_loop_flops", "fast_loop_bytes",
            "fast_loop_stream_bytes"]
 
-# the launches of K11 are the counter ``launch.K11`` of utils.spans (set
-# back by ``spans.reset("launch.K11")``), readable here as ``launches``
-__getattr__ = spans.kept_names(__name__, {"launches": "launch.K11"})
-
 _ENTRIES = {torch.float32: "jrlqp_fast_loop_f32",
             torch.float64: "jrlqp_fast_loop_f64"}
 # the dynamic shared memory one block may use on Hopper, less 2 KB for the
 # kernel's static scratch (1,152 B at 256 threads in f64)
 _SMEM_LIMIT = 232448 - 2048
-
-
-def fast_loop(pb: QPProblem, state: FastState, opt: SolverOptions
-              ) -> FastState:
-    """Run the explicit-form GI loop from ``state`` until no lane is
-    RUNNING: K11 on a CUDA state, its plain version
-    :func:`~jrlqp_tpu_torch.solver.fast.fast_loop_plain` on a CPU one."""
-    dev = state.x.device
-    if dev.type == "cpu":
-        return fast.fast_loop_plain(pb, state, opt)
-    if dev.type != "cuda":
-        raise RuntimeError(f"fast_loop: no kernel for device {dev}")
-    return _fast_loop_cuda(pb, state, opt)
 
 
 def fast_loop_smem_bytes(n: int, m: int, itemsize: int) -> int:
@@ -90,14 +73,12 @@ def fast_loop_config(n: int, m: int, dtype=torch.float32) -> dict:
                      "local_bytes"), out))
 
 
-def _own(t: torch.Tensor, dtype) -> torch.Tensor:
-    """A fresh contiguous copy of ``t`` in ``dtype`` (the kernel writes its
-    state in place)."""
-    return torch.clone(t.to(dtype), memory_format=torch.contiguous_format)
-
-
-def _fast_loop_cuda(pb: QPProblem, state: FastState, opt: SolverOptions
-                    ) -> FastState:
+def fast_loop(pb: QPProblem, state: FastState, opt: SolverOptions,
+              dep_eps: float) -> FastState:
+    """Run the explicit-form GI loop from the CUDA state ``state`` until no
+    lane is RUNNING: one launch of K11, counted as ``launch.K11``.
+    ``dep_eps`` is the engine's relative threshold for a dependent
+    candidate in the state's dtype."""
     B, n = state.x.shape
     m = state.status.shape[1] - n
     dt, dev = state.x.dtype, state.x.device
@@ -119,9 +100,10 @@ def _fast_loop_cuda(pb: QPProblem, state: FastState, opt: SolverOptions
     i32 = torch.int32
     ins = tuple(t.contiguous() for t in prob) + (
         state.hscale.to(dt).contiguous(),)
-    x, f, H, Ns, u = (_own(t, dt) for t in (state.x, state.f, state.H,
-                                            state.Ns, state.u))
-    status, aorder = _own(state.status, i32), _own(state.aorder, i32)
+    x, f, H, Ns, u = (_build.own(t, dt) for t in (state.x, state.f, state.H,
+                                                  state.Ns, state.u))
+    status, aorder = (_build.own(state.status, i32),
+                      _build.own(state.aorder, i32))
     scal = torch.stack([t.to(i32) for t in (
         state.q, state.it, state.term, state.skip1, state.sc_idx,
         state.sc_status)], dim=1)
@@ -134,7 +116,7 @@ def _fast_loop_cuda(pb: QPProblem, state: FastState, opt: SolverOptions
         code = getattr(lib, entry)(
             *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
             B, n, m, int(opt.max_iter), float(opt.big_bnd),
-            float(opt.zero_z_threshold), _dep_eps(dt), stream)
+            float(opt.zero_z_threshold), float(dep_eps), stream)
     _build.check(code, entry)
     spans.count("launch.K11")
     q, it, term, skip1, sc_idx, sc_status = scal.t().contiguous()

@@ -59,13 +59,6 @@ BIG = 1e30           # f32 infinity proxy inside the loop
 INF_BOUND = 1e31     # infinite bounds in the padded f32 inputs
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 
-# the launches of K1 (gi_fused), K3 (gi_loop), K4 (gi_warm) and K9
-# (gi_compact) are counters of utils.spans (set back by
-# ``spans.reset("launch.K1")`` and so on), readable here under these names
-__getattr__ = spans.kept_names(__name__, {
-    "launches": "launch.K1", "loop_launches": "launch.K3",
-    "warm_launches": "launch.K4", "compact_launches": "launch.K9"})
-
 _F, _I = torch.float32, torch.int32
 # input dtypes of the C entry points, in argument order
 _FUSED_IN = (_F,) * 7

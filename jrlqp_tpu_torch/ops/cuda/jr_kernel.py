@@ -1,5 +1,4 @@
-"""K10: the J/R engine's GI loop as one CUDA kernel, its wrapper, and its
-plain version.
+"""K10: the J/R engine's GI loop as one CUDA kernel, and its wrapper.
 
 Counterpart of the loop that ``jrlqp_tpu/solver/dense.py:392-410``
 (``run_loop``) compiles into one ``lax.while_loop``, with the masked
@@ -10,54 +9,34 @@ has no Pallas kernel here: XLA compiles the loop. The port's kernel,
 back, in f64 (``jrlqp_jr_loop_f64``) and in f32 (``jrlqp_jr_loop_f32``, the
 first stage of ``solve_mixed``). Its plain version is
 :func:`jrlqp_tpu_torch.solver.dense.jr_loop_plain`, the masked passes of
-:func:`~jrlqp_tpu_torch.solver.dense.gi_iteration` in a host loop.
+:func:`~jrlqp_tpu_torch.solver.dense.gi_iteration` in a host loop;
+:func:`jrlqp_tpu_torch.solver.dense.run_loop` chooses between the two by
+the state's device.
 
-:func:`jr_loop` takes the plain version for a state on the CPU and the
-kernel for a state on a card; it raises for another device or dtype. The
-kernel's result is the plain version's lane for lane up to the order of
-its sums: the same status, iterations and active set, x within rounding.
+:func:`jr_loop` launches the kernel on a CUDA state; it raises for another
+dtype. The kernel's result is the plain version's lane for lane up to the
+order of its sums: the same status, iterations and active set, x within
+rounding.
 """
 from __future__ import annotations
-
 
 import torch
 
 from ...problems import QPProblem
-from ...solver.dense import jr_loop_plain
 from ...solver.state import GIState
 from ...types import SolverOptions
 from ...utils import spans
 from . import _build
 
-__all__ = ["jr_loop", "jr_loop_plain", "jr_flops", "jr_bytes"]
-
-# the launches of K10 are the counter ``launch.K10`` of utils.spans (set
-# back by ``spans.reset("launch.K10")``), readable here as ``launches``
-__getattr__ = spans.kept_names(__name__, {"launches": "launch.K10"})
+__all__ = ["jr_loop", "jr_flops", "jr_bytes"]
 
 _ENTRIES = {torch.float64: "jrlqp_jr_loop_f64",
             torch.float32: "jrlqp_jr_loop_f32"}
 
 
 def jr_loop(pb: QPProblem, state: GIState, opt: SolverOptions) -> GIState:
-    """Run the GI loop from ``state`` until no lane is RUNNING: K10 on a
-    CUDA state, :func:`jr_loop_plain` on a CPU one."""
-    dev = state.x.device
-    if dev.type == "cpu":
-        return jr_loop_plain(pb, state, opt)
-    if dev.type != "cuda":
-        raise RuntimeError(f"jr_loop: no kernel for device {dev}")
-    return _jr_loop_cuda(pb, state, opt)
-
-
-def _own(t: torch.Tensor, dtype) -> torch.Tensor:
-    """A fresh contiguous copy of ``t`` in ``dtype`` (the kernel writes its
-    state in place)."""
-    return torch.clone(t.to(dtype), memory_format=torch.contiguous_format)
-
-
-def _jr_loop_cuda(pb: QPProblem, state: GIState, opt: SolverOptions
-                  ) -> GIState:
+    """Run the GI loop from the CUDA state ``state`` until no lane is
+    RUNNING: one launch of K10, counted as ``launch.K10``."""
     B, n = state.x.shape
     m = state.status.shape[1] - n
     dt, dev = state.x.dtype, state.x.device
@@ -78,9 +57,10 @@ def _jr_loop_cuda(pb: QPProblem, state: GIState, opt: SolverOptions
     i32 = torch.int32
     ins = (pb.C.transpose(1, 2).contiguous(), pb.l.contiguous(),
            pb.u.contiguous(), pb.xl.contiguous(), pb.xu.contiguous())
-    x, f, J, R, u = (_own(t, dt) for t in (state.x, state.f, state.J,
-                                           state.R, state.u))
-    status, aorder = _own(state.status, i32), _own(state.aorder, i32)
+    x, f, J, R, u = (_build.own(t, dt) for t in (state.x, state.f, state.J,
+                                                 state.R, state.u))
+    status, aorder = (_build.own(state.status, i32),
+                      _build.own(state.aorder, i32))
     scal = torch.stack([t.to(i32) for t in (
         state.q, state.it, state.term, state.skip1, state.sc_idx,
         state.sc_status)], dim=1)

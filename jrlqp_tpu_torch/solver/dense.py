@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from ..ops.cuda.jr_kernel import jr_loop
 from ..ops.linalg import (
     givens_remove,
     householder_add,
@@ -67,6 +68,16 @@ def _bmtv(A, v):
 
 def _dot(a, b):
     return (a * b).sum(dim=1)
+
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    """True for a tensor on a card, where ``name``'s kernel runs; False for
+    one on the CPU, where its plain version runs; raises for another
+    device."""
+    dev = t.device
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    return dev.type == "cuda"
 
 
 def _where_state(mask, a, b):
@@ -424,10 +435,8 @@ def run_loop(pb: QPProblem, state: GIState, opt: SolverOptions,
     ``on_pass`` (the tracer) run :func:`jr_loop_plain` with them. In a
     span ``jrlqp.loop``."""
     with spans.span("jrlqp.loop", state.x):
-        if select_fn is None and step_fn is None and on_pass is None:
-            # imported here: jr_kernel imports this module
-            from ..ops.cuda.jr_kernel import jr_loop
-
+        if (select_fn is None and step_fn is None and on_pass is None
+                and _on_card(state.x, "jr_loop")):
             return jr_loop(pb, state, opt)
         return jr_loop_plain(pb, state, opt, select_fn, step_fn, on_pass)
 

@@ -40,8 +40,8 @@ The XLA engine is here too, batched: compact slots that shift on removal,
 not the kernels' hole-based slots. Its cold inits (``_init_fast``,
 ``_init_fast_from_ops``) serve the warm init's fallback and the structured
 layer; ``_init_fast_from_carry`` starts its loop from a carried operator
-(the plain version of K12, ``ops/cuda/carry_init.py``, which runs it on a
-card in one launch).
+(the plain version of K12, ``ops/cuda/carry_init.py``; ``_init_carry``
+runs K12 on a card and it on the CPU).
 Its loop, which the JAX package compiles into one ``lax.while_loop`` of
 ``fast_iteration`` (fast.py:349, :911), is the GI loop of the structured
 path, whose n is too large for K1-K9's shared memory, of the engine
@@ -51,7 +51,8 @@ the CUDA kernel K11 on a card (``ops/cuda/fast_loop.py``,
 ``csrc/fast_loop.cu``: a thread block per lane, its iterations back to
 back). Its plain version :func:`fast_loop_plain`, which the tracer's
 hooked loop also runs, is :func:`fast_iteration` on every lane in a host
-loop while any lane is RUNNING.
+loop while any lane is RUNNING. Every f32 entry point takes its batch and
+its loop's options from :func:`_f32`.
 """
 from __future__ import annotations
 
@@ -60,6 +61,8 @@ import functools
 
 import torch
 
+from ..ops.cuda.carry_init import carry_init
+from ..ops.cuda.fast_loop import fast_loop
 from ..ops.cuda.gi_kernel import (
     prepare_warm,
     prepare_warm_carry,
@@ -94,13 +97,16 @@ from .dense import (
     _bmv,
     _constraint_normal,
     _dot,
+    _on_card,
     _safe_cholesky,
     _select_violated,
     _selected_bound,
     _where_state,
     finalize,
+    solve_batch,
 )
-from .state import GIResult
+from .state import FastState, GIResult
+from .warm_start import _active_normals_and_bounds, _process_initial_active_set
 
 __all__ = ["FastState", "WarmCarry", "solve_refined_kernel",
            "solve_refined_warm_kernel", "solve_refined_kernel_carry",
@@ -108,27 +114,6 @@ __all__ = ["FastState", "WarmCarry", "solve_refined_kernel",
            "solve_refined_kernel_rescued",
            "fast_iteration", "fast_loop_plain", "solve_refined",
            "solve_fast", "solve_fast_warm"]
-
-
-@dataclasses.dataclass(frozen=True)
-class FastState:
-    """Batched final state of the f32 loop (``jrlqp_tpu.solver.fast.
-    FastState`` with a leading batch dimension)."""
-
-    x: torch.Tensor        # (B, n)
-    f: torch.Tensor        # (B,)
-    H: torch.Tensor        # (B, n, n) reduced inverse Hessian
-    Ns: torch.Tensor       # (B, n, n) row k = N* row of active slot k
-    status: torch.Tensor   # (B, m+n) int32
-    aorder: torch.Tensor   # (B, n) int32, -1 marks a free slot
-    u: torch.Tensor        # (B, n+1) multipliers by slot
-    q: torch.Tensor        # (B,) int32
-    it: torch.Tensor       # (B,) int32
-    term: torch.Tensor     # (B,) int32
-    skip1: torch.Tensor    # (B,) bool
-    sc_idx: torch.Tensor   # (B,) int32
-    sc_status: torch.Tensor  # (B,) int32
-    hscale: torch.Tensor   # (B,) trace(G^-1) at init
 
 
 def _state_from_kernel_out(out: dict, B: int) -> FastState:
@@ -506,11 +491,6 @@ def _init_fast_warm(pb: QPProblem, as_hint, opt: SolverOptions
     and the one-at-a-time deactivation of wrongly hinted constraints with
     u < 0. A lane whose M has no Cholesky factor (a rank-deficient hinted
     set) falls back to the cold init. hscale is trace(G^-1)."""
-    from .warm_start import (
-        _active_normals_and_bounds,
-        _process_initial_active_set,
-    )
-
     B, n = pb.a.shape
     dev = pb.G.device
     status, aorder, q, over = _process_initial_active_set(pb, as_hint, opt)
@@ -614,9 +594,7 @@ def _init_fast_from_carry(pb: QPProblem, H, Ns, status, aorder, q
     with hscale = trace(H), and the one-at-a-time deactivation of slots
     with u < 0: every negative multiplier, where the JAX init keeps those
     in [-1e-5, 0) (``_CARRY_UTOL``). The plain version of K12
-    (``ops/cuda/carry_init.py``), which runs it on a card in one launch."""
-    from .warm_start import _active_normals_and_bounds
-
+    (``ops/cuda/carry_init.py``): :func:`_init_carry` chooses."""
     B, n = pb.a.shape
     dev = pb.G.device
     k = torch.arange(n, device=dev)[None, :]
@@ -639,6 +617,15 @@ def _init_fast_from_carry(pb: QPProblem, H, Ns, status, aorder, q
         sc_idx=zeros - 1, sc_status=zeros,
         hscale=torch.diagonal(H, dim1=1, dim2=2).sum(dim=1))
     return _deactivate_negative_u(pb, state, b_act, _CARRY_UTOL)
+
+
+def _init_carry(pb: QPProblem, H, Ns, status, aorder, q) -> FastState:
+    """The warm init from a previous solve's operators (see
+    :func:`_init_fast_from_carry`): one launch of K12 on a card (an f32
+    batch), :func:`_init_fast_from_carry` on the CPU."""
+    if _on_card(pb.G, "carry_init"):
+        return carry_init(pb, H, Ns, status, aorder, q)
+    return _init_fast_from_carry(pb, H, Ns, status, aorder, q)
 
 
 def fast_iteration(pb: QPProblem, state: FastState, opt: SolverOptions
@@ -754,11 +741,8 @@ def _run_loop(pb: QPProblem, state: FastState, opt: SolverOptions,
     (the tracer) runs :func:`fast_loop_plain` with it. In a span
     ``jrlqp.loop``."""
     with spans.span("jrlqp.loop", state.x):
-        if on_pass is None:
-            # imported here: fast_loop imports this module
-            from ..ops.cuda.fast_loop import fast_loop
-
-            return fast_loop(pb, state, opt)
+        if on_pass is None and _on_card(state.x, "fast_loop"):
+            return fast_loop(pb, state, opt, _dep_eps(state.x.dtype))
         return fast_loop_plain(pb, state, opt, on_pass)
 
 
@@ -787,6 +771,20 @@ def solve_fast_warm(pbs: QPProblem, as_hints,
     return finalize(pbs, _run_loop(pbs, state0, opt))
 
 
+def _f32(pbs, opt: SolverOptions, where):
+    """``(pbs, pb32, opt32)`` of an entry point with an f32 loop, in a span
+    ``jrlqp.prepare`` on the card of ``where``: the batch, its f32 copy,
+    and ``opt`` with the f32 loop's dtype and zero-z threshold (1e-6, where
+    float32's eps is ~1.2e-7). ``pbs`` is the batch, or a function that
+    assembles it inside the span (the structured entry points' dense
+    problem)."""
+    with spans.span("jrlqp.prepare", where):
+        if callable(pbs):
+            pbs = pbs()
+        return (pbs, pbs.with_dtype(torch.float32),
+                opt.with_(dtype=torch.float32, zero_z_threshold=1e-6))
+
+
 def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
                   ir_steps: int = 3) -> GIResult:
     """The dense engine, batched: the f32 cold init (Cholesky of G), the
@@ -794,9 +792,7 @@ def solve_refined(pbs: QPProblem, opt: SolverOptions = SolverOptions(),
     then ``ir_steps`` steps of f64 refinement (counterpart of
     ``vmap(jrlqp_tpu.solver.fast.solve_refined)``, fast.py:620-635)."""
     with spans.call("solve_refined", pbs.G):
-        with spans.span("jrlqp.prepare"):
-            pb32 = pbs.with_dtype(torch.float32)
-        opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+        _, pb32, opt32 = _f32(pbs, opt, pbs.G)
         return _refine_batch(pbs, _run_fast(pb32, opt32), ir_steps,
                              functools.partial(_DenseProducts, pbs,
                                                exact=True))
@@ -827,29 +823,35 @@ def _solve_refined(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
     """:func:`solve_refined_kernel` with the f32 loop ``run_loop(pb32,
     max_iter)`` given: the kernel's wrapper, or its plain version for a
     comparison on the card."""
-    with spans.span("jrlqp.prepare", pbs.G):
-        pb32 = pbs.with_dtype(torch.float32)
+    _, pb32, _ = _f32(pbs, opt, pbs.G)
     out = run_loop(pb32, opt.max_iter)
     with spans.span("jrlqp.remap", pbs.G):
         st = _validated(pb32, _state_from_kernel_out(out, pbs.batch), opt)
     return _refine_batch(pbs, st, ir_steps)
 
 
-def _solve_refined_from_init(pbs: QPProblem, opt: SolverOptions,
-                             ir_steps: int, run) -> GIResult:
-    """The f32 cold init in torch (``_init_fast``, which applies
-    ``opt.validate``), the loop ``run(pb32, state0, max_iter)`` -- K3's or
-    K9's wrapper, or a plain version -- then ``ir_steps`` steps of f64
-    refinement: the body of ``solve_refined_pallas(..., fused_init=False)``
-    (fast.py:638-671)."""
-    with spans.span("jrlqp.prepare", pbs.G):
-        pb32 = pbs.with_dtype(torch.float32)
-    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+def _loop_from_init(pbs: QPProblem, opt: SolverOptions, init, run,
+                    max_iter: int) -> tuple[QPProblem, FastState]:
+    """``(pb32, state)``: the f32 batch (:func:`_f32`), the f32 init
+    ``init(pb32, opt32)`` in torch, the loop ``run(pb32, state0,
+    max_iter)`` -- K3's or K9's wrapper, or a plain version -- and its
+    state out of the kernels' layout."""
+    _, pb32, opt32 = _f32(pbs, opt, pbs.G)
     with spans.span("jrlqp.init", pbs.G):
-        state0 = _init_fast(pb32, opt32)
-    out = run(pb32, state0, opt.max_iter)
+        state0 = init(pb32, opt32)
+    out = run(pb32, state0, max_iter)
     with spans.span("jrlqp.remap", pbs.G):
-        st = _state_from_kernel_out(out, pbs.batch)
+        return pb32, _state_from_kernel_out(out, pbs.batch)
+
+
+def _solve_refined_from_init(pbs: QPProblem, opt: SolverOptions,
+                             ir_steps: int, run, init=_init_fast) -> GIResult:
+    """:func:`_loop_from_init` to ``opt.max_iter``, then ``ir_steps`` steps
+    of f64 refinement: with the cold init ``_init_fast`` (which applies
+    ``opt.validate``) the body of ``solve_refined_pallas(...,
+    fused_init=False)`` (fast.py:638-671), with the hint init that of
+    ``solve_refined_warm_pallas``."""
+    _, st = _loop_from_init(pbs, opt, init, run, opt.max_iter)
     return _refine_batch(pbs, st, ir_steps)
 
 
@@ -897,14 +899,7 @@ def solve_refined_kernel_compacted(pbs: QPProblem,
 def _solve_compacted(pbs: QPProblem, opt: SolverOptions, ir_steps: int,
                      phase1_frac: float) -> GIResult:
     phase1 = max(1, min(int(opt.max_iter * phase1_frac), opt.max_iter))
-    with spans.span("jrlqp.prepare", pbs.G):
-        pb32 = pbs.with_dtype(torch.float32)
-    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
-    with spans.span("jrlqp.init", pbs.G):
-        state0 = _init_fast(pb32, opt32)
-    out = run_loop(pb32, state0, phase1)
-    with spans.span("jrlqp.remap", pbs.G):
-        st = _state_from_kernel_out(out, pbs.batch)
+    pb32, st = _loop_from_init(pbs, opt, _init_fast, run_loop, phase1)
     with spans.sync("compact"):
         idx = torch.nonzero(st.term == MAX_ITER_REACHED)[:, 0]
     if phase1 < opt.max_iter and idx.numel():
@@ -932,8 +927,6 @@ def _batch_kkt(pbs: QPProblem, x, multipliers) -> torch.Tensor:
 
 def _rescue_subbatch(pbs: QPProblem, opt: SolverOptions) -> GIResult:
     """The f64 J/R solve of a sub-batch (fast.py:1082-1087)."""
-    from .dense import solve_batch
-
     return solve_batch(pbs.with_dtype(torch.float64), opt)
 
 
@@ -987,16 +980,11 @@ def solve_refined_warm_kernel(pbs: QPProblem, as_hints,
     ``opt.warm_start``. The f32 warm init runs here in torch, the loop in
     the kernel K3 (a CPU batch: its plain version), then ``ir_steps`` steps
     of f64 refinement."""
+    def init(pb32, opt32):
+        return _init_fast_warm(pb32, as_hints, opt32)
+
     with spans.call("solve_refined_warm_kernel", pbs.G):
-        with spans.span("jrlqp.prepare"):
-            pb32 = pbs.with_dtype(torch.float32)
-        opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
-        with spans.span("jrlqp.init"):
-            state0 = _init_fast_warm(pb32, as_hints, opt32)
-        out = run_loop(pb32, state0, opt.max_iter)
-        with spans.span("jrlqp.remap"):
-            st = _state_from_kernel_out(out, pbs.batch)
-        return _refine_batch(pbs, st, ir_steps)
+        return _solve_refined_from_init(pbs, opt, ir_steps, run_loop, init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1080,8 +1068,7 @@ def solve_refined_kernel_carry(pbs: QPProblem, carry: WarmCarry | None = None,
     without the resets."""
     with spans.call("solve_refined_kernel_carry", pbs.G):
         if carry is None:
-            with spans.span("jrlqp.prepare"):
-                pb32 = pbs.with_dtype(torch.float32)
+            _, pb32, _ = _f32(pbs, opt, pbs.G)
             out, raw = run_loop_fused_carry(pb32, opt.max_iter)
             with spans.span("jrlqp.remap"):
                 st = _validated(pb32, _state_from_kernel_out(out, pbs.batch),

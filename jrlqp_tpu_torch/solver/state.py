@@ -5,7 +5,10 @@ Active-set representation of the J/R engine (the reference's dual view,
 ref: internal/ActiveSet.h): ``status`` is the (m+n) ActivationStatus of
 every constraint (general constraints first, then variable bounds);
 ``aorder`` the active constraints in activation order (-1 beyond q), and
-the condensed multipliers ``u`` are stored in the same order.
+the condensed multipliers ``u`` are stored in the same order. The
+explicit-form engine's :class:`FastState` (``solver/fast.py`` and the
+kernels K11 and K12, which write it) holds the operators H and N* in place
+of J and R, and the init's hscale.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from ..types import RUNNING
 
-__all__ = ["GIState", "GIResult", "initial_state"]
+__all__ = ["GIState", "FastState", "GIResult", "initial_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +39,27 @@ class GIState:
     skip1: torch.Tensor      # (B,) bool: skip the selection (partial step)
     sc_idx: torch.Tensor     # (B,) int32 selected constraint
     sc_status: torch.Tensor  # (B,) int32 its ActivationStatus
+
+
+@dataclasses.dataclass(frozen=True)
+class FastState:
+    """Batched state of the explicit-form engine
+    (``jrlqp_tpu.solver.fast.FastState`` with a leading batch dimension)."""
+
+    x: torch.Tensor        # (B, n)
+    f: torch.Tensor        # (B,)
+    H: torch.Tensor        # (B, n, n) reduced inverse Hessian
+    Ns: torch.Tensor       # (B, n, n) row k = N* row of active slot k
+    status: torch.Tensor   # (B, m+n) int32
+    aorder: torch.Tensor   # (B, n) int32, -1 marks a free slot
+    u: torch.Tensor        # (B, n+1) multipliers by slot
+    q: torch.Tensor        # (B,) int32
+    it: torch.Tensor       # (B,) int32
+    term: torch.Tensor     # (B,) int32
+    skip1: torch.Tensor    # (B,) bool
+    sc_idx: torch.Tensor   # (B,) int32
+    sc_status: torch.Tensor  # (B,) int32
+    hscale: torch.Tensor   # (B,) trace(G^-1) at init
 
 
 def initial_state(B: int, n: int, m: int, dtype, device) -> GIState:

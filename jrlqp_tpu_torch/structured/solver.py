@@ -43,7 +43,6 @@ from ..ops.cuda.block_llt import (
     tri_block_llt,
     tri_block_solve,
 )
-from ..ops.cuda.carry_init import carry_init
 from ..ops.cuda.struct_refine import struct_gmul, struct_update
 from ..ops.linalg import tri_solve_masked
 from ..problems import QPProblem
@@ -51,6 +50,8 @@ from ..solver import dense
 from ..solver.fast import (
     WarmCarry,
     _bmv,
+    _f32,
+    _init_carry,
     _init_fast_from_ops,
     _refine_batch,
     _run_loop,
@@ -221,12 +222,10 @@ def _check_backend(backend):
 
 
 def _problems(sgs, a, scs, l, u, xl, xu, opt):
-    """(pbs, pb32, opt32): the dense batch in its dtype and in f32, in a
-    span ``jrlqp.prepare``."""
-    with spans.span("jrlqp.prepare", a):
-        pbs = structured_qp_problem(sgs, a, scs, l, u, xl, xu)
-        return (pbs, pbs.with_dtype(torch.float32),
-                opt.with_(dtype=torch.float32, zero_z_threshold=1e-6))
+    """(pbs, pb32, opt32): the dense batch in its dtype and in f32, and the
+    f32 loop's options, its assembly inside the span ``jrlqp.prepare``."""
+    return _f32(lambda: structured_qp_problem(sgs, a, scs, l, u, xl, xu),
+                opt, a)
 
 
 def _solve_structured_states(sgs, a, scs, l, u, xl, xu, opt, backend):
@@ -353,7 +352,7 @@ def solve_structured_fast_carry(
     cold as :func:`solve_structured_fast_batch`. A carry from the previous
     step, whose G and C must be this step's (only a and the bounds drift),
     starts the loop from its operators: no factorization; on a card one
-    launch of K12 for the carry init (``ops/cuda/carry_init.py``, which
+    launch of K12 for the carry init (``fast._init_carry``, which
     drops every negative multiplier, where the JAX init keeps those in
     [-1e-5, 0)) and one of K11, with no host read. With ``opt.validate`` a
     warm step also ends lanes with inconsistent data INCONSISTENT_INPUT."""
@@ -365,7 +364,7 @@ def solve_structured_fast_carry(
             _check_backend(backend)
             pbs, pb32, opt32 = _problems(sgs, a, scs, l, u, xl, xu, opt)
             with spans.span("jrlqp.init", a):
-                state0 = _validated(pb32, carry_init(
+                state0 = _validated(pb32, _init_carry(
                     pb32, carry.H, carry.Ns, carry.status, carry.aorder,
                     carry.q), opt)
             states = _run_loop(pb32, state0, opt32)

@@ -13,7 +13,6 @@ import functools
 
 import torch
 
-from ..ops.cuda import fast_loop
 from ..solver import fast
 from ..types import (
     EQUALITY,
@@ -208,7 +207,7 @@ def first_partings(pb, st0: fast.FastState, opt, lanes) -> dict:
         # each lane stops at its own cap: it starts caps below the top
         off = (top - caps).to(s0.it.dtype)
         s1 = dataclasses.replace(s0, it=s0.it + off)
-        a = fast_loop.fast_loop(sub, s1, opt)
+        a = fast._run_loop(sub, s1, opt)
         b = fast.fast_loop_plain(sub, s1, opt)
         same = same_lanes(a, b) & (a.aorder == b.aorder).all(dim=1)
         return same, a, b
@@ -234,8 +233,9 @@ def first_partings(pb, st0: fast.FastState, opt, lanes) -> dict:
 
 
 def against_plain(pb, st0: fast.FastState, opt) -> dict:
-    """K11 (one launch) and the plain version from ``st0``: ``k11`` and
-    ``plain`` (the final states), ``same`` (:func:`same_lanes`),
+    """K11 (one launch of ``fast._run_loop`` on a card) and the plain
+    version from ``st0``: ``k11`` and ``plain`` (the final states), ``same``
+    (:func:`same_lanes`),
     ``partings`` ({lane: {"iteration", "near_ties", "plain", "k11",
     "outcome"}} for every lane that parts: its first parting iteration and
     both sides' margins there from :func:`first_partings`, the tests that
@@ -246,7 +246,7 @@ def against_plain(pb, st0: fast.FastState, opt) -> dict:
     none, and a near-vertex active set amplifies the operators' rounding)
     and ``rel_x_err`` / ``abs_x_err`` (the largest |x - x_plain| over
     them, over max(1, |x_plain|) or not)."""
-    got = fast_loop.fast_loop(pb, st0, opt)
+    got = fast._run_loop(pb, st0, opt)
     want = fast.fast_loop_plain(pb, st0, opt)
     same = same_lanes(got, want)
     parted = torch.nonzero(~same)[:, 0].tolist()

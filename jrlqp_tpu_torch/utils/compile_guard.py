@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import contextlib
 
-from ..ops.cuda import _build
+from . import spans
 
 __all__ = ["no_retrace"]
 
@@ -29,9 +29,10 @@ def no_retrace():
 
     Raises AssertionError if the library was built or loaded inside it.
     """
-    before = _build.loads
+    before = spans.counter("library.load")
     yield
-    if _build.loads != before:
+    after = spans.counter("library.load")
+    if after != before:
         raise AssertionError(
             f"the CUDA library was built or loaded inside a no_retrace "
-            f"block: loads {before} -> {_build.loads}")
+            f"block: loads {before} -> {after}")

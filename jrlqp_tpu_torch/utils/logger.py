@@ -140,8 +140,7 @@ def capture_kernel_trajectory(pbs: QPProblem,
     reached: n_iters launches, O(n_iters^2) iterations, for inspecting one
     problem, not for production. Returns a dict of (n_iters, B, ...)
     tensors: x, u, q, it, term. A CPU batch runs K9's plain version."""
-    pb32 = pbs.with_dtype(torch.float32)
-    opt32 = opt.with_(dtype=torch.float32, zero_z_threshold=1e-6)
+    _, pb32, opt32 = fast._f32(pbs, opt, pbs.G)
     state0 = fast._init_fast(pb32, opt32)
     keys = ("x", "u", "q", "it", "term")
     rows = {k: [] for k in keys}

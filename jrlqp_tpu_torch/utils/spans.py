@@ -39,9 +39,9 @@ CPU), read once the events have completed.
 
 **Counters** are always on: :func:`count` adds to a named count under one
 lock, :func:`counts` reads them, :func:`reset` sets them back. The
-kernels' wrappers count ``launch.K1`` ... ``launch.K11`` and
+kernels' wrappers count ``launch.K1`` ... ``launch.K14`` and
 ``launch.chol_inv_b``; ``ops/cuda/_build`` counts ``library.load``. A
-module keeps its counters' old names readable through :func:`kept_names`.
+counter is read by its name alone: ``counter("launch.K1")``.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ from torch.autograd import profiler as _profiler
 
 __all__ = ["span", "call", "sync", "current", "recording", "calls",
            "recorded", "clear", "count", "counter", "counts", "reset",
-           "kept_names", "Span", "CALL", "CALLS_KEPT"]
+           "Span", "CALL", "CALLS_KEPT"]
 
 CALL = "jrlqp.call"
 SYNC = "jrlqp.sync."
@@ -299,20 +299,6 @@ def reset(prefix: str = "") -> None:
     with _lock:
         for k in [k for k in _counts if _under(k, prefix)]:
             del _counts[k]
-
-
-def kept_names(module: str, names: dict):
-    """A module ``__getattr__`` that reads the counters under the module's
-    names of old: ``names`` maps a name of ``module`` to its counter, so
-    that ``gi_kernel.launches`` reads ``launch.K1``. Set a counter back
-    with :func:`reset`: an assignment to the old name only hides it."""
-    def __getattr__(name):
-        key = names.get(name)
-        if key is None:
-            raise AttributeError(f"module {module!r} has no attribute "
-                                 f"{name!r}")
-        return counter(key)
-    return __getattr__
 
 
 def _under(name: str, prefix: str) -> bool:

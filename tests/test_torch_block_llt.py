@@ -8,6 +8,7 @@ import torch
 
 from jrlqp_tpu.ops.pallas.block_llt import _chol_b, _tri_inv_b
 from jrlqp_tpu_torch.ops.cuda import block_llt
+from jrlqp_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 
@@ -59,7 +60,7 @@ def test_chol_inv_b_on_cpu_is_the_plain_version():
     assert torch.equal(L, Lp)
     assert torch.equal(Li, block_llt.tri_inv_b_plain(Lp))
     assert torch.equal(pd, block_llt.posdef_plain(Lp))
-    assert block_llt.launches == 0
+    assert spans.counter("launch.chol_inv_b") == 0
 
 
 def test_plain_clamps_instead_of_raising():

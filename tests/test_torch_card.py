@@ -50,10 +50,8 @@ from jrlqp_tpu_torch import (
 from jrlqp_tpu_torch.bench import bench_warm_start_trajectory, time_batch
 from jrlqp_tpu_torch.ops.cuda import (
     block_llt,
-    carry_init,
     fast_loop,
     gi_kernel,
-    jr_kernel,
     struct_refine,
 )
 from jrlqp_tpu_torch.parallel import make_mesh, shard_batch, solve_sharded
@@ -167,10 +165,10 @@ def test_chol_inv_b_kernel_matches_plain(cuda_device, n, s):
     A[:, :n, :n] = d["G"]
     A[1, n - 1, n - 1] = -1.0                 # one non-SPD block
     A = torch.from_numpy(A.astype(np.float32)).to(cuda_device)
-    before = block_llt.launches
+    before = spans.counter("launch.chol_inv_b")
     L, Li, pd = block_llt.chol_inv_b(A)
     torch.cuda.synchronize()
-    assert block_llt.launches == before + 1
+    assert spans.counter("launch.chol_inv_b") == before + 1
     Lp = block_llt.chol_b_plain(A)
     Lip = block_llt.tri_inv_b_plain(Lp)
     assert torch.equal(pd, block_llt.posdef_plain(Lp)) and not bool(pd[1])
@@ -264,10 +262,10 @@ def _f32_problem(d, device):
 def test_gi_fused_kernel_matches_plain(cuda_device, name):
     d, max_iter = make_case(name)
     pb = _f32_problem(d, cuda_device)
-    before = gi_kernel.launches
+    before = spans.counter("launch.K1")
     ours = gi_kernel.run_loop_fused(pb, max_iter)
     torch.cuda.synchronize()
-    assert gi_kernel.launches == before + 1
+    assert spans.counter("launch.K1") == before + 1
     _assert_kernel_matches_plain(ours, gi_kernel.gi_fused_plain(pb, max_iter))
 
 
@@ -306,10 +304,10 @@ def test_gi_loop_kernel_matches_plain(cuda_device, name):
     opt32 = SolverOptions(max_iter=max_iter, warm_start=True).with_(
         dtype=torch.float32, zero_z_threshold=1e-6)
     state0 = fast._init_fast_warm(pb, hints, opt32)
-    before = gi_kernel.loop_launches
+    before = spans.counter("launch.K3")
     ours = gi_kernel.run_loop(pb, state0, max_iter)
     torch.cuda.synchronize()
-    assert gi_kernel.loop_launches == before + 1
+    assert spans.counter("launch.K3") == before + 1
     _assert_kernel_matches_plain(
         ours, gi_kernel.gi_loop_plain(pb, state0, max_iter))
 
@@ -325,10 +323,10 @@ def test_gi_warm_kernel_matches_plain(cuda_device, name, scale):
         SolverOptions(max_iter=max_iter))
     pb = _f32_problem(drifted(d, scale, 7), cuda_device)
     co = (carry.H, carry.Ns, carry.status, carry.aorder, carry.q)
-    before = gi_kernel.warm_launches
+    before = spans.counter("launch.K4")
     ours = gi_kernel.run_warm_loop(pb, *co, max_iter)
     torch.cuda.synchronize()
-    assert gi_kernel.warm_launches == before + 1
+    assert spans.counter("launch.K4") == before + 1
     _assert_kernel_matches_plain(
         ours, gi_kernel.gi_warm_plain(pb, *co, max_iter))
 
@@ -386,8 +384,8 @@ def struct_kernel_pairs(kind, diag, off):
 
 
 def _struct_counts():
-    return (block_llt.tri_llt_launches, block_llt.tri_solve_launches,
-            block_llt.arrow_llt_launches, block_llt.arrow_solve_launches)
+    return (spans.counter("launch.K5"), spans.counter("launch.K6"),
+            spans.counter("launch.K7"), spans.counter("launch.K8"))
 
 
 @pytest.mark.cuda
@@ -434,10 +432,10 @@ def test_tri_llt_kernel_is_order_exact(cuda_device, B, nb, s):
     # K5's L_diag, L_off and Linv_diag bit for bit against the same sums in
     # the same order on the CPU
     diag, off = _factor_inputs(B, nb, s)
-    before = block_llt.tri_llt_launches
+    before = spans.counter("launch.K5")
     ours = block_llt.tri_block_llt(diag.to(cuda_device), off.to(cuda_device))
     torch.cuda.synchronize()
-    assert block_llt.tri_llt_launches == before + 1
+    assert spans.counter("launch.K5") == before + 1
     ref = order_exact.k5_order_exact(diag, off)
     assert not bool(block_llt.posdef_plain(ref[0][1, -1:]).any())
     for name, o, r in zip(("L_diag", "L_off", "Linv_diag"), ours, ref):
@@ -452,11 +450,11 @@ def test_arrow_llt_kernel_is_order_exact(cuda_device, B, nb, s, up):
     # K7's outputs bit for bit against the same sums in the same order: the
     # heads, then the Schur sum head by head in order
     diag, off = _factor_inputs(B, nb, s)
-    before = block_llt.arrow_llt_launches
+    before = spans.counter("launch.K7")
     ours = block_llt.block_arrow_llt(diag.to(cuda_device),
                                      off.to(cuda_device), up=up)
     torch.cuda.synchronize()
-    assert block_llt.arrow_llt_launches == before + 1
+    assert spans.counter("launch.K7") == before + 1
     ref = order_exact.k7_order_exact(diag, off, up=up)
     for name, o, r in zip(("L_diag", "L_side", "Linv_diag"), ours, ref):
         assert o.shape == r.shape, name
@@ -490,8 +488,8 @@ def test_structured_launch_counts_and_cpu_parity(cuda_device, gtype):
     d = ik_batch(6, nb=3, s=8, mc=2, seed=5)
     opt = SolverOptions(max_iter=200)
     before = _struct_counts()
-    gi_before = (gi_kernel.launches, gi_kernel.loop_launches,
-                 gi_kernel.warm_launches)
+    gi_before = (spans.counter("launch.K1"), spans.counter("launch.K3"),
+                 spans.counter("launch.K4"))
     res, carry = solve_structured_fast_carry(
         *_ik_problem(d, gtype, cuda_device), None, opt=opt)
     torch.cuda.synchronize()
@@ -509,8 +507,8 @@ def test_structured_launch_counts_and_cpu_parity(cuda_device, gtype):
     res_w, _ = solve_structured_fast_carry(*step, carry, opt=opt)
     torch.cuda.synchronize()
     assert _struct_counts() == before
-    assert (gi_kernel.launches, gi_kernel.loop_launches,
-            gi_kernel.warm_launches) == gi_before
+    assert (spans.counter("launch.K1"), spans.counter("launch.K3"),
+            spans.counter("launch.K4")) == gi_before
     assert bool((res_w.status == 0).all())
     resid = kkt_residual(res_w.x, res_w.multipliers,
                          structured_qp_problem(*step))
@@ -539,10 +537,10 @@ def test_gi_compact_kernel_matches_plain(cuda_device, name):
     d, max_iter = make_case(name)
     pb = _f32_problem(d, cuda_device)
     state0 = fast._init_fast(pb, _opt32(max_iter))
-    before = gi_kernel.compact_launches
+    before = spans.counter("launch.K9")
     ours = gi_kernel.run_loop_compact(pb, state0, max_iter)
     torch.cuda.synchronize()
-    assert gi_kernel.compact_launches == before + 1
+    assert spans.counter("launch.K9") == before + 1
     _assert_kernel_matches_plain(
         ours, gi_kernel.gi_compact_plain(pb, state0, max_iter))
 
@@ -555,10 +553,10 @@ def test_gi_compact_kernel_matches_plain_sized(cuda_device, n, m):
     d = np_qp_batch(n + m, 64, n, m, 0.3)
     pb = _f32_problem(d, cuda_device)
     state0 = fast._init_fast(pb, _opt32(150))
-    before = gi_kernel.compact_launches
+    before = spans.counter("launch.K9")
     ours = gi_kernel.run_loop_compact(pb, state0, 150)
     torch.cuda.synchronize()
-    assert gi_kernel.compact_launches == before + 1
+    assert spans.counter("launch.K9") == before + 1
     _assert_close_scaled(ours, gi_kernel.gi_compact_plain(pb, state0, 150))
     for cap in range(2, 100):     # the first cap that leaves a lane pending
         capped = fast._state_from_kernel_out(
@@ -586,11 +584,11 @@ def test_gi_kernels_match_plain_ragged(cuda_device, kernel, n, m):
     max_iter = 300
     pb = _f32_problem(d, cuda_device)
     if kernel == "K1":
-        args, count = (pb, max_iter), "launches"
+        args, count = (pb, max_iter), "launch.K1"
         run, plain = gi_kernel.run_loop_fused, gi_kernel.gi_fused_plain
     elif kernel == "K9":
         args = (pb, fast._init_fast(pb, _opt32(max_iter)), max_iter)
-        count = "compact_launches"
+        count = "launch.K9"
         run, plain = gi_kernel.run_loop_compact, gi_kernel.gi_compact_plain
     elif kernel == "K3":
         cold = fast.solve_refined_kernel(
@@ -601,7 +599,7 @@ def test_gi_kernels_match_plain_ragged(cuda_device, kernel, n, m):
         opt32 = SolverOptions(max_iter=max_iter, warm_start=True).with_(
             dtype=torch.float32, zero_z_threshold=1e-6)
         args = (pb, fast._init_fast_warm(pb, hints, opt32), max_iter)
-        count = "loop_launches"
+        count = "launch.K3"
         run, plain = gi_kernel.run_loop, gi_kernel.gi_loop_plain
     else:
         _, carry = fast.solve_refined_kernel_carry(
@@ -610,12 +608,12 @@ def test_gi_kernels_match_plain_ragged(cuda_device, kernel, n, m):
         pb = _f32_problem(drifted(d, 0.02, 7), cuda_device)
         args = (pb, carry.H, carry.Ns, carry.status, carry.aorder, carry.q,
                 max_iter)
-        count = "warm_launches"
+        count = "launch.K4"
         run, plain = gi_kernel.run_warm_loop, gi_kernel.gi_warm_plain
-    before = getattr(gi_kernel, count)
+    before = spans.counter(count)
     ours = run(*args)
     torch.cuda.synchronize()
-    assert getattr(gi_kernel, count) == before + 1
+    assert spans.counter(count) == before + 1
     _assert_close_scaled(ours, plain(*args))
 
 
@@ -624,11 +622,11 @@ def _warm_kernel_and_plain(pb, carry, max_iter):
     kernels' own layout; K4 launches once."""
     ins, (n, m) = gi_kernel.prepare_warm_carry(pb, carry.raw, carry.q,
                                                carry.reset, carry.first)
-    before = gi_kernel.warm_launches
+    before = spans.counter("launch.K4")
     ours = gi_kernel.postprocess(
         gi_kernel._gi_warm_cuda_raw(*ins, n, m, max_iter), n, m)
     torch.cuda.synchronize()
-    assert gi_kernel.warm_launches == before + 1
+    assert spans.counter("launch.K4") == before + 1
     return ours, gi_kernel.postprocess(
         gi_kernel._gi_warm_plain_raw(*ins, n, m, max_iter), n, m)
 
@@ -775,11 +773,11 @@ def test_tri_solve_at_the_ik_shape_matches_plain(cuda_device, kind,
                        cuda_device)
         if kind == "tail":
             r[:, :-1] = 0.0
-    before = block_llt.tri_solve_launches
+    before = spans.counter("launch.K6")
     y = block_llt.tri_block_solve(Lo, Li, r, lower_only)
     ref = block_llt.tri_block_solve_plain(Lo, Li, r, lower_only)
     torch.cuda.synchronize()
-    assert block_llt.tri_solve_launches == before + 1
+    assert spans.counter("launch.K6") == before + 1
     assert y.shape == (B, nb, s, n) and bool(torch.isfinite(y).all())
     assert struct_err(y, ref) <= 1e-5
     if kind == "shared_identity":
@@ -878,8 +876,8 @@ def test_missed_lane_on_card(cuda_device, which, lane, check):
 
 
 def _launches():
-    return (gi_kernel.launches, gi_kernel.loop_launches,
-            gi_kernel.warm_launches, gi_kernel.compact_launches)
+    return (spans.counter("launch.K1"), spans.counter("launch.K3"),
+            spans.counter("launch.K4"), spans.counter("launch.K9"))
 
 
 def _assert_same_result(res, ref, x_tol=1e-7):
@@ -907,11 +905,11 @@ def test_capture_kernel_trajectory_launches_k9_per_cap(cuda_device):
     d, _ = make_case("n8_m12")
     one = {k: v[:1] for k, v in d.items()}
     opt = SolverOptions(max_iter=30)
-    before = gi_kernel.compact_launches
+    before = spans.counter("launch.K9")
     traj = capture_kernel_trajectory(
         problem_from_numpy(**one, device=cuda_device), opt, n_iters=6)
     torch.cuda.synchronize()
-    assert gi_kernel.compact_launches == before + 6
+    assert spans.counter("launch.K9") == before + 6
     ref = capture_kernel_trajectory(problem_from_numpy(**one, device="cpu"),
                                     opt, n_iters=6)
     for k in ("q", "it", "term"):
@@ -1077,7 +1075,7 @@ def test_first_use_from_four_threads_loads_the_kernels_once(cuda_device):
         "from concurrent.futures import ThreadPoolExecutor\n"
         "import torch\n"
         "from jrlqp_tpu_torch import SolverOptions, solve_refined_kernel\n"
-        "from jrlqp_tpu_torch.ops.cuda import _build, gi_kernel\n"
+        "from jrlqp_tpu_torch.utils import spans\n"
         "from jrlqp_tpu_torch.testing.batch_gen import random_qp_batch\n"
         "dev = torch.device('cuda', 0)\n"
         "gen = torch.Generator(device=dev).manual_seed(0)\n"
@@ -1089,7 +1087,7 @@ def test_first_use_from_four_threads_loads_the_kernels_once(cuda_device):
         "                      range(4)))\n"
         "torch.cuda.synchronize()\n"
         "assert all(torch.equal(r.x, res[0].x) for r in res)\n"
-        "print(_build.loads, gi_kernel.launches)\n")
+        "print(spans.counter('library.load'), spans.counter('launch.K1'))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600,
                          cwd=pathlib.Path(__file__).resolve().parents[1])
@@ -1222,10 +1220,10 @@ def test_gi_loop_kernel_at_the_largest_corpus_bucket(cuda_device):
     assert lib.jrlqp_gi_smem_bytes(136, 128) <= gi_kernel._SMEM_LIMIT
     pb = np_large_bucket(8, 64).to(cuda_device).with_dtype(torch.float32)
     state0 = fast._init_fast(pb, _opt32(400))
-    before = gi_kernel.loop_launches
+    before = spans.counter("launch.K3")
     ours = gi_kernel.run_loop(pb, state0, 400)
     torch.cuda.synchronize()
-    assert gi_kernel.loop_launches == before + 1
+    assert spans.counter("launch.K3") == before + 1
     ref = gi_kernel.gi_loop_plain(pb, state0, 400)
     _assert_close_scaled(ours, ref)
     assert bool((ours["term"] == 0).all())
@@ -1291,10 +1289,10 @@ def test_gi_fused_kernel_at_the_size_sweep_top(cuda_device):
     assert gi_kernel.residency("jrlqp_gi_fused", 100, 200)[1] >= 1
     B = 256
     pb = _f32_problem(np_qp_batch(100, B, 100, 200, 0.3), cuda_device)
-    before = gi_kernel.launches
+    before = spans.counter("launch.K1")
     ours = gi_kernel.run_loop_fused(pb, 500)
     torch.cuda.synchronize()
-    assert gi_kernel.launches == before + 1
+    assert spans.counter("launch.K1") == before + 1
     ref = gi_kernel.gi_fused_plain(pb, 500)
     for k in ("term", "it", "q", "status"):
         assert torch.equal(ours[k], ref[k]), k
@@ -1325,18 +1323,17 @@ def test_compacted_solve_matches_one_k3_launch(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("solver,count", [("pallas", "launches"),
-                                          ("pallas_rescued",
-                                           "loop_launches")])
+@pytest.mark.parametrize("solver,count", [("pallas", "launch.K1"),
+                                          ("pallas_rescued", "launch.K3")])
 def test_time_batch_pallas_rows_launch_their_kernel(cuda_device, solver,
                                                     count):
     # a warm-up call and n_rep timed calls, each one launch of the kernel
     pb = problem_from_numpy(**np_qp_batch(7, 256, 20, 40, 0.3),
                             device=cuda_device)
-    before = getattr(gi_kernel, count)
+    before = spans.counter(count)
     row = time_batch("t", pb, SolverOptions(max_iter=150), solver=solver,
                      n_rep=2)
-    assert getattr(gi_kernel, count) == before + 3
+    assert spans.counter(count) == before + 3
     assert row.kkt_pass_rate >= 0.99 and row.max_kkt_residual <= 1e-8
     assert row.wall_s > 0
 
@@ -1432,7 +1429,7 @@ def _parting(pb, st0, opt, lane):
 
     def at(cap):
         o = opt.with_(max_iter=cap)
-        a, b = jr_kernel.jr_loop(one, s1, o), dense.jr_loop_plain(one, s1, o)
+        a, b = dense.run_loop(one, s1, o), dense.jr_loop_plain(one, s1, o)
         return (bool(_same_lanes(a, b).all()) and torch.equal(a.q, b.q)
                 and torch.equal(a.aorder, b.aorder)), b
 
@@ -1460,10 +1457,10 @@ def test_jr_loop_kernel_matches_plain(cuda_device, n, m, dtype):
     for opt in (_jr_opt(dtype, max_iter=4 * n + m),
                 _jr_opt(dtype, max_iter=5)):
         st0 = dense.init_state(pb, opt)
-        before = jr_kernel.launches
-        got = jr_kernel.jr_loop(pb, st0, opt)
+        before = spans.counter("launch.K10")
+        got = dense.run_loop(pb, st0, opt)
         torch.cuda.synchronize()
-        assert jr_kernel.launches == before + 1
+        assert spans.counter("launch.K10") == before + 1
         want = dense.jr_loop_plain(pb, st0, opt)
         same = _same_lanes(got, want)
         parting = torch.nonzero(~same)[:, 0].tolist()
@@ -1499,13 +1496,13 @@ def test_jr_loop_kernel_lane_alone_equals_its_batch(cuda_device):
                             device=cuda_device)
     opt = SolverOptions(max_iter=150)
     st0 = dense.init_state(pb, opt)
-    out = jr_kernel.jr_loop(pb, st0, opt)
+    out = dense.run_loop(pb, st0, opt)
     rev = torch.arange(99, -1, -1, device=cuda_device)
-    out_rev = jr_kernel.jr_loop(pb._map(lambda t: t[rev]), dataclasses.replace(
+    out_rev = dense.run_loop(pb._map(lambda t: t[rev]), dataclasses.replace(
         st0, **{f.name: getattr(st0, f.name)[rev]
                 for f in dataclasses.fields(st0)}), opt)
     for i in (0, 1, 57, 511, 1023):
-        alone = jr_kernel.jr_loop(
+        alone = dense.run_loop(
             pb._map(lambda t: t[i:i + 1]), dataclasses.replace(
                 st0, **{f.name: getattr(st0, f.name)[i:i + 1]
                         for f in dataclasses.fields(st0)}), opt)
@@ -1524,18 +1521,19 @@ def test_solve_batch_launches_k10_once(cuda_device):
     d, max_iter = make_case("eq_fixed")
     opt = SolverOptions(max_iter=max_iter)
     pb = problem_from_numpy(**d, device=cuda_device)
-    before, k10 = _launches(), jr_kernel.launches
+    before, k10 = _launches(), spans.counter("launch.K10")
     res = solve_batch(pb, opt)
     torch.cuda.synchronize()
-    assert jr_kernel.launches == k10 + 1 and _launches() == before
+    assert spans.counter("launch.K10") == k10 + 1 and _launches() == before
     _assert_same_result(res, solve_batch(problem_from_numpy(**d,
                                                             device="cpu"),
                                          opt), x_tol=1e-10)
     empty = solve_batch(pb._map(lambda t: t[:0]), opt)
-    assert empty.x.shape == (0, pb.n) and jr_kernel.launches == k10 + 1
+    assert empty.x.shape == (0, pb.n)
+    assert spans.counter("launch.K10") == k10 + 1
     dense.run_loop(pb, dense.init_state(pb, opt), opt,
                    on_pass=lambda a, b: None)
-    assert jr_kernel.launches == k10 + 1
+    assert spans.counter("launch.K10") == k10 + 1
 
 
 @pytest.mark.cuda
@@ -1587,11 +1585,11 @@ def _fast_against_plain(pb, st0, opt, label, x_tol, max_parted=0,
     lanes)."""
     keep = {f.name: getattr(st0, f.name).clone()
             for f in dataclasses.fields(st0)}
-    before = fast_loop.launches
+    before = spans.counter("launch.K11")
     cmp = fast_parting.against_plain(pb, st0, opt)
     torch.cuda.synchronize()
     # the comparison's own bisection launches K11 once per step
-    assert fast_loop.launches > before
+    assert spans.counter("launch.K11") > before
     for k, v in keep.items():
         assert torch.equal(getattr(st0, k), v), f"the input's {k} changed"
     got, want, same = cmp["k11"], cmp["plain"], cmp["same"]
@@ -1755,10 +1753,10 @@ def test_fast_loop_kernel_from_warm_hints(cuda_device, dtype):
                         >= st0.q[:, None].long()] == 0).all())
     _fast_against_plain(pb, st0, opt, f"warm hints {dtype}",
                         _fast_tol(dtype))
-    k11 = fast_loop.launches
+    k11 = spans.counter("launch.K11")
     fast.solve_fast_warm(pb, hints, opt)
     torch.cuda.synchronize()
-    assert fast_loop.launches == k11 + 1
+    assert spans.counter("launch.K11") == k11 + 1
 
 
 def _lanes_of(st, idx):
@@ -1782,12 +1780,12 @@ def test_fast_loop_kernel_lane_alone_equals_its_batch(cuda_device, shape):
         pb, opt, st0 = _ik_state(ik_batch(64, seed=8), cuda_device)
         lanes = (0, 5, 63)
     B = pb.batch
-    out = fast_loop.fast_loop(pb, st0, opt)
+    out = fast._run_loop(pb, st0, opt)
     rev = torch.arange(B - 1, -1, -1, device=cuda_device)
-    out_rev = fast_loop.fast_loop(pb._map(lambda t: t[rev]),
+    out_rev = fast._run_loop(pb._map(lambda t: t[rev]),
                                   _lanes_of(st0, rev), opt)
     for i in lanes:
-        alone = fast_loop.fast_loop(pb._map(lambda t: t[i:i + 1]),
+        alone = fast._run_loop(pb._map(lambda t: t[i:i + 1]),
                                     _lanes_of(st0, slice(i, i + 1)), opt)
         for f in dataclasses.fields(out):
             assert torch.equal(getattr(alone, f.name)[0],
@@ -1806,32 +1804,32 @@ def test_fast_paths_launch_k11_once(cuda_device):
     opt = SolverOptions(max_iter=max_iter)
     pb = problem_from_numpy(**d, device=cuda_device)
     for solve in (fast.solve_refined, fast.solve_fast):
-        before, k11 = _launches(), fast_loop.launches
+        before, k11 = _launches(), spans.counter("launch.K11")
         res = solve(pb, opt)
         torch.cuda.synchronize()
-        assert fast_loop.launches == k11 + 1 and _launches() == before
+        assert spans.counter("launch.K11") == k11 + 1 and _launches() == before
         _assert_same_result(res, solve(problem_from_numpy(**d, device="cpu"),
                                        opt), x_tol=1e-10)
-    k11 = fast_loop.launches
+    k11 = spans.counter("launch.K11")
     empty = fast.solve_refined(pb._map(lambda t: t[:0]), opt)
-    assert empty.x.shape == (0, pb.n) and fast_loop.launches == k11
+    assert empty.x.shape == (0, pb.n) and spans.counter("launch.K11") == k11
     st0 = fast._init_fast(pb, opt)
     fast._run_loop(pb, st0, opt, on_pass=lambda a, b: None)
-    assert fast_loop.launches == k11
+    assert spans.counter("launch.K11") == k11
     k = ik_batch(4, nb=3, s=8, mc=2, seed=3)
-    struct, k11 = _struct_counts(), fast_loop.launches
+    struct, k11 = _struct_counts(), spans.counter("launch.K11")
     res, carry = solve_structured_fast_carry(
         *_ik_problem(k, GType.TRI_BLOCK_DIAGONAL, cuda_device), None,
         opt=SolverOptions(max_iter=200))
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_struct_counts(), struct)] == [1, 1, 0, 0]
-    assert fast_loop.launches == k11 + 1
+    assert spans.counter("launch.K11") == k11 + 1
     step = ik_step(k, 0.02, np.random.default_rng(1))
     solve_structured_fast_carry(
         *_ik_problem(step, GType.TRI_BLOCK_DIAGONAL, cuda_device), carry,
         opt=SolverOptions(max_iter=200))
     torch.cuda.synchronize()
-    assert fast_loop.launches == k11 + 2
+    assert spans.counter("launch.K11") == k11 + 2
 
 
 @pytest.mark.cuda
@@ -1976,7 +1974,7 @@ def _k12_against_plain(pb, carry, name):
     1.2e-7, at the IK shape and on the ragged carries). Returns the plain
     state."""
     before = spans.counter("launch.K12")
-    got = carry_init.carry_init(pb, *carry)
+    got = fast._init_carry(pb, *carry)
     torch.cuda.synchronize()
     assert spans.counter("launch.K12") == before + 1, name
     want = fast._init_fast_from_carry(pb, *carry)
@@ -2004,7 +2002,7 @@ def test_carry_init_kernel_matches_plain_at_the_ik_shape(cuda_device):
     # slots
     d = ik_batch(1024, seed=3)
     pb, opt, st0 = _ik_state(d, cuda_device)
-    got = fast_loop.fast_loop(pb, st0, opt)
+    got = fast._run_loop(pb, st0, opt)
     rng = np.random.default_rng(4)
     step, wide = ik_step(d, 0.02, rng), ik_step(d, 0.5, rng)
     for k in ("a", "l", "u"):
@@ -2048,9 +2046,9 @@ def test_carry_init_kernel_takes_float32_only(cuda_device):
                                                SolverOptions(max_iter=100))
     args = (carry.H, carry.Ns, carry.status, carry.aorder, carry.q)
     with pytest.raises(TypeError, match="float32"):
-        carry_init.carry_init(pb, *args)             # a float64 problem
+        fast._init_carry(pb, *args)             # a float64 problem
     with pytest.raises(RuntimeError, match="no kernel"):
-        carry_init.carry_init(pb.with_dtype(torch.float32)._map(
+        fast._init_carry(pb.with_dtype(torch.float32)._map(
             lambda t: t.to("meta")), *(t.to("meta") for t in args))
 
 

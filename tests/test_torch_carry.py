@@ -22,6 +22,7 @@ from jrlqp_tpu_torch import (
 from jrlqp_tpu_torch.ops.cuda import gi_kernel
 from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
+from jrlqp_tpu_torch.utils import spans
 from test_torch_card import drifted, make_case, np_qp_batch
 from test_torch_gi_kernel import jax_problem
 
@@ -153,7 +154,7 @@ def test_loops_on_cpu_are_the_plain_versions():
         assert a.keys() == b.keys()
         for k in a:
             assert torch.equal(a[k], b[k]), k
-    assert (gi_kernel.launches, gi_kernel.loop_launches,
-            gi_kernel.warm_launches) == (0, 0, 0)
+    assert (spans.counter("launch.K1"), spans.counter("launch.K3"),
+            spans.counter("launch.K4")) == (0, 0, 0)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         gi_kernel.run_warm_loop(pb2.to("meta"), *co, max_iter)

@@ -220,9 +220,9 @@ def test_multiple_uses_no_retrace():
 def test_no_retrace_raises_on_a_build():
     from jrlqp_tpu_torch.utils import spans
 
-    # the build counter is bumped in the registry that ``_build.loads``
-    # reads: assigning to ``_build.loads`` would hide the registry from
-    # every later reader in the process
+    # a build bumps the counter ``library.load`` of the registry, which
+    # ``no_retrace`` reads; it is set back afterwards for every later reader
+    # in the process
     try:
         with pytest.raises(AssertionError, match="no_retrace"):
             with no_retrace():

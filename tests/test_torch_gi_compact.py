@@ -26,6 +26,7 @@ from jrlqp_tpu_torch import (
 from jrlqp_tpu_torch.ops.cuda import gi_kernel
 from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.types import MAX_ITER_REACHED, RUNNING
+from jrlqp_tpu_torch.utils import spans
 from test_torch_card import CASES, make_case
 from test_torch_gi_kernel import jax_problem
 
@@ -117,7 +118,7 @@ def test_compact_path_on_cpu_is_the_plain_version():
     b = gi_kernel.gi_compact_plain(pb, st0, max_iter)
     for k in a:
         assert torch.equal(a[k], b[k]), k
-    assert gi_kernel.compact_launches == 0
+    assert spans.counter("launch.K9") == 0
 
 
 @pytest.mark.parametrize("name", ["n8_m12", "vertex_touch"])

@@ -12,6 +12,7 @@ from jrlqp_tpu.ops.pallas.gi_kernel import run_loop_pallas
 from jrlqp_tpu.problems import QPProblem as JQP
 from jrlqp_tpu_torch import problem_from_numpy
 from jrlqp_tpu_torch.ops.cuda import gi_kernel
+from jrlqp_tpu_torch.utils import spans
 from test_torch_card import CASES, make_case, np_qp_batch
 
 torch.set_num_threads(1)
@@ -56,7 +57,7 @@ def test_run_loop_fused_on_cpu_is_the_plain_version():
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
-    assert gi_kernel.launches == 0
+    assert spans.counter("launch.K1") == 0
 
 
 def test_overconstrained_by_equalities():

@@ -19,7 +19,7 @@ from jrlqp_tpu.bench import harness as jh
 from jrlqp_tpu.problems import QPProblem as JProblem
 from jrlqp_tpu_torch import problem_from_numpy
 from jrlqp_tpu_torch.bench import harness as th
-from jrlqp_tpu_torch.ops.cuda import gi_kernel
+from jrlqp_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 
@@ -78,7 +78,7 @@ def same_rows(ours, ref, stats=()):
 
 @pytest.mark.parametrize("solver", SOLVERS)
 def test_time_batch_matches_jax(shared_batches, solver):
-    before = (gi_kernel.launches, gi_kernel.loop_launches)
+    before = (spans.counter("launch.K1"), spans.counter("launch.K3"))
     ours = th.bench_size_sweep(sizes=(6,), batch=8, solver=solver,
                                device="cpu")
     ref = jh.bench_size_sweep(sizes=(6,), batch=8, solver=solver)
@@ -89,7 +89,7 @@ def test_time_batch_matches_jax(shared_batches, solver):
     assert ours[0].us_per_solve == pytest.approx(
         ours[0].wall_s / 8 * 1e6)
     # CPU tensors run the plain versions: no CUDA launch is counted
-    assert (gi_kernel.launches, gi_kernel.loop_launches) == before
+    assert (spans.counter("launch.K1"), spans.counter("launch.K3")) == before
 
 
 def test_active_sweep_matches_jax(shared_batches):

@@ -10,16 +10,17 @@ import torch
 
 from jrlqp_tpu.bench import harness as jh
 from jrlqp_tpu_torch.bench import harness as th
-from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
+from jrlqp_tpu_torch.ops.cuda import block_llt
+from jrlqp_tpu_torch.utils import spans
 from test_torch_harness import same_rows, shared_batches  # noqa: F401
 
 torch.set_num_threads(1)
 
 
 def _launches():
-    return (gi_kernel.launches, gi_kernel.loop_launches,
-            gi_kernel.warm_launches, block_llt.tri_llt_launches,
-            block_llt.tri_solve_launches, block_llt.arrow_llt_launches)
+    return (spans.counter("launch.K1"), spans.counter("launch.K3"),
+            spans.counter("launch.K4"), spans.counter("launch.K5"),
+            spans.counter("launch.K6"), spans.counter("launch.K7"))
 
 
 @pytest.mark.parametrize("solver", ["pallas", "f64"])

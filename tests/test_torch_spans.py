@@ -5,8 +5,8 @@ batch and the IK warm step) give their documented stages, each under the
 root of its call; the host-sync spans of a carry step match its
 deactivation rounds; the spans are ``user_annotation`` events of the
 profiler's trace, nested as the records say; a sharded solve's shards carry
-the caller's call id; the buffer is bounded; and the launch counters of old
-read the one registry."""
+the caller's call id; the buffer is bounded; and the counters lose no
+update across threads."""
 import dataclasses
 import json
 import sys
@@ -18,13 +18,6 @@ import pytest
 import torch
 
 from jrlqp_tpu_torch import SolverOptions, solve_refined_kernel
-from jrlqp_tpu_torch.ops.cuda import (
-    _build,
-    block_llt,
-    fast_loop,
-    gi_kernel,
-    jr_kernel,
-)
 from jrlqp_tpu_torch.parallel import make_mesh, solve_sharded
 from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.structured import (
@@ -50,21 +43,6 @@ STAGES = {
     "ik_cold": ["prepare", "factor", "init", "loop", "refine"],
     "ik_track": ["prepare", "init", "loop", "refine"],
 }
-# the kept names of the launch counters, and their registry names
-KEPT = [(gi_kernel, "launches", "launch.K1"),
-        (gi_kernel, "loop_launches", "launch.K3"),
-        (gi_kernel, "warm_launches", "launch.K4"),
-        (gi_kernel, "compact_launches", "launch.K9"),
-        (block_llt, "launches", "launch.chol_inv_b"),
-        (block_llt, "tri_llt_launches", "launch.K5"),
-        (block_llt, "tri_solve_launches", "launch.K6"),
-        (block_llt, "arrow_llt_launches", "launch.K7"),
-        (block_llt, "arrow_solve_launches", "launch.K8"),
-        (jr_kernel, "launches", "launch.K10"),
-        (fast_loop, "launches", "launch.K11"),
-        (_build, "loads", "library.load")]
-
-
 def _dense():
     gen = torch.Generator().manual_seed(0)
     return random_qp_batch(gen, 4, 6, 12, 0.3, dtype=torch.float32
@@ -313,30 +291,6 @@ def test_the_buffer_keeps_the_last_calls():
     assert [c[0].entry for c in calls] == [
         f"e{i}" for i in range(10, spans.CALLS_KEPT + 10)]
     assert all(c[0].lanes == 3 and c[1].device == t.device for c in calls)
-
-
-def test_launch_counters_read_the_registry_through_their_old_names():
-    saved = spans.counts()
-    try:
-        spans.reset()
-        for k, (_, _, key) in enumerate(KEPT):
-            spans.count(key, k + 1)
-        for k, (mod, name, _) in enumerate(KEPT):
-            assert getattr(mod, name) == k + 1, (mod.__name__, name)
-        spans.reset("launch.K1")
-        assert gi_kernel.launches == 0
-        assert jr_kernel.launches == 10 and fast_loop.launches == 11
-        spans.reset("launch")
-        assert [getattr(m, n) for m, n, _ in KEPT] == [0] * 11 + [12]
-        assert spans.counts("library") == {"library.load": 12}
-    finally:
-        spans.reset()
-        for k, v in saved.items():
-            spans.count(k, v)
-    for mod in {m for m, _, _ in KEPT}:
-        assert not hasattr(mod, "_count_lock"), mod.__name__
-        with pytest.raises(AttributeError):
-            mod.no_such_counter  # noqa: B018
 
 
 def test_counters_lose_no_update_across_threads():

@@ -16,7 +16,6 @@ from jrlqp_tpu.structured import containers as jc
 from jrlqp_tpu.solver import fast as jfast
 from jrlqp_tpu.structured import solver as js
 from jrlqp_tpu_torch import SolverOptions, TerminationStatus
-from jrlqp_tpu_torch.ops.cuda import block_llt, gi_kernel
 from jrlqp_tpu_torch.solver import fast
 from jrlqp_tpu_torch.structured import (
     GType,
@@ -29,6 +28,7 @@ from jrlqp_tpu_torch.structured import (
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch, ik_step
 from jrlqp_tpu_torch.testing.kkt import kkt_residual
 from jrlqp_tpu_torch.types import LOWER, UPPER
+from jrlqp_tpu_torch.utils import spans
 from test_torch_gi_kernel import jax_problem
 from test_torch_structured_loop import carry_band
 
@@ -310,10 +310,10 @@ def test_cpu_batch_launches_no_kernel():
         _, carry = solve_structured_fast_carry(*_args(d, gtype), None)
         solve_structured_fast_carry(
             *_args(ik_step(d, 0.02, np.random.default_rng(2)), gtype), carry)
-    assert (block_llt.tri_llt_launches, block_llt.tri_solve_launches,
-            block_llt.arrow_llt_launches, block_llt.arrow_solve_launches,
-            gi_kernel.launches, gi_kernel.loop_launches,
-            gi_kernel.warm_launches) == (0,) * 7
+    assert (spans.counter("launch.K5"), spans.counter("launch.K6"),
+            spans.counter("launch.K7"), spans.counter("launch.K8"),
+            spans.counter("launch.K1"), spans.counter("launch.K3"),
+            spans.counter("launch.K4")) == (0,) * 7
     with pytest.raises(ValueError, match="backend"):
         solve_structured_fast_batch(*_args(d, 0), backend="xla")
     with pytest.raises(RuntimeError, match="no kernel"):

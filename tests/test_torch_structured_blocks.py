@@ -22,6 +22,7 @@ from jrlqp_tpu_torch.structured import (
     structured_from_numpy,
 )
 from jrlqp_tpu_torch.testing.ik_gen import ik_batch
+from jrlqp_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 
@@ -195,9 +196,9 @@ def test_kernel_wrappers_on_cpu_are_the_plain_versions():
     assert torch.equal(
         block_llt.block_arrow_solve(afac[1], afac[2], eye, up=True),
         block_llt.block_arrow_solve_plain(afac[1], afac[2], eye, up=True))
-    assert (block_llt.tri_llt_launches, block_llt.tri_solve_launches,
-            block_llt.arrow_llt_launches,
-            block_llt.arrow_solve_launches) == (0, 0, 0, 0)
+    assert (spans.counter("launch.K5"), spans.counter("launch.K6"),
+            spans.counter("launch.K7"),
+            spans.counter("launch.K8")) == (0, 0, 0, 0)
 
 
 def test_kernel_wrappers_check_inputs():

@@ -1,5 +1,7 @@
 """The port's foundation: enums, options, the numpy carry-over, the device
-dispatch rule, and its independence from JAX."""
+dispatch rule, its independence from JAX, and the direction of its imports
+from the engines to the kernels."""
+import ast
 import dataclasses
 import io
 import pathlib
@@ -63,6 +65,42 @@ def test_no_jax_import_in_port_sources():
         f"{p.relative_to(PKG)}: {line.strip()}" for p in PKG.rglob("*.py")
         for line in p.read_text().splitlines() if pattern.match(line)
     ]
+    assert offenders == []
+
+
+# the engines that choose between a kernel and its plain version; no module
+# of the kernels layer may import one of them
+ENGINES = ("solver.fast", "solver.dense", "solver.warm_start",
+           "structured.solver")
+OPS_MODULES = sorted(p.relative_to(PKG / "ops").as_posix()
+                     for p in (PKG / "ops").rglob("*.py")
+                     if p.name != "__init__.py")
+
+
+def _imported_modules(path: pathlib.Path) -> set:
+    """Every module an import statement of ``path`` names, at its top or
+    inside a function, relative imports resolved: for ``from a import b``
+    both ``a`` and ``a.b``."""
+    package = path.relative_to(PKG.parent).with_suffix("").parts[:-1]
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level \
+                else ()
+            mod = ".".join(base + ((node.module,) if node.module else ()))
+            names.add(mod)
+            names.update(f"{mod}.{alias.name}" for alias in node.names)
+    return names
+
+
+@pytest.mark.parametrize("module", OPS_MODULES)
+def test_kernels_layer_imports_no_engine(module):
+    engines = tuple(f"{PKG.name}.{e}" for e in ENGINES)
+    offenders = sorted(
+        name for name in _imported_modules(PKG / "ops" / module)
+        if any(name == e or name.startswith(e + ".") for e in engines))
     assert offenders == []
 
 
