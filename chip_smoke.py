@@ -55,7 +55,11 @@ width (9 robots x 43 dof, n=387, m=36):
    that parts printed with its first parting iteration and deciding
    margins, ``testing.fast_parting``), with its device ms, the plain
    version's, its bound, the time of the bytes its design streams, and its
-   launch configuration (threads, shared bytes, blocks per SM, registers);
+   launch configuration (threads, shared bytes, blocks per SM, registers;
+   at the IK width the on-chip instance's: cluster size, shared bytes a
+   block, resident clusters, registers, spills), gated on
+   ``launch.K11.onchip`` counting every IK launch and on the streamed
+   instance's state equal to it bit for bit, with its ms beside;
 10. the IK trajectory: a cold step and 9 warm steps of
    ``solve_structured_fast_carry`` at batch 1024 (10,240 solves; K5 and K6
    on the cold step, K12 once per warm step, K11 once per step, K13 and
@@ -171,9 +175,12 @@ active counts, with triangular factors counted as triangles, by
 ``jr_kernel.jr_bytes``, ``fast_loop.fast_loop_flops``,
 ``fast_loop.fast_loop_bytes``, the phase 4 and 8 blocks and phase 9's
 ``refine_kernels_check``. Phase 9's own K11 line (not the ``kernels`` line) also
-carries ``stream_ms``, a model and not a measurement: the bytes K11's
-design moves (H, N* and G stay in device memory and are streamed every
-iteration, ``fast_loop.fast_loop_stream_bytes``) over 3.35 TB/s.
+carries ``stream_ms``, a model and not a measurement: the bytes the
+streamed design moves (H, N* and G stay in device memory and are streamed
+every iteration, ``fast_loop.fast_loop_stream_bytes``) over 3.35 TB/s; at
+the IK width also ``onchip_model_ms``, the on-chip design's own model (H
+read and written once a lane, N*'s active rows, C and G from L2,
+``fast_loop.fast_loop_onchip_bytes``) over the same rate.
 ``library_ms`` is the time of PyTorch's own calls for the same function
 where there are some: ``torch.linalg.cholesky_ex`` then
 ``torch.linalg.solve_triangular`` on the identity beside K2 (two calls,
@@ -1219,6 +1226,9 @@ def main() -> int:
     torch.cuda.synchronize()
     cold_counts = counts()
     print(f"structured cold batch launches: {cold_counts}")
+    _require(spans.counter("launch.K11.onchip") == 1,
+             "the structured cold batch's K11 launch was not the on-chip "
+             "instance (launch.K11.onchip)")
     # the refinement on the structure: K13 and K14 once to start and once
     # a step
     refine_launches = {"struct_gmul": 1 + IK_IR_STEPS,
@@ -1345,17 +1355,23 @@ def main() -> int:
     def k11_row(name, pb_, st0_, opt_, min_same, x_tol, peak):
         """K11 held to its plain version, its device ms (best of 3) and
         the plain version's (1 run), the bound and the streamed bytes'
-        time."""
+        time; where the on-chip instance runs, the streamed instance held
+        to it bit for bit and its ms beside, the on-chip design's bytes'
+        time, and ``launch.K11.onchip`` engaged on every timed launch."""
         B_, n_ = st0_.x.shape
         m_ = pb_.m
+        dt_ = st0_.x.dtype
         got, share, err, abs_err, partings = k11_against_plain(
             name, pb_, st0_, opt_, min_same, x_tol)
         its = got.it - st0_.it
         isz = st0_.x.element_size()
         bd = _bound(fast_loop.fast_loop_flops(its, st0_.q, got.q, n_, m_),
                     fast_loop.fast_loop_bytes(B_, n_, m_, isz), peak)
-        return {
-            "batch": B_, "n": n_, "m": m_, "dtype": str(st0_.x.dtype),
+        plan = fast_loop.fast_loop_plan(n_, m_, dt_)
+        launches = (spans.counter("launch.K11"),
+                    spans.counter("launch.K11.onchip"))
+        row = {
+            "batch": B_, "n": n_, "m": m_, "dtype": str(dt_),
             "ms": _cuda_ms(lambda: fast._run_loop(pb_, st0_, opt_)),
             "plain_ms": _cuda_ms(lambda: fast.fast_loop_plain(
                 pb_, st0_, opt_), reps=1),
@@ -1366,7 +1382,34 @@ def main() -> int:
             "same_lanes": share, "max_rel_x_err": err,
             "max_abs_x_err": abs_err,
             "partings": {str(k): v for k, v in partings.items()},
-            "config": fast_loop.fast_loop_config(n_, m_, st0_.x.dtype)}
+            "instance": plan["instance"],
+            "config": fast_loop.fast_loop_config(n_, m_, dt_,
+                                                 plan["instance"])}
+        k11_n = spans.counter("launch.K11") - launches[0]
+        onchip_n = spans.counter("launch.K11.onchip") - launches[1]
+        _require(onchip_n == (k11_n if plan["instance"] == "onchip" else 0),
+                 f"{name}: launch.K11.onchip {onchip_n} of {k11_n} launches "
+                 f"of the {plan['instance']} instance")
+        if plan["instance"] == "onchip":
+            dep = fast._dep_eps(dt_)
+
+            def streamed():
+                return fast_loop._launch("jrlqp_fast_loop_f32", pb_, st0_,
+                                         opt_, dep)
+
+            ref = streamed()
+            bad = [f.name for f in dataclasses.fields(got)
+                   if not torch.equal(*(
+                       t.view(torch.int32) if t.dtype == f32 else t
+                       for t in (getattr(got, f.name), getattr(ref, f.name))))]
+            print(f"{name}: the on-chip and streamed instances differ in "
+                  f"{bad}")
+            _require(bad == [], f"{name}: the on-chip instance's state "
+                     f"differs from the streamed one's in {bad}")
+            row["streamed_ms"] = _cuda_ms(streamed)
+            row["onchip_model_ms"] = 1e3 * fast_loop.fast_loop_onchip_bytes(
+                its, st0_.q, got.q, n_, m_, isz, plan["cluster"]) / PEAK_BW
+        return row
 
     sg9, a9, sc9, lo9, up9 = args9
     _, pb32_9, opt32_9 = ssolver._problems(sg9, a9, sc9, lo9, up9, None,

@@ -53,63 +53,19 @@
 // - the elementwise updates round each product and sum apart (no FMA
 //   contraction), as the plain version's tensors do; only the order of the
 //   dot products' sums differs from it.
-#include <climits>
-#include <cmath>
-
-#include "loop_common.cuh"
+//
+// Its on-chip instance, for f32 where a lane's H fits a thread-block
+// cluster's shared memory, is fast_loop_onchip.cuh, compiled in
+// fast_loop_onchip_<NC>.cu; jrlqp_fast_loop_onchip_f32 below picks the
+// source compiled for n.
+#include "fast_loop.cuh"
+#include "fast_loop_onchip.cuh"
 
 namespace {
-
-using namespace jrlqp;
 
 // Blocks per SM that the registers must allow (__launch_bounds__): 8 of
 // 256 threads at n >= 256 (32 registers a thread), 8 of 128 below (64)
 constexpr int kMinBlocks = 8;
-
-template <typename T, int Warps>
-struct Scratch {
-  T sum[Warps][4];
-  T av[Warps];
-  int ai[Warps], as[Warps];
-};
-
-// The block's first minimum, on every thread; one barrier
-template <typename T, int Warps>
-__device__ void block_argmin(T& v, int& i, int& s, Scratch<T, Warps>& sh) {
-  warp_argmin(v, i, s);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    sh.av[warp] = v;
-    sh.ai[warp] = i;
-    sh.as[warp] = s;
-  }
-  __syncthreads();
-  v = sh.av[0];
-  i = sh.ai[0];
-  s = sh.as[0];
-  for (int w = 1; w < Warps; ++w)
-    if (before(sh.av[w], sh.ai[w], v, i)) {
-      v = sh.av[w];
-      i = sh.ai[w];
-      s = sh.as[w];
-    }
-}
-
-// Four block sums, on every thread, in a fixed tree; one barrier
-template <typename T, int Warps>
-__device__ void block_sum4(T (&v)[4], Scratch<T, Warps>& sh) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] = warp_sum(v[k]);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0)
-    for (int k = 0; k < 4; ++k) sh.sum[warp][k] = v[k];
-  __syncthreads();
-  for (int k = 0; k < 4; ++k) {
-    T acc = sh.sum[0][k];
-    for (int w = 1; w < Warps; ++w) acc += sh.sum[w][k];
-    v[k] = acc;
-  }
-}
 
 // out[row] = M[row, :] . v for rows [0, rows), a warp per row (lane 0
 // writes)
@@ -153,13 +109,6 @@ __device__ void rank_one(T* M, const T* a, const T* b, int n) {
 #pragma unroll 1
     for (; j < n; j += 32) Mi[j] = upd(Mi[j], ai, b[j]);
   }
-}
-
-template <typename T>
-size_t smem_bytes(int n, int m) {
-  const size_t b = (8 * (size_t)n + 2 + m) * sizeof(T) +
-                   (m + 3 * (size_t)n) * 4;
-  return (b + 15) / 16 * 16;
 }
 
 // The state lies in the wrapper's fresh contiguous tensors and is updated
@@ -543,4 +492,52 @@ extern "C" int jrlqp_fast_loop_config(int n, int m, int dbl, int* out) {
                     : config_t<double, 128>(n, m, out);
   return n >= 256 ? config_t<float, 256>(n, m, out)
                   : config_t<float, 128>(n, m, out);
+}
+
+JRLQP_FAST_LOOP_ONCHIP_DECLARE(10)
+JRLQP_FAST_LOOP_ONCHIP_DECLARE(13)
+JRLQP_FAST_LOOP_ONCHIP_DECLARE(16)
+JRLQP_FAST_LOOP_ONCHIP_DECLARE(20)
+
+// the on-chip instance in f32: the streamed entry's arguments and the
+// cluster size; the source compiled for n's columns a lane
+extern "C" int jrlqp_fast_loop_onchip_f32(const void* G, const void* C,
+                                          const void* l, const void* u,
+                                          const void* xl, const void* xu,
+                                          const void* hscale, void* x,
+                                          void* f, void* H, void* Ns,
+                                          void* status, void* aorder,
+                                          void* uu, void* scal, int B, int n,
+                                          int m, int cluster, int max_iter,
+                                          double big_bnd, double zero_z,
+                                          double dep_eps, void* stream) {
+#define JRLQP_ONCHIP_NC(NC)                                                 \
+  case NC:                                                                  \
+    return jrlqp_fast_loop_onchip_nc##NC(G, C, l, u, xl, xu, hscale, x, f,  \
+                                         H, Ns, status, aorder, uu, scal, B, \
+                                         n, m, cluster, max_iter, big_bnd,   \
+                                         zero_z, dep_eps, stream);
+  switch (onchip_cols(n)) {
+    JRLQP_ONCHIP_NC(10)
+    JRLQP_ONCHIP_NC(13)
+    JRLQP_ONCHIP_NC(16)
+    JRLQP_ONCHIP_NC(20)
+  }
+#undef JRLQP_ONCHIP_NC
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int jrlqp_fast_loop_onchip_config(int n, int m, int cluster,
+                                             int* out) {
+  switch (onchip_cols(n)) {
+    case 10:
+      return jrlqp_fast_loop_onchip_config_nc10(n, m, cluster, out);
+    case 13:
+      return jrlqp_fast_loop_onchip_config_nc13(n, m, cluster, out);
+    case 16:
+      return jrlqp_fast_loop_onchip_config_nc16(n, m, cluster, out);
+    case 20:
+      return jrlqp_fast_loop_onchip_config_nc20(n, m, cluster, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }

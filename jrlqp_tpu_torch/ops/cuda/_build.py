@@ -74,6 +74,8 @@ _SIGNATURES = {
     # stream
     "jrlqp_fast_loop_f32": [_P] * 15 + [_I] * 4 + [_D] * 3 + [_P],
     "jrlqp_fast_loop_f64": [_P] * 15 + [_I] * 4 + [_D] * 3 + [_P],
+    # K11's on-chip instance: the same, with the cluster size after m
+    "jrlqp_fast_loop_onchip_f32": [_P] * 15 + [_I] * 5 + [_D] * 3 + [_P],
     # K13: diag, off, u, v, r; t, g; B, nb, s, gtype; stream
     "jrlqp_struct_gmul": [_P] * 7 + [_I] * 4 + [_P],
     # K14: C, idx, sgn, a, b, dx, dlam, dy; x, lam, y, ntx, w in place; r1,
@@ -180,6 +182,9 @@ def library() -> ctypes.CDLL:
             lib.jrlqp_fast_loop_config.argtypes = [
                 _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
             lib.jrlqp_fast_loop_config.restype = _I
+            lib.jrlqp_fast_loop_onchip_config.argtypes = [
+                _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+            lib.jrlqp_fast_loop_onchip_config.restype = _I
             lib.jrlqp_carry_init_config.argtypes = [
                 _I, _I, ctypes.POINTER(ctypes.c_int)]
             lib.jrlqp_carry_init_config.restype = _I

@@ -1847,6 +1847,104 @@ def test_fast_loop_config_fits_the_ik_batch_in_one_wave(cuda_device):
     assert fast_loop.fast_loop_config(387, 36)["blocks_per_sm"] >= 8
 
 
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@functools.lru_cache(maxsize=1)
+def _ik_cold_onchip(device):
+    """The IK cold batch at 1024 lanes (its state after the init) and the
+    streamed instance's final state from it."""
+    pb, opt, st0 = _ik_state(ik_batch(1024, seed=3), device)
+    return pb, opt, st0, fast_loop._launch(
+        "jrlqp_fast_loop_f32", pb, st0, opt, fast._dep_eps(torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start, n, m, cluster", [
+    ("cold", 387, 36, 3), ("warm step", 387, 36, 3), ("hints", 387, 36, 3),
+    ("lane kinds", 387, 36, 3), ("lane kinds", 300, 20, 2),
+    ("lane kinds", 480, 36, 5), ("lane kinds", 600, 36, 8)])
+def test_fast_loop_onchip_equals_streamed_bit_for_bit(cuda_device, start, n,
+                                                      m, cluster):
+    # K11's two instances through their C entry points at the IK shape (n =
+    # 387, m = 36, f32: clusters of 3 blocks on chip): the same bits in x,
+    # f, u, H, N*, status, aorder and the scalars from the IK cold batch's
+    # state, from a carried warm step off K11's final state (most lanes end
+    # at their first selection: their H is never loaded and comes back as
+    # it went in), from the hint init's state on the IK batch (rows hinted
+    # wrongly), and from jr_card_batch's lane kinds (the box lanes' bound
+    # candidates and removals, equality rows, fixed variables, the
+    # INFEASIBLE lane) drawn at the IK shape and at a width of each other
+    # source the instance is compiled from (10, 16 and 20 columns a lane)
+    pb, opt, st0, cold = _ik_cold_onchip(cuda_device)
+    plan = fast_loop.fast_loop_plan(n, m, torch.float32)
+    assert (plan["instance"], plan["cluster"]) == ("onchip", cluster)
+    if start == "warm step":
+        d = ik_batch(1024, seed=3)
+        sg, a, sc, lo, up = _ik_problem(ik_step(d, 0.02,
+                                                np.random.default_rng(4)),
+                                        GType.TRI_BLOCK_DIAGONAL, cuda_device)
+        _, pb, _ = ssolver._problems(sg, a, sc, lo, up, None, None, opt)
+        st0 = fast._init_fast_from_carry(pb, cold.H, cold.Ns, cold.status,
+                                         cold.aorder, cold.q)
+    elif start == "hints":
+        hints = cold.status.clone()
+        act = hints[:, :pb.m] != 0
+        rows = torch.arange(pb.batch, device=cuda_device)
+        even = rows % 2 == 0
+        hints[rows[even], act.long().argmax(dim=1)[even]] = 0
+        hints[rows[~even], (~act).long().argmax(dim=1)[~even]] = 1  # LOWER
+        opt = opt.with_(warm_start=True)
+        st0 = fast._init_fast_warm(pb, hints, opt)
+        assert int(st0.q.min()) > 0
+    elif start == "lane kinds":
+        batch = 256 if n == 387 else 64
+        pb = problem_from_numpy(**jr_card_batch(n, m, batch, seed=n + 25),
+                                device=cuda_device).with_dtype(torch.float32)
+        opt = _fast_opt(torch.float32, max_iter=800)
+        st0 = fast._init_fast(pb, opt)
+    dep = fast._dep_eps(torch.float32)
+    streamed = (cold if start == "cold" else fast_loop._launch(
+        "jrlqp_fast_loop_f32", pb, st0, opt, dep))
+    onchip = fast_loop._launch("jrlqp_fast_loop_onchip_f32", pb, st0, opt,
+                               dep, plan["cluster"])
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(onchip):
+        assert torch.equal(_bits(getattr(onchip, f.name)),
+                           _bits(getattr(streamed, f.name))), (start, f.name)
+    its = onchip.it - st0.it
+    removals = (its - (onchip.q - st0.q)) // 2
+    print(f"{start} n={n}: iterations {int(its.sum())}, lanes without a "
+          f"step {int((its == 0).sum())}, removals {int(removals.sum())}")
+    if start == "warm step":
+        still = its == 0
+        assert int(still.sum()) > pb.batch // 2
+        assert torch.equal(_bits(onchip.H[still]), _bits(st0.H[still]))
+    if start == "lane kinds":
+        assert int((removals > 0).sum()) > 0
+    # the engine's dispatch launches the on-chip instance, counted twice
+    k11, on = spans.counter("launch.K11"), spans.counter("launch.K11.onchip")
+    out = fast._run_loop(pb, st0, opt)
+    torch.cuda.synchronize()
+    assert (spans.counter("launch.K11"), spans.counter("launch.K11.onchip")) \
+        == (k11 + 1, on + 1)
+    assert torch.equal(_bits(out.H), _bits(onchip.H))
+
+
+@pytest.mark.cuda
+def test_fast_loop_onchip_config_fits_a_cluster(cuda_device):
+    # the on-chip instance at the IK shape: 256 threads, the Python plan's
+    # shared bytes a block under a block's 232,448 B, clusters of 3 that the
+    # card can hold resident, no spills
+    cfg = fast_loop.fast_loop_config(387, 36, torch.float32, "onchip")
+    print(cfg)
+    plan = fast_loop.fast_loop_plan(387, 36, torch.float32)
+    assert cfg["threads"] == 256 and cfg["cluster"] == plan["cluster"] == 3
+    assert cfg["smem_bytes"] == plan["smem_bytes"] < 232448
+    assert cfg["active_clusters"] > 0 and cfg["local_bytes"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_kind", ["blocks", "dense"])
 @pytest.mark.parametrize("gtype", list(GType))

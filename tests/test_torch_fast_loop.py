@@ -331,6 +331,52 @@ def test_k11_entry_points_are_declared(entry):
     assert _c_params("jrlqp_fast_loop_config") == ["I", "I", "I", "P"]
 
 
+def test_k11_onchip_entry_point_is_declared():
+    # the on-chip instance's entry: the streamed entry's parameters with the
+    # cluster size after m; its config takes (n, m, cluster, out)
+    kinds = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_double: "D"}
+    entry = "jrlqp_fast_loop_onchip_f32"
+    sig = [kinds[t] for t in _build._SIGNATURES[entry]]
+    assert sig == ["P"] * 15 + ["I"] * 5 + ["D"] * 3 + ["P"]
+    assert _c_params(entry) == sig
+    assert _c_params("jrlqp_fast_loop_onchip_config") == ["I", "I", "I", "P"]
+
+
+@pytest.mark.parametrize("n, m, dtype, instance, cluster", [
+    (387, 36, F32, "onchip", 3),       # the IK width: 129 rows a block
+    (50, 100, F32, "streamed", 1),     # the headline width, 128 threads
+    (387, 36, F64, "streamed", 1),     # f64 stays streamed
+    (640, 36, F32, "streamed", 1),     # 80 rows a block overflow 8 blocks
+    (256, 0, F32, "onchip", 2),        # the first 256-thread width
+    (255, 36, F32, "streamed", 1)])
+def test_fast_loop_plan_chooses_the_instance(n, m, dtype, instance, cluster):
+    # the on-chip instance where f32 at n >= 256 fits H in a cluster of at
+    # most 8 blocks, in the smallest such cluster; the streamed one else
+    plan = fast_loop.fast_loop_plan(n, m, dtype)
+    assert (plan["instance"], plan["cluster"]) == (instance, cluster)
+    base = fast_loop.fast_loop_smem_bytes(n, m, 8 if dtype == F64 else 4)
+    if instance == "onchip":
+        base += (8 * m + 16 * n + 15) // 16 * 16  # l, u, xl, xu, z, r
+        band = -(-n // cluster)
+        assert plan["smem_bytes"] == base + band * n * 4 < 232448
+        smaller = base + -(-n // (cluster - 1)) * n * 4
+        assert smaller > fast_loop._SMEM_LIMIT
+    else:
+        assert plan["smem_bytes"] == base
+
+
+def test_k11_onchip_byte_model():
+    # one lane of 5 iterations from q = 1 to 2 (3 adds, 2 removals at q =
+    # 1.5) at (n, m) = (4, 5) in clusters of 2, f32: H read and written
+    # once (32); an add mn + cn + 3qn = 20 + 8 + 18, a removal n^2 + cn +
+    # 4qn = 16 + 8 + 24; a lane that does not step moves no H
+    five, zero = torch.tensor([5]), torch.tensor([0])
+    q0, q1 = torch.tensor([1]), torch.tensor([2])
+    assert fast_loop.fast_loop_onchip_bytes(five, q0, q1, 4, 5, 4, 2) == \
+        4 * (32 + 3 * 46 + 2 * 48)
+    assert fast_loop.fast_loop_onchip_bytes(zero, q0, q0, 4, 5, 4, 2) == 0
+
+
 def test_k11_bound_counts():
     # one lane: 5 iterations from q = 1 to q = 2, so 3 adds and 2
     # removals at q = 1.5, (n, m) = (4, 5): an add 2mn + 4n^2 + 4qn =
